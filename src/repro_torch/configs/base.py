@@ -1,0 +1,45 @@
+"""Architecture config schema (the port's own copy of the dense subset).
+
+``ArchConfig`` keeps the field names and defaults of the reference schema
+for every field the dense transformer reads, so a config written for one
+package reads the same in the other. Family-specific fields the port does
+not run yet (MoE, SSM, RWKV, cross-attention, encoder-decoder) are left
+out until their slice lands.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+Family = Literal["dense", "moe", "ssm", "vlm", "audio", "hybrid"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int = 0
+    d_head: int = 0                    # 0 -> d_model // n_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+    norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
+    mlp: Literal["gated", "plain"] = "gated"
+    act: str = "silu"
+    qkv_bias: bool = False
+    rope_pct: float = 1.0              # fraction of head dim rotated
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    sliding_window: int = 0            # 0 = full attention
+    dtype: str = "bfloat16"            # compute/param dtype ("float32" on CPU tests)
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // max(self.n_heads, 1)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,40 @@
+"""Carry parameter trees between the reference package and the port.
+
+The reference's params, taken to numpy (``jax.tree.map(np.asarray,
+params)``), are nested dicts of arrays; ``from_numpy`` turns them into the
+port's nested dicts of tensors with the same keys and layouts: linear
+weights stay (d_out, d_in) and per-layer leaves stay stacked on a leading
+L axis. ``to_numpy`` is the inverse. bfloat16 arrays (ml_dtypes, as JAX
+exports them) travel through their 16-bit pattern; ``to_numpy`` returns
+bf16 tensors as float32, which holds every bf16 value exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf_from_numpy(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def from_numpy(tree, *, device="cpu"):
+    """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device=device) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
+def to_numpy(tree):
+    """Nested dicts of tensors -> nested dicts of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -1,0 +1,38 @@
+"""Plain PyTorch oracles, the port's copy of the reference's ``kernels/ref.py``.
+
+Intentionally simple and dense — tests compare kernels and chunked paths
+against them at small sizes; production paths never call them.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def swap_argmin_ref(w, m, c, G):
+    """Jointly-best 1-swap per row via the dense ΔL matrix; ties to the
+    smallest flat index u·d + p. Returns (dl*, u*, p*) each (R,)."""
+    w32 = w.float()
+    c32 = c.float()
+    g_diag = torch.diagonal(G).float()
+    quad = (w32 * w32) * g_diag[None, :]
+    a = torch.where(m > 0.5, 2.0 * w32 * c32 + quad, float("inf"))
+    b = torch.where(m > 0.5, float("inf"), -2.0 * w32 * c32 + quad)
+    inter = 2.0 * torch.einsum("ru,rp,up->rup", w32, w32, G.float())
+    dl = a[:, :, None] + b[:, None, :] - inter
+    R, d, _ = dl.shape
+    flat = dl.reshape(R, d * d)
+    idx = torch.argmin(flat, dim=1)
+    best = flat.gather(1, idx[:, None])[:, 0]
+    return best, idx // d, idx % d
+
+
+def gram_xtx_ref(x):
+    """Xᵀ X with fp32 accumulation. x: (..., tokens, d) any float dtype."""
+    x32 = x.reshape(-1, x.shape[-1]).float()
+    return x32.T @ x32
+
+
+def gram_accum_ref(G, x):
+    """G + xᵀ x with fp32 accumulation. x: (tokens, d) any float dtype."""
+    x32 = x.float()
+    return G.float() + x32.T @ x32

@@ -1,0 +1,53 @@
+"""Model registry: ``build(cfg) -> ModelApi``, dense family.
+
+The surface mirrors the reference's ``ModelApi`` for the calls the pruning
+path makes:
+
+    init(seed=0, device="cuda") -> params
+    loss(params, batch, masks=None, want_taps=False, tap_policy=None)
+        -> (loss, aux_dict)
+    forward(params, batch, masks=None, want_taps=False, tap_policy=None)
+        -> (hidden, taps, aux)
+
+Caches, prefill and decode come with the serving slice; the MoE, SSM,
+RWKV, VLM and encoder-decoder families with theirs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.configs.base import ArchConfig
+
+from . import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ArchConfig
+    init: Callable
+    loss: Callable
+    forward: Callable
+    module: Any
+
+
+def build(cfg: ArchConfig) -> ModelApi:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the port runs the dense family so far, not {cfg.family!r}")
+    mod = transformer
+    return ModelApi(
+        cfg=cfg,
+        init=lambda seed=0, device="cuda": mod.init_params(
+            cfg, seed=seed, device=device),
+        loss=lambda p, b, masks=None, want_taps=False, tap_policy=None:
+            mod.loss_fn(p, b, cfg, masks=masks, want_taps=want_taps,
+                        tap_policy=tap_policy),
+        forward=lambda p, b, masks=None, want_taps=False, tap_policy=None:
+            mod.forward(p, b, cfg, masks=masks, want_taps=want_taps,
+                        tap_policy=tap_policy),
+        module=mod,
+    )
+
+
+__all__ = ["ModelApi", "build"]

@@ -1,0 +1,176 @@
+"""Shared model building blocks.
+
+Conventions (as in the reference package):
+* params are nested dicts of tensors; linear weights are (d_out, d_in) —
+  the paper's orientation, so pruning masks apply as ``(M ⊙ W)``;
+* every prunable linear goes through ``dense``, which applies an optional
+  pruning mask and, when given a ``Taps``, accumulates the calibration
+  statistics of its input (paper §2.1.2);
+* the compute dtype follows the params (bf16 on the card); Gram taps and
+  norms are fp32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+class TapPolicy:
+    """Decides what calibration statistics a tap site emits, and how.
+
+    * ``fields(name)`` — which of ``("g", "s", "n")`` the tap named
+      ``name`` emits: the (d, d) Gram contribution, the feature sums and
+      the token count. An empty tuple skips the tap.
+    * ``gram(x2)`` — XᵀX for a flattened (tokens, d) fp32 chunk.
+      Calibration installs a policy that sends it to the CUDA kernel
+      (``repro_torch.pruning.calibrate.CalibSpec``).
+    """
+
+    def fields(self, name: str) -> tuple[str, ...]:
+        return ("g", "s", "n")
+
+    def gram(self, x2: torch.Tensor) -> torch.Tensor:
+        return x2.T @ x2
+
+
+DEFAULT_TAP_POLICY = TapPolicy()
+
+
+class Taps:
+    """One layer's tap entries, ``entries[name] = {g, s, n}``, and the
+    policy that computes them. The reference keeps the policy in a
+    module-level variable; here it travels with the entries."""
+
+    def __init__(self, policy: TapPolicy | None = None):
+        self.policy = policy or DEFAULT_TAP_POLICY
+        self.entries: dict[str, dict] = {}
+
+
+def emit_tap(taps: Taps, name: str, x: torch.Tensor) -> None:
+    """Accumulate ``x``'s calibration statistics into ``taps.entries[name]``
+    (created on first use), as ``taps.policy`` selects them."""
+    pol = taps.policy
+    fields = pol.fields(name)
+    if not fields:
+        return
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    ent = {}
+    if "g" in fields:
+        ent["g"] = pol.gram(x2)
+    if "s" in fields:
+        ent["s"] = x2.sum(0)
+    if "n" in fields:
+        ent["n"] = torch.tensor(float(x2.shape[0]), device=x2.device)
+    prev = taps.entries.get(name)
+    taps.entries[name] = ent if prev is None else {
+        k: prev[k] + v for k, v in ent.items()}
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def normal_init(gen: torch.Generator, shape, scale: float, dtype,
+                device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (scale * x).to(dtype)
+
+
+def linear_init(gen: torch.Generator, d_out: int, d_in: int, dtype,
+                device) -> torch.Tensor:
+    return normal_init(gen, (d_out, d_in), d_in ** -0.5, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# dense layer with mask + gram tap
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor, *, mask: torch.Tensor | None = None,
+          tap: str | None = None, taps: Taps | None = None,
+          bias: torch.Tensor | None = None, act: str | None = None) -> torch.Tensor:
+    """y = act(x @ (mask ⊙ w)ᵀ + bias). x: (..., d_in), w: (d_out, d_in).
+
+    With a ``Taps`` and a ``tap`` name, first accumulates the statistics
+    of ``x`` under that name (``emit_tap``).
+    """
+    if taps is not None and tap is not None:
+        emit_tap(taps, tap, x)
+    if mask is not None:
+        w = w * mask.to(w.dtype)
+    y = x @ w.T.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if act is not None:
+        y = ACTS[act](y)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms and activations
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def relu2(x):
+    r = F.relu(x)
+    return r * r
+
+
+def _gelu_tanh(x):
+    # the reference's jax.nn.gelu default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+ACTS = {
+    "silu": F.silu,
+    "gelu": _gelu_tanh,
+    "relu2": relu2,
+    "relu": F.relu,
+}
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_rot: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
+    return 1.0 / theta ** exps
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, pct: float = 1.0,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding on the leading ``pct`` fraction of the head dim.
+
+    x: (B, S, H, Dh); positions: (B, S). Pairs are interleaved
+    (dims 2i, 2i+1), as in the reference.
+    """
+    dh = x.shape[-1]
+    d_rot = int(dh * pct) // 2 * 2
+    if d_rot == 0:
+        return x
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    freqs = rope_freqs(d_rot, theta, device=x.device)         # (d_rot/2,)
+    ang = positions[..., None].float() * freqs                 # (B, S, d_rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1 = xr[..., 0::2].float()
+    x2 = xr[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([out, xp], dim=-1)

@@ -1,0 +1,59 @@
+"""Post-pruning evaluation: perplexity + a zero-shot-style accuracy proxy.
+
+Offline stand-ins for the paper's WikiText perplexity and zero-shot
+accuracy: perplexity on the synthetic validation split, and next-token
+top-1 accuracy on held-out sequences.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.data import synthetic
+from repro_torch.models import ModelApi
+
+
+def val_batches(cfg_arch, *, n_batches: int = 4, batch: int = 8,
+                seq: int = 128, seed: int = 0, device="cuda"):
+    corpus = synthetic.CorpusConfig(cfg_arch.vocab_size, seed=seed)
+    pipe = synthetic.DataPipeline(corpus, batch, seq, split="val",
+                                  device=device)
+    return [pipe.get(i) for i in range(n_batches)]
+
+
+@torch.no_grad()
+def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:
+    """Token-weighted mean-CE perplexity over an iterable of batches."""
+    tot, n = 0.0, 0.0
+    for b in batches:
+        _, aux = api.loss(params, b, masks=masks)
+        cnt = float((b["labels"] >= 0).sum())
+        tot += float(aux["ce"]) * cnt
+        n += cnt
+    return math.exp(tot / max(n, 1.0))
+
+
+@torch.no_grad()
+def top1_accuracy(api: ModelApi, params, batches, *, masks=None) -> float:
+    """Zero-shot proxy: next-token top-1 accuracy (higher is better)."""
+    hits, total = 0.0, 0.0
+    for b in batches:
+        hidden, _, _ = api.forward(params, b, masks=masks)
+        logits = api.module.lm_head(params, hidden, api.cfg)
+        pred = torch.argmax(logits, dim=-1)
+        valid = b["labels"] >= 0
+        hits += float(((pred == b["labels"]) & valid).sum())
+        total += float(valid.sum())
+    return hits / max(total, 1.0)
+
+
+def evaluate(api: ModelApi, params, *, masks=None, n_batches: int = 4,
+             batch: int = 8, seq: int = 128, seed: int = 0,
+             device="cuda") -> dict:
+    bs = val_batches(api.cfg, n_batches=n_batches, batch=batch, seq=seq,
+                     seed=seed, device=device)
+    return {
+        "perplexity": perplexity(api, params, bs, masks=masks),
+        "accuracy": top1_accuracy(api, params, bs, masks=masks),
+    }

@@ -8,6 +8,8 @@ import jax.numpy as jnp
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (subprocess lower+compile)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU and nvcc; skips without them")
 
 
 @pytest.fixture

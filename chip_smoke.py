@@ -32,10 +32,10 @@ and its time:
 5. second path — ``refine(k_swaps=1, t_max=2)`` on layer 0's w_down with
    its calibration Gram, so ``swap_argmin`` runs; asserts it launched,
    monotone losses, and tracked losses equal to recomputed ones.
-6. breakdown — the main path once more under ``torch.profiler``: the
-   device-busy share of its wall time and the kernels with the most
-   device time (launch counts above come from phases 4 and 5 alone).
-7. the kernels line, the card line, and last {"ok": true, "device": ...}.
+6. the kernels line, the card line, and last {"ok": true, "device": ...}.
+
+Where the main path's device time goes is measured apart from this
+script, by ``python -m repro_torch.launch.profile_prune``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 script is not inside a checkout of the repository.
@@ -227,37 +227,6 @@ def check_gram(T: int, d: int) -> dict:
     return out
 
 
-def device_breakdown(fn, top: int = 8) -> None:
-    """Run ``fn()`` under torch.profiler; print the device-busy share of
-    the wall time and the kernels with the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    per_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = per_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us()
-            acc[1] += 1
-    busy = sum(v[0] for v in per_name.values()) / 1e6
-    if not per_name:
-        log("   device breakdown: not measured (the profiler saw no kernels)")
-        return
-    log(f"   profiled wall {wall:.2f} s, device busy {busy:.2f} s "
-        f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
-    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"     {us / 1e3:10.1f} ms {100 * us / 1e6 / busy:5.1f}% {n:6d}x  "
-            f"{name[:80]}")
-
-
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -375,11 +344,6 @@ def main() -> int:
         require(masks.validate_mask(res.mask, pattern),
                 "per-row sparsity not exact")
         require(gap < 1e-3, "tracked losses drift from recomputed ones")
-
-    with Phase("6 where the main path's device time goes (profiled rerun)"):
-        device_breakdown(lambda: pruning.prune_model(
-            api, params, batches, pattern, warmstart="wanda",
-            method="sparseswaps", t_max=T_MAX))
 
     launches = {"gram_xtx": main_launches["gram_xtx"],
                 "swap_topk": main_launches["swap_topk"],

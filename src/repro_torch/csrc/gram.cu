@@ -42,7 +42,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_kernel(const T* __restrict__ x, float* __restrict__ out, int n_tok,
-            int d, int accumulate) {
+            int d) {
   const int bi = blockIdx.y;
   const int bj = blockIdx.x;
   if (bi > bj) return;  // mirrored by block (bj, bi)
@@ -97,24 +97,18 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ out, int n_tok,
     for (int c = 0; c < TM; ++c) {
       const int gj = j0 + tx * TM + c;
       if (gj >= d) continue;
-      const float v = acc[r][c];
-      float* o = out + (size_t)gi * d + gj;
-      *o = accumulate ? __fadd_rn(*o, v) : v;
-      if (bi != bj) {
-        float* om = out + (size_t)gj * d + gi;
-        *om = accumulate ? __fadd_rn(*om, v) : v;
-      }
+      out[(size_t)gi * d + gj] = acc[r][c];
+      if (bi != bj) out[(size_t)gj * d + gi] = acc[r][c];
     }
   }
 }
 
 template <typename T>
-int launch(const void* x, float* out, int n_tok, int d, int accumulate,
-           void* stream) {
+int launch(const void* x, float* out, int n_tok, int d, void* stream) {
   const int nt = (d + BM - 1) / BM;
   dim3 grid(nt, nt);
   gram_kernel<T><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), out, n_tok, d, accumulate);
+      static_cast<const T*>(x), out, n_tok, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -122,20 +116,15 @@ int launch(const void* x, float* out, int n_tok, int d, int accumulate,
 
 extern "C" {
 
-// x: (n_tok, d) row-major fp32; out: (d, d) row-major fp32.
-// accumulate != 0 adds XᵀX into out (G += XᵀX), else overwrites it.
-// Returns cudaGetLastError() after the launch.
-int gram_xtx_f32(const void* x, void* out, int n_tok, int d, int accumulate,
-                 void* stream) {
-  return launch<float>(x, static_cast<float*>(out), n_tok, d, accumulate,
-                       stream);
+// x: (n_tok, d) row-major fp32; out: (d, d) row-major fp32, overwritten
+// with XᵀX. Returns cudaGetLastError() after the launch.
+int gram_xtx_f32(const void* x, void* out, int n_tok, int d, void* stream) {
+  return launch<float>(x, static_cast<float*>(out), n_tok, d, stream);
 }
 
 // Same with bf16 activations (converted to fp32 on load).
-int gram_xtx_bf16(const void* x, void* out, int n_tok, int d, int accumulate,
-                  void* stream) {
-  return launch<__nv_bfloat16>(x, static_cast<float*>(out), n_tok, d,
-                               accumulate, stream);
+int gram_xtx_bf16(const void* x, void* out, int n_tok, int d, void* stream) {
+  return launch<__nv_bfloat16>(x, static_cast<float*>(out), n_tok, d, stream);
 }
 
 }  // extern "C"

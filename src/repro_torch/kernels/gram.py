@@ -26,13 +26,13 @@ def _fn(dtype: torch.dtype):
     lib = build.load("gram")
     fn = getattr(lib, _SYMBOLS[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(x: torch.Tensor, out: torch.Tensor, *, accumulate: bool) -> None:
-    """Run the kernel: out = XᵀX, or out += XᵀX with ``accumulate``.
+def launch(x: torch.Tensor, out: torch.Tensor) -> None:
+    """Run the kernel: out = XᵀX.
 
     x: (T, d) contiguous fp32/bf16 CUDA tensor; out: (d, d) contiguous fp32
     on the same device. The caller checks shapes and devices.
@@ -40,7 +40,6 @@ def launch(x: torch.Tensor, out: torch.Tensor, *, accumulate: bool) -> None:
     T, d = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn(x.dtype)(x.data_ptr(), out.data_ptr(), T, d,
-                           int(accumulate), stream)
+        err = _fn(x.dtype)(x.data_ptr(), out.data_ptr(), T, d, stream)
     if err != 0:
         raise RuntimeError(f"gram_xtx kernel launch failed: CUDA error {err}")

@@ -98,37 +98,16 @@ def swap_topk(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
     return vals, u.long(), p.long()
 
 
-def _gram_input(x: torch.Tensor) -> torch.Tensor:
+def gram_xtx(x: torch.Tensor) -> torch.Tensor:
+    """Xᵀ X (fp32) for activations x: (..., tokens, d), fp32 or bf16."""
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram_xtx takes fp32 or bf16, got {x2.dtype}")
-    return x2.contiguous()
-
-
-def gram_xtx(x: torch.Tensor) -> torch.Tensor:
-    """Xᵀ X (fp32) for activations x: (..., tokens, d), fp32 or bf16."""
-    x2 = _gram_input(x)
+    x2 = x2.contiguous()
     if not _on_cuda(x2):
         return gram_mod.gram_xtx_plain(x2)
     d = x2.shape[1]
     out = torch.empty((d, d), dtype=torch.float32, device=x2.device)
-    gram_mod.launch(x2, out, accumulate=False)
+    gram_mod.launch(x2, out)
     LAUNCHES["gram_xtx"] += 1
     return out
-
-
-def gram_update(G: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Streaming G + Xᵀ X. On the card the kernel adds into ``G`` in place
-    (G must be a contiguous fp32 (d, d) tensor) and returns it; on the CPU
-    a new tensor is returned."""
-    x2 = _gram_input(x)
-    d = x2.shape[1]
-    if G.shape != (d, d):
-        raise ValueError(f"G must be ({d}, {d}), got {tuple(G.shape)}")
-    if not _on_cuda(G, x2):
-        return G.float() + gram_mod.gram_xtx_plain(x2)
-    if G.dtype != torch.float32 or not G.is_contiguous():
-        raise ValueError("gram_update accumulates into a contiguous fp32 G")
-    gram_mod.launch(x2, G, accumulate=True)
-    LAUNCHES["gram_xtx"] += 1
-    return G

@@ -33,16 +33,13 @@ class RefineContext:
     """Per-run knobs every refiner sees.
 
     ``k_swaps``: candidate swaps committed per search pass (None = auto,
-    8). ``t_max`` bounds search PASSES. ``swap_method``: "auto" picks the
-    CUDA kernels for tensors on the card and the reference's dense/chunked
-    rule on the CPU.
+    8). ``t_max`` bounds search PASSES. The search runs the CUDA kernels
+    for tensors on the card and the reference's dense/chunked rule on the
+    CPU.
     """
 
     warmstart: str = "wanda"
     t_max: int = 100
-    eps: float = 0.0
-    swap_method: str = "auto"
-    row_block: int | None = None
     k_swaps: int | None = None
 
 
@@ -103,27 +100,16 @@ def _refine_sparseswaps(W, gram, pattern, ctx):
     """The paper's swap refinement (k-swap), per instance."""
     N, R, d = W.shape
     m0 = _warmstart_batch(W, gram.G, pattern, ctx.warmstart)
-    # auto budgets against N·rb rows, as the reference's batched call does
-    rb = ctx.row_block or R
-    meth = sparseswaps._pick_method(ctx.swap_method, d, N * rb, W.device)
+    # auto budgets against N·R rows, as the reference's batched call does
+    meth = sparseswaps._pick_method("auto", d, N * R, W.device)
     block = pattern.block(d)
     k = sparseswaps._pick_k(ctx.k_swaps, d, block)
-
-    pad = (-R) % rb
-    W32 = W.float()
-    if pad:
-        # converged dummy rows: zero weights under a keep-all mask
-        W32 = torch.cat([W32, W32.new_zeros(N, pad, d)], dim=1)
-        m0 = torch.cat([m0, m0.new_ones(N, pad, d)], dim=1)
-    blocks = []
-    for lo in range(0, W32.shape[1], rb):
-        outs = [sparseswaps._refine_block(
-                    W32[i, lo:lo + rb], m0[i, lo:lo + rb], gram.G[i],
-                    t_max=ctx.t_max, eps=ctx.eps, method=meth, block=block,
-                    chunk=CHUNK, track_history=False, k_swaps=k)
-                for i in range(N)]
-        sparseswaps.record_search_passes(max(o[4] for o in outs), N * rb)
-        blocks.append([torch.stack([o[j] for o in outs]) for j in range(4)])
-    cat = lambda j: torch.cat([b[j] for b in blocks], dim=1)[:, :R]
-    return GroupResult(masks=cat(0), loss_init=cat(1), loss_final=cat(2),
-                       swaps=cat(3))
+    outs = [sparseswaps._refine_block(
+                W[i].float(), m0[i], gram.G[i], t_max=ctx.t_max, eps=0.0,
+                method=meth, block=block, chunk=CHUNK, track_history=False,
+                k_swaps=k)
+            for i in range(N)]
+    sparseswaps.record_search_passes(max(o[4] for o in outs), N * R)
+    stack = lambda j: torch.stack([o[j] for o in outs])
+    return GroupResult(masks=stack(0), loss_init=stack(1),
+                       loss_final=stack(2), swaps=stack(3))

@@ -88,9 +88,6 @@ def prune_model(
     method: str = "sparseswaps",
     warmstart: str = "wanda",
     t_max: int = 100,
-    eps: float = 0.0,
-    swap_method: str = "auto",
-    row_block: int | None = None,
     k_swaps: int | None = None,
     taps: dict | None = None,
     progress: bool = False,
@@ -106,9 +103,8 @@ def prune_model(
             raise ValueError("no taps and no calib_batches to accumulate "
                              "them from")
         taps = calibrate.accumulate(api, params, calib_batches)
-    ctx = engine_lib.RefineContext(warmstart=warmstart, t_max=t_max, eps=eps,
-                                   swap_method=swap_method,
-                                   row_block=row_block, k_swaps=k_swaps)
+    ctx = engine_lib.RefineContext(warmstart=warmstart, t_max=t_max,
+                                   k_swaps=k_swaps)
     groups = sites_lib.enumerate_sites(api.cfg, params, taps)
     site_masks: dict[str, torch.Tensor] = {}
     reports: list[SiteReport] = []

@@ -157,3 +157,13 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.prune(ARCH, tiny=True, device="cuda", verbose=False)
+
+
+def test_profile_prune_runs_on_cpu(capsys):
+    from repro_torch.launch import profile_prune
+
+    profile_prune.main(["--tiny", "--n-layers", "1", "--t-max", "2",
+                        "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert "unprofiled" in out[0]
+    assert out[1].startswith("device time: not measured")

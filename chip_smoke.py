@@ -10,7 +10,7 @@ and its time:
 
 1. device — fail without CUDA; print the card's name and power limit;
    turn TF32 off (fp32 matmuls and convolutions run in full fp32).
-2. build — compile the three CUDA kernels from ``src/repro_torch/csrc``
+2. build — compile the four CUDA kernels from ``src/repro_torch/csrc``
    (one nvcc per source, all at once); print registers, shared memory and
    spills per kernel.
 3. kernel checks — each kernel against its plain PyTorch version at the
@@ -21,6 +21,16 @@ and its time:
    on feasible entries. Times with CUDA events at the w_down shape
    (R = 4096, d = 14336), the plain version's time, ``torch.matmul``'s
    time for the Gram (``library_ms``), and the bound from shapes.
+   ``spmm`` at the serve path's shapes — w_gate (14336 x 4096, silu) and
+   w_down (4096 x 14336), T = 4 (decode) and 128 (prefill), nm24 on a
+   2:4 mask and gathered on a PerRow(0.6) mask — in fp32 (within 1e-5
+   of max|y|: fp32 sums in another order) and bf16 (within one bf16 ulp
+   of the plain element, or 1e-5 of max|y|: the two fp32 sums round to
+   neighbouring bf16 values). Times in bf16 with a cold L2 (flushed
+   before each launch): the kernel, the plain version,
+   ``torch.matmul(x, (W*mask).T)`` on the dense masked weight
+   (``library_ms``, the masked format's cost), and the bound
+   max(2*T*d_out*K at the bf16 tensor-core peak, bytes at the HBM rate).
 4. main path — ``prune_model`` on llama31-8b at full width (d_model 4096,
    32 heads / 8 KV heads, d_ff 14336, vocab 128256) with the depth cut to
    2 layers, bf16, random weights from seed 0: 16 calibration samples x
@@ -32,7 +42,20 @@ and its time:
 5. second path — ``refine(k_swaps=1, t_max=2)`` on layer 0's w_down with
    its calibration Gram, so ``swap_argmin`` runs; asserts it launched,
    monotone losses, and tracked losses equal to recomputed ones.
-6. the kernels line, the card line, and last {"ok": true, "device": ...}.
+6. serve path — the same model and params: PerRow(0.6) masks from phase
+   4 and Wanda 2:4 masks (``prune_model(method="none")``, same
+   calibration). ``ServeEngine`` for dense, masked (both mask sets),
+   nm24 (2:4) and gathered (both mask sets), each ``generate``-ing
+   batch 4 x prompt 32 + 16 new tokens of a synthetic validation prompt.
+   Asserts: every packed generate launched spmm 7 sites x 2 layers x
+   (1 prefill + 15 decode steps) = 224 times; nm24 and gathered give
+   bitwise equal tokens and logits for the 2:4 masks; packed vs masked
+   prefill logits within SERVE_TOL of max|logits| (the masked path
+   rounds each linear's pre-activation to bf16 before the bias and
+   activation, the kernel keeps it in fp32); nm24 holds fewer weight
+   bytes than masked. Prints per format the prefill ms, decode tok/s,
+   weight bytes and ``kernel_used`` (best of 3 warm runs).
+7. the kernels line, the card line, and last {"ok": true, "device": ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -59,10 +82,15 @@ KERNELS = {
                   "src/repro/kernels/swap_topk.py:78"),
     "swap_argmin": ("swap_argmin", "src/repro_torch/csrc/swap_argmin.cu",
                     "src/repro/kernels/swap_argmin.py:33"),
+    "spmm": ("spmm", "src/repro_torch/csrc/spmm.cu",
+             "src/repro/kernels/spmm.py:220"),
 }
 PEAK_FP32 = 67e12        # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 T_MAX = 4                # search passes of the main path (k = 8)
+SERVE_TOL = 0.05         # packed vs masked prefill logits, of max|logits|
+SERVE_GEN = 16           # new tokens per request on the serve path
 
 
 def log(msg: str) -> None:
@@ -112,8 +140,30 @@ def cuda_ms(fn, *, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def cold_ms(fn, *, reps: int) -> float:
+    """Mean device time of ``fn()`` in ms with a cold L2: a 128 MB buffer
+    is rewritten before each launch (the serving loop meets each weight
+    after ~300 MB of others), and CUDA events bracket the launch alone."""
+    import torch
+
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
+          ) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -227,6 +277,142 @@ def check_gram(T: int, d: int) -> dict:
     return out
 
 
+def spmm_tol(want):
+    """Elementwise bound for the spmm checks: 1e-5 of max|y|, and for a
+    bf16 result one bf16 ulp of the plain element as well."""
+    import torch
+
+    w32 = want.float()
+    tol = torch.full_like(w32, 1e-5 * float(w32.abs().max()))
+    if want.dtype == torch.bfloat16:
+        mag = w32.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(mag)) - 7))
+    return tol
+
+
+def check_spmm(d_out: int, d_in: int, act, tag: str) -> dict:
+    """spmm against its plain version at one weight shape, T = 4 and 128,
+    nm24 (2:4) and gathered (PerRow 0.6), fp32 and bf16; bf16 times.
+    Returns {(T, fmt): timings}."""
+    import torch
+    from repro_torch.core import masks, packed
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spmm as spmm_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(d_out + d_in)
+    w = torch.randn(d_out, d_in, generator=gen, device="cuda") * d_in ** -0.5
+    scores = torch.rand(d_out, d_in, generator=gen, device="cuda")
+    mask = {"nm24": masks.make_mask(scores, masks.NM(2, 4)),
+            "gathered": masks.make_mask(scores, masks.PerRow(0.6))}
+    del scores
+    out = {}
+    for T in (4, 128):
+        x32 = torch.randn(T, d_in, generator=gen, device="cuda")
+        for fmt in ("nm24", "gathered"):
+            errs = {}
+            for dt in (torch.float32, torch.bfloat16):
+                pw = packed.pack(w.to(dt), mask[fmt], fmt)
+                x = x32.to(dt)
+                got = ops.spmm(x, pw, act=act)
+                want = spmm_mod.spmm_plain(x, pw, None, act)
+                diff = (got.float() - want.float()).abs()
+                ok = bool((diff <= spmm_tol(want)).all())
+                errs[str(dt).split(".")[1]] = float(diff.max())
+                require(ok and got.dtype == dt,
+                        f"spmm {tag} T={T} {fmt} {dt} out of tolerance")
+            wm = (w * mask[fmt]).to(torch.bfloat16)
+            ms = cold_ms(lambda: ops.spmm(x, pw, act=act), reps=20)
+            plain_ms = cold_ms(lambda: spmm_mod.spmm_plain(x, pw, None, act),
+                               reps=5)
+            lib_ms = cold_ms(lambda: torch.matmul(x, wm.T), reps=20)
+            del wm
+            K = pw.k
+            nbytes = (2 * T * d_in + pw.nbytes + 2 * T * d_out)
+            b_ms, b_by = bound(2.0 * T * d_out * K, nbytes, PEAK_BF16)
+            out[(T, fmt)] = {"max_abs_err": errs["bfloat16"], "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib_ms,
+                             "shape": f"{tag} T={T} {fmt} bf16"}
+            log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {fmt} "
+                f"K={K}: max_abs_err fp32 {errs['float32']:.3e} bf16 "
+                f"{errs['bfloat16']:.3e}; bf16 kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.matmul on masked dense "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{nbytes / 1e6:.1f} MB; kernel at "
+                f"{100 * b_ms / ms:.1f}% of the bound)")
+    return out
+
+
+def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
+    """Phase 6. Returns the spmm launches of one packed generate each."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    specs = {"dense": (None, "dense"), "masked_0.6": (masks60, "masked"),
+             "gathered_0.6": (masks60, "gathered"),
+             "masked_2:4": (masks24, "masked"), "nm24_2:4": (masks24, "nm24"),
+             "gathered_2:4": (masks24, "gathered")}
+    engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
+               for name, (m, fmt) in specs.items()}
+    for name, eng in engines.items():
+        log(f"   {name}: packed in {eng.pack_s:.2f} s, "
+            f"{eng.weight_bytes() / 2**30:.3f} GiB of weights")
+    ops.reset_launches()
+    cold = {}
+    for name, eng in engines.items():
+        before = ops.LAUNCHES["spmm"]
+        cold[name] = eng.generate(prompt, SERVE_GEN)
+        n = ops.LAUNCHES["spmm"] - before
+        packed = specs[name][1] in ("nm24", "gathered")
+        want = 7 * api.cfg.n_layers * SERVE_GEN if packed else 0
+        require(n == want, f"{name}: {n} spmm launches, want {want}")
+    serve_launches = ops.LAUNCHES["spmm"]
+    warm = {name: [] for name in engines}
+    for _ in range(3):
+        for name, eng in engines.items():
+            warm[name].append(eng.generate(prompt, SERVE_GEN))
+    for name, eng in engines.items():
+        B, S = prompt["tokens"].shape
+        pre = min(r.prefill_s for r in warm[name])
+        dec = max(r.tok_s for r in warm[name])
+        log(f"   {name:13s} prefill {1e3 * pre:8.3f} ms "
+            f"({B * S / pre:9.1f} tok/s)  decode {dec:8.1f} tok/s "
+            f"({1e3 / (dec / B):7.3f} ms/step)  weights "
+            f"{eng.weight_bytes():>11d} B  kernel_used {eng.kernel_used}")
+    traces = {name: eng.logits_trace(prompt, SERVE_GEN)
+              for name, eng in engines.items()}
+    toks = {name: [r.tokens for r in warm[name]] + [cold[name].tokens]
+            for name in engines}
+    for name in engines:                      # greedy decode is repeatable
+        require(all(torch.equal(t, toks[name][0]) for t in toks[name]),
+                 f"{name}: tokens differ between runs")
+    require(torch.equal(traces["nm24_2:4"], traces["gathered_2:4"])
+            and torch.equal(toks["nm24_2:4"][0], toks["gathered_2:4"][0]),
+            "nm24 and gathered disagree on the 2:4 masks")
+    log("   nm24 == gathered (2:4 masks): tokens and logits bitwise equal")
+    for packed_name, masked_name in (("nm24_2:4", "masked_2:4"),
+                                     ("gathered_2:4", "masked_2:4"),
+                                     ("gathered_0.6", "masked_0.6")):
+        ref = traces[masked_name][0]
+        scale = float(ref.abs().max())
+        err = float((traces[packed_name][0] - ref).abs().max())
+        prune_gap = float((traces["dense"][0] - ref).abs().max())
+        agree = float((toks[packed_name][0] == toks[masked_name][0])
+                      .float().mean())
+        log(f"   {packed_name} vs {masked_name}: prefill logits max_abs_err "
+            f"{err:.4e} ({err / scale:.2e} of max|logits| {scale:.3f}; "
+            f"dense vs masked {prune_gap:.4e}), greedy tokens agree "
+            f"{100 * agree:.1f}%")
+        require(math.isfinite(err) and err <= SERVE_TOL * scale,
+                f"{packed_name} vs {masked_name} beyond {SERVE_TOL} of "
+                "max|logits|")
+    require(engines["nm24_2:4"].weight_bytes()
+            < engines["masked_2:4"].weight_bytes(),
+            "nm24 holds no fewer weight bytes than masked")
+    return serve_launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -274,6 +460,10 @@ def main() -> int:
         results.update(check_swaps(w, m, c, G, 8, "R=4096 d=14336",
                                    time_it=True))
         del w, m, c, G
+        spmm_res = check_spmm(14336, 4096, "silu", "w_gate")
+        spmm_res.update({(T, f"{fmt} w_down"): r for (T, fmt), r in
+                         check_spmm(4096, 14336, None, "w_down").items()})
+        results["spmm"] = spmm_res[(128, "nm24")]
         torch.cuda.empty_cache()
 
     dev = torch.device("cuda")
@@ -345,9 +535,20 @@ def main() -> int:
                 "per-row sparsity not exact")
         require(gap < 1e-3, "tracked losses drift from recomputed ones")
 
+    with Phase("6 serve path: dense / masked / nm24 / gathered"):
+        from repro_torch.data import synthetic
+
+        rep24 = pruning.prune_model(api, params, batches, masks.NM(2, 4),
+                                    warmstart="wanda", method="none")
+        pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                      4, 32, split="val", device=dev)
+        serve_launches = serve_path(api, params, report.masks, rep24.masks,
+                                    pipe.get(0))
+        log(f"   spmm launches {serve_launches}")
+
     launches = {"gram_xtx": main_launches["gram_xtx"],
                 "swap_topk": main_launches["swap_topk"],
-                "swap_argmin": argmin_launches}
+                "swap_argmin": argmin_launches, "spmm": serve_launches}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]

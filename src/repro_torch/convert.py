@@ -7,11 +7,20 @@ weights stay (d_out, d_in) and per-layer leaves stay stacked on a leading
 L axis. ``to_numpy`` is the inverse. bfloat16 arrays (ml_dtypes, as JAX
 exports them) travel through their 16-bit pattern; ``to_numpy`` returns
 bf16 tensors as float32, which holds every bf16 value exactly.
+
+A reference ``PackedWeight`` leaf (after ``jax.tree.map(np.asarray, ...)``
+its ``values``/``idx`` are numpy arrays) becomes the port's
+``PackedWeight`` with the same arrays and format fields. It is read by
+its attributes, so nothing of the reference is imported.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.packed import PackedWeight
+
+_PACKED_FIELDS = ("values", "idx", "fmt", "d_in", "n", "m")
 
 
 def _leaf_from_numpy(x, device) -> torch.Tensor:
@@ -27,6 +36,11 @@ def from_numpy(tree, *, device="cpu"):
     """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device=device) for k, v in tree.items()}
+    if all(hasattr(tree, f) for f in _PACKED_FIELDS):
+        return PackedWeight(values=_leaf_from_numpy(tree.values, device),
+                            idx=_leaf_from_numpy(tree.idx, device),
+                            fmt=str(tree.fmt), d_in=int(tree.d_in),
+                            n=int(tree.n), m=int(tree.m))
     return _leaf_from_numpy(tree, device)
 
 

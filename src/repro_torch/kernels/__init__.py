@@ -3,6 +3,8 @@
 * ``gram``        — fp32-accumulating Xᵀ X for calibration (paper §2.1.2).
 * ``swap_topk``   — fused k-best swap search (the k-swap hot path).
 * ``swap_argmin`` — fused 1-swap search (paper Eq. 5).
+* ``spmm``        — packed sparse matmul (nm24 / gathered) with the bias
+  and activation fused, for serving.
 
 ``ops`` holds the public wrappers (checks, output allocation, launch
 counters; CPU tensors take the plain versions); ``build`` compiles the

@@ -24,11 +24,20 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # sm_90a: Hopper. No --use_fast_math: the swap kernels compare +inf.
-# -fmad=false: no multiply-add contraction, so the swap kernels evaluate
-# ΔL exactly as the plain PyTorch versions do.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+_COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC")
+_REPORT = ("-Xptxas", "-v")
+# Per-library extra flags. -fmad=false: no multiply-add contraction, so
+# the swap kernels evaluate ΔL exactly as the plain PyTorch versions do
+# (the Gram has always been built alongside them with it). spmm allows
+# contraction.
+_EXTRA = {"gram": ("-fmad=false",), "swap_topk": ("-fmad=false",),
+          "swap_argmin": ("-fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of library ``name``."""
+    return (*_COMMON, *_EXTRA.get(name, ()), *_REPORT)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -56,7 +65,7 @@ def lib_path(name: str) -> Path:
     for f in _sources(name):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -75,7 +84,7 @@ def build(names) -> dict[str, Path]:
         if out.is_file():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc_path(), *nvcc_flags(name), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

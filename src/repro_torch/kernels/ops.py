@@ -13,15 +13,20 @@ a run can show which kernels its main path went through.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import swap_math as sm
+from repro_torch.core.packed import PackedWeight
 
 from . import gram as gram_mod
+from . import spmm as spmm_mod
 from . import swap_argmin as argmin_mod
 from . import swap_topk as topk_mod
 
-LAUNCHES: dict[str, int] = {"gram_xtx": 0, "swap_topk": 0, "swap_argmin": 0}
+LAUNCHES: dict[str, int] = {"gram_xtx": 0, "swap_topk": 0, "swap_argmin": 0,
+                            "spmm": 0}
 
 
 def reset_launches() -> None:
@@ -111,3 +116,85 @@ def gram_xtx(x: torch.Tensor) -> torch.Tensor:
     gram_mod.launch(x2, out)
     LAUNCHES["gram_xtx"] += 1
     return out
+
+
+def spmm(x: torch.Tensor, pw: PackedWeight, *, bias=None,
+         act: str | None = None) -> torch.Tensor:
+    """act(x @ unpack(pw)ᵀ + bias) from an unstacked (d_out, k) packed
+    leaf. x: (..., d_in) fp32 or bf16 -> (..., d_out) in x's dtype; the
+    kernel takes values in x's dtype. ``bias`` (d_out,) and ``act`` (an
+    ``EPILOGUES`` key) run on the fp32 sum. Columns ascend within each
+    row (nm24: within each block), as packing emits them; on the card a
+    bf16 row that breaks this comes out NaN."""
+    if pw.values.ndim != 2:
+        raise ValueError(
+            f"spmm wants an unstacked (d_out, k) PackedWeight; got values "
+            f"of shape {tuple(pw.values.shape)} (spmm_stacked is not ported)")
+    if pw.fmt not in ("nm24", "gathered"):
+        raise ValueError(f"unknown packed format {pw.fmt!r}")
+    d_out, k = pw.values.shape
+    if pw.idx.shape != pw.values.shape:
+        raise ValueError(f"idx {tuple(pw.idx.shape)} and values "
+                         f"{tuple(pw.values.shape)} differ in shape")
+    if pw.fmt == "nm24" and (pw.d_in % pw.m or k != pw.d_in // pw.m * pw.n):
+        raise ValueError(f"nm24 {pw.n}:{pw.m} over d_in={pw.d_in} needs "
+                         f"k = {pw.d_in // max(pw.m, 1) * pw.n}, got {k}")
+    if x.shape[-1] != pw.d_in:
+        raise ValueError(f"x has {x.shape[-1]} features, the weight {pw.d_in}")
+    if act not in spmm_mod._ACT_CODE:
+        raise ValueError(f"unknown epilogue {act!r} "
+                         f"(want one of {sorted(spmm_mod.EPILOGUES)} or None)")
+    if bias is not None and bias.shape != (d_out,):
+        raise ValueError(f"bias must be ({d_out},), got {tuple(bias.shape)}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, pw.d_in)
+    tensors = (x2, pw.values, pw.idx) + (() if bias is None else (bias,))
+    if not _on_cuda(*tensors):
+        return spmm_mod.spmm_plain(x2, pw, bias, act).reshape(*lead, d_out)
+    if x2.dtype not in (torch.float32, torch.bfloat16) or \
+            pw.values.dtype != x2.dtype:
+        raise ValueError(f"the spmm kernel takes fp32 or bf16 x with values "
+                         f"of the same dtype, got {x2.dtype} and "
+                         f"{pw.values.dtype}")
+    want_idx = torch.uint8 if pw.fmt == "nm24" else torch.int32
+    if pw.idx.dtype != want_idx:
+        raise ValueError(f"{pw.fmt} idx must be {want_idx}, got {pw.idx.dtype}")
+    if not (pw.values.is_contiguous() and pw.idx.is_contiguous()):
+        raise ValueError("packed values and idx must be contiguous")
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:                 # the kernel loads x 16 B at a time
+        x2 = x2.clone()
+    if pw.values.data_ptr() % 16 or pw.idx.data_ptr() % 8:
+        pw = dataclasses.replace(pw, values=pw.values.clone(),
+                                 idx=pw.idx.clone())   # 2:4 loads 16 B / 8 B
+    if bias is not None:
+        bias = bias.float().contiguous()
+    y = torch.empty((x2.shape[0], d_out), dtype=x2.dtype, device=x2.device)
+    if x2.shape[0]:
+        spmm_mod.launch(x2, pw, bias, act, y)
+        LAUNCHES["spmm"] += 1
+    return y.reshape(*lead, d_out)
+
+
+def spmm_nm24(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, *,
+              n: int = 2, m: int = 4, d_in: int | None = None, bias=None,
+              act: str | None = None) -> torch.Tensor:
+    """x @ (packed N:M weight)ᵀ with the epilogue fused. ``values``:
+    (d_out, nb·n) kept weights; ``idx``: uint8 within-block positions."""
+    if d_in is None:
+        d_in = values.shape[-1] * m // n
+    pw = PackedWeight(values=values, idx=idx, fmt="nm24", d_in=d_in, n=n,
+                      m=m)
+    return spmm(x, pw, bias=bias, act=act)
+
+
+def spmm_gather(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, *,
+                d_in: int, bias=None, act: str | None = None) -> torch.Tensor:
+    """x @ (gathered weight)ᵀ with the epilogue fused. ``values``:
+    (d_out, k) kept weights; ``idx``: absolute columns per row in any
+    order — sorted here, since the kernel walks them ascending (packing
+    emits them so)."""
+    idx, order = torch.sort(idx.to(torch.int32), dim=-1, stable=True)
+    pw = PackedWeight(values=torch.gather(values, -1, order).contiguous(),
+                      idx=idx.contiguous(), fmt="gathered", d_in=d_in)
+    return spmm(x, pw, bias=bias, act=act)

@@ -26,6 +26,13 @@ def swap_argmin_ref(w, m, c, G):
     return best, idx // d, idx % d
 
 
+def masked_matmul_ref(x, w, mask):
+    """y = x @ (mask ⊙ w)ᵀ in fp32 — pruned-layer forward.
+    x: (B, d_in); w, mask: (d_out, d_in)."""
+    wm = (w * mask).float()
+    return x.float() @ wm.T
+
+
 def gram_xtx_ref(x):
     """Xᵀ X with fp32 accumulation. x: (..., tokens, d) any float dtype."""
     x32 = x.reshape(-1, x.shape[-1]).float()

@@ -1,0 +1,105 @@
+"""Packed sparse matmul with a fused epilogue: the CUDA kernel's launcher,
+its plain PyTorch version, and the epilogue table.
+
+``y = act(x @ (mask ⊙ W)ᵀ + b)`` from a ``core.packed`` format (nm24 or
+gathered). The kernel (``csrc/spmm.cu``) replaces the Pallas TPU kernel
+``src/repro/kernels/spmm.py::_spmm_kernel``; see the source for its
+design and what bounds it. ``repro_torch.kernels.ops.spmm`` (and
+``spmm_nm24``/``spmm_gather``) is the public wrapper.
+
+Both versions compute in fp32 — products, sum, bias and activation —
+and cast once to x's dtype, as the reference's ``_dispatch`` does.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.packed import PackedWeight, unpack
+
+from . import build
+
+
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    r = F.relu(x)
+    return r * r
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # the reference's jax.nn.gelu default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+# activations servable as a fused epilogue; the kernel's codes follow
+# this order (0 = none)
+EPILOGUES = {
+    "silu": F.silu,
+    "gelu": gelu_tanh,
+    "relu": F.relu,
+    "relu2": relu2,
+    "sigmoid": torch.sigmoid,
+}
+_ACT_CODE = {None: 0, **{name: i + 1 for i, name in enumerate(EPILOGUES)}}
+
+
+def apply_epilogue(y: torch.Tensor, bias=None, act: str | None = None):
+    """``act(y + bias)`` — the unfused epilogue, in y's dtype."""
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if act is not None:
+        y = EPILOGUES[act](y)
+    return y
+
+
+def spmm_plain(x2: torch.Tensor, pw: PackedWeight, bias=None,
+               act: str | None = None) -> torch.Tensor:
+    """Unpack to a dense fp32 weight, one matmul, the epilogue in fp32,
+    one cast to x's dtype. x2: (T, d_in); pw unstacked (d_out, k)."""
+    w32 = unpack(pw).float()
+    y = apply_epilogue(x2.float() @ w32.T,
+                       None if bias is None else bias.float(), act)
+    return y.to(x2.dtype)
+
+
+_FNS: dict[str, object] = {}
+
+
+def _lib_fn(name: str, argtypes, restype):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("spmm"), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _FNS[name] = fn
+    return fn
+
+
+def launch(x2: torch.Tensor, pw: PackedWeight, bias, act: str | None,
+           y: torch.Tensor) -> None:
+    """Run the kernel: y = act(x2 @ unpack(pw)ᵀ + bias).
+
+    x2: (T, d_in) contiguous fp32/bf16 CUDA tensor, T > 0, 16-byte
+    aligned; pw.values (d_out, k) contiguous in x2's dtype; pw.idx
+    contiguous uint8 (nm24) or int32 (gathered); bias contiguous fp32
+    (d_out,) or None; y (T, d_out) contiguous in x2's dtype. The caller
+    checks all of it. Split-d_in scratch is allocated here.
+    """
+    T, d_in = x2.shape
+    d_out, k = pw.values.shape
+    kind = 0 if pw.fmt == "nm24" else 1
+    bf16 = int(x2.dtype == torch.bfloat16)
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    run = _lib_fn("spmm_run", [c_ptr] * 6 + [c_int] * 9 + [c_ptr], c_int)
+    with torch.cuda.device(x2.device):
+        n_ws = _lib_fn("spmm_workspace", [c_int] * 7, ctypes.c_longlong)(
+            T, d_in, d_out, pw.n, pw.m, kind, bf16)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=x2.device) \
+            if n_ws else None
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        err = run(x2.data_ptr(), pw.values.data_ptr(), pw.idx.data_ptr(),
+                  None if bias is None else bias.data_ptr(), y.data_ptr(),
+                  None if ws is None else ws.data_ptr(), T, d_in, d_out, k,
+                  pw.n, pw.m, _ACT_CODE[act], kind, bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"spmm kernel launch failed: CUDA error {err}")

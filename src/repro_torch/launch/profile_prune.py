@@ -23,7 +23,7 @@ import torch
 from repro_torch import configs, models, pruning
 from repro_torch.core import masks as masks_lib
 
-from .prune import disable_tf32, resolve_device
+from repro_torch.device import disable_tf32, resolve_device
 
 ARCH = "llama31-8b"
 SEED = 0

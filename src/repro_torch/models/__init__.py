@@ -8,9 +8,13 @@ path makes:
         -> (loss, aux_dict)
     forward(params, batch, masks=None, want_taps=False, tap_policy=None)
         -> (hidden, taps, aux)
+    init_cache(params, batch, s_max) -> cache
+    prefill(params, batch, cache, masks=None) -> (logits, cache)
+    decode_step(params, token, cache, masks=None) -> (logits, cache)
 
-Caches, prefill and decode come with the serving slice; the MoE, SSM,
-RWKV, VLM and encoder-decoder families with theirs.
+The windowed-prefill continuation and rolling caches come with
+continuous batching; the
+MoE, SSM, RWKV, VLM and encoder-decoder families with their slices.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ class ModelApi:
     init: Callable
     loss: Callable
     forward: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
     module: Any
 
 
@@ -46,6 +53,12 @@ def build(cfg: ArchConfig) -> ModelApi:
         forward=lambda p, b, masks=None, want_taps=False, tap_policy=None:
             mod.forward(p, b, cfg, masks=masks, want_taps=want_taps,
                         tap_policy=tap_policy),
+        init_cache=lambda p, batch, s_max: mod.init_decode_cache(
+            p, cfg, batch, s_max),
+        prefill=lambda p, b, cache, masks=None: mod.prefill(
+            p, b, cfg, cache, masks=masks),
+        decode_step=lambda p, tok, cache, masks=None: mod.decode_step(
+            p, tok, cfg, cache, masks=masks),
         module=mod,
     )
 

@@ -6,13 +6,24 @@ Conventions (as in the reference package):
 * every prunable linear goes through ``dense``, which applies an optional
   pruning mask and, when given a ``Taps``, accumulates the calibration
   statistics of its input (paper §2.1.2);
+* a ``core.packed.PackedWeight`` leaf (serving a packed sparse model)
+  dispatches to ``kernels.ops.spmm`` with the bias and activation fused;
 * the compute dtype follows the params (bf16 on the card); Gram taps and
   norms are fp32.
+
+The reference routes ``dense`` through a global ``MatmulPolicy``
+(``use_matmul_policy``, ``kernel=auto|pallas|jnp``). The port has no
+such knob: the device of the tensors decides. On a CUDA tensor a packed
+leaf runs the hand-written spmm kernel; on a CPU tensor it runs the
+kernel's plain version.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.core.packed import PackedWeight
+from repro_torch.kernels import ops
+from repro_torch.kernels.spmm import EPILOGUES, apply_epilogue  # noqa: F401
 
 
 class TapPolicy:
@@ -88,25 +99,29 @@ def linear_init(gen: torch.Generator, d_out: int, d_in: int, dtype,
 def dense(x: torch.Tensor, w: torch.Tensor, *, mask: torch.Tensor | None = None,
           tap: str | None = None, taps: Taps | None = None,
           bias: torch.Tensor | None = None, act: str | None = None) -> torch.Tensor:
-    """y = act(x @ (mask ⊙ w)ᵀ + bias). x: (..., d_in), w: (d_out, d_in).
+    """y = act(x @ (mask ⊙ w)ᵀ + bias). x: (..., d_in), w: (d_out, d_in)
+    or a ``PackedWeight``.
 
     With a ``Taps`` and a ``tap`` name, first accumulates the statistics
-    of ``x`` under that name (``emit_tap``).
+    of ``x`` under that name (``emit_tap``). A packed ``w`` already
+    encodes its mask (``mask`` must be None) and runs ``ops.spmm`` with
+    ``bias``/``act`` fused on the fp32 sum; a dense ``w`` applies them in
+    the compute dtype, as the reference does.
     """
     if taps is not None and tap is not None:
         emit_tap(taps, tap, x)
+    if isinstance(w, PackedWeight):
+        if mask is not None:
+            raise ValueError("PackedWeight already encodes its mask; "
+                             "serve packed params with masks=None")
+        return ops.spmm(x, w, bias=bias, act=act)
     if mask is not None:
         w = w * mask.to(w.dtype)
-    y = x @ w.T.to(x.dtype)
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    if act is not None:
-        y = ACTS[act](y)
-    return y
+    return apply_epilogue(x @ w.T.to(x.dtype), bias, act)
 
 
 # ---------------------------------------------------------------------------
-# norms and activations
+# norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -123,24 +138,6 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     out = (x32 - mu) * torch.rsqrt(var + eps)
     out = out * scale.float() + bias.float()
     return out.to(x.dtype)
-
-
-def relu2(x):
-    r = F.relu(x)
-    return r * r
-
-
-def _gelu_tanh(x):
-    # the reference's jax.nn.gelu default is the tanh approximation
-    return F.gelu(x, approximate="tanh")
-
-
-ACTS = {
-    "silu": F.silu,
-    "gelu": _gelu_tanh,
-    "relu2": relu2,
-    "relu": F.relu,
-}
 
 
 # ---------------------------------------------------------------------------

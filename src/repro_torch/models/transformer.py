@@ -3,11 +3,23 @@
 Layout as in the reference: layer params are stacked on a leading L axis;
 pruning masks mirror the stacked param tree (prunable leaves only); Gram
 taps come back stacked per tap site, (L, d, d) fp32, when ``want_taps``.
-Where the reference scans over layers, the port loops over them.
+A prunable leaf may be a stacked ``core.packed.PackedWeight`` (serving a
+packed model); ``_index`` slices it per layer. Where the reference scans
+over layers, the port loops over them.
+
+Serving: ``init_decode_cache`` -> ``prefill`` (the prompt; fills the KV
+cache) -> ``decode_step`` per new token. The cache is updated in place
+and its clock ``t`` is a Python int, so the decode loop never waits on
+the device for a position.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple
+
 import torch
+
+from repro_torch.core.packed import PackedWeight
 
 from . import attention as attn
 from . import common
@@ -53,7 +65,15 @@ def _index(tree, i: int):
         return None
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, PackedWeight):
+        return dataclasses.replace(tree, values=tree.values[i],
+                                   idx=tree.idx[i])
     return tree[i]
+
+
+class DecodeCache(NamedTuple):
+    kv: attn.KVCache        # leaves stacked (L, ...)
+    t: int                  # next position
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
@@ -80,15 +100,41 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def decoder_layer(p, x, positions, cfg, *, masks=None, taps=None):
-    """One pre-norm decoder layer on unstacked params. Returns x."""
+def decoder_layer(p, x, positions, cfg, *, masks=None, taps=None,
+                  mode: str = "train", cache: attn.KVCache | None = None,
+                  t: int | None = None):
+    """One pre-norm decoder layer on unstacked params.
+
+    ``mode`` is "train", "prefill" (writes the prompt's KV into
+    ``cache``) or "decode" (one token at position ``t`` against
+    ``cache``). Returns x.
+    """
     am = None if masks is None else masks.get("attn")
     h = _apply_norm(p["ln1"], x, cfg)
-    x = x + attn.self_attention(p["attn"], h, positions, cfg, masks=am,
-                                taps=taps)
+    if mode == "decode":
+        a, _ = attn.decode_attention(p["attn"], h, t, cfg, cache, masks=am,
+                                     taps=taps)
+    else:
+        a, _ = attn.self_attention(p["attn"], h, positions, cfg, masks=am,
+                                   taps=taps, cache=cache, mode=mode)
+    x = x + a
     h = _apply_norm(p["ln2"], x, cfg)
     mm = None if masks is None else masks.get("mlp")
     return x + mlp_lib.mlp_block(p["mlp"], h, cfg, masks=mm, taps=taps)
+
+
+def _layer_cache(kv: attn.KVCache, i: int) -> attn.KVCache:
+    """Views of layer ``i`` of a stacked cache (writes go through)."""
+    return attn.KVCache(kv.k[i], kv.v[i], kv.pos[i])
+
+
+def _run_layers(params, x, positions, cfg, *, masks, mode, cache, t=None):
+    m_layers = None if masks is None else masks["layers"]
+    for i in range(cfg.n_layers):
+        x = decoder_layer(_index(params["layers"], i), x, positions, cfg,
+                          masks=_index(m_layers, i), mode=mode,
+                          cache=_layer_cache(cache.kv, i), t=t)
+    return x
 
 
 def forward(params, batch, cfg, *, masks=None, want_taps=False,
@@ -141,3 +187,60 @@ def loss_fn(params, batch, cfg, *, masks=None, want_taps=False,
                                 want_taps=want_taps, tap_policy=tap_policy)
     loss = ce_loss(params, hidden, batch["labels"], cfg)
     return loss + aux, {"ce": loss, "aux": aux, "taps": taps}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(params, cfg, batch: int, s_max: int) -> DecodeCache:
+    """An empty (L, batch, s_max) KV cache on the params' device."""
+    one = attn.init_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
+                          getattr(torch, cfg.dtype),
+                          device=params["embed"].device)
+    L = cfg.n_layers
+    kv = attn.KVCache(*(t.expand(L, *t.shape).clone() for t in one))
+    return DecodeCache(kv=kv, t=0)
+
+
+@torch.no_grad()
+def prefill(params, batch, cfg, cache: DecodeCache, *, masks=None):
+    """Run the prompt, filling the cache. Returns (last-token logits
+    (B, 1, V), cache).
+
+    ``batch["n_valid"]`` (optional int) marks a right-padded prompt: only
+    the first ``n_valid`` tokens are real. The pad tail is masked out of
+    the cache (pos = -1), the logits are taken at position
+    ``n_valid - 1``, and decoding resumes at ``t = n_valid``.
+    """
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = params["embed"][tokens]
+    positions = torch.arange(S, device=tokens.device)
+    x = _run_layers(params, x, positions, cfg, masks=masks, mode="prefill",
+                    cache=cache)
+    kv, t_next, x_last = _finish_prefill(cache.kv, x, S, batch.get("n_valid"))
+    x = _apply_norm(params["ln_f"], x_last, cfg)
+    return lm_head(params, x, cfg), DecodeCache(kv=kv, t=t_next)
+
+
+def _finish_prefill(kv: attn.KVCache, x, S: int, n_valid):
+    """-> (kv with pad keys masked, next position, last REAL hidden state)."""
+    if n_valid is None:
+        return kv, S, x[:, -1:]
+    nv = int(n_valid)
+    # pad slots were written with pos >= n_valid; -1 hides them from every
+    # later query (the decode steps then overwrite them in order)
+    kv.pos.masked_fill_(kv.pos >= nv, -1)
+    return kv, nv, x[:, nv - 1:nv]
+
+
+@torch.no_grad()
+def decode_step(params, token, cfg, cache: DecodeCache, *, masks=None):
+    """One decode step. token: (B, 1) int. Returns (logits (B, 1, V),
+    cache advanced by one position)."""
+    x = params["embed"][token]
+    x = _run_layers(params, x, None, cfg, masks=masks, mode="decode",
+                    cache=cache, t=cache.t)
+    x = _apply_norm(params["ln_f"], x, cfg)
+    return lm_head(params, x, cfg), DecodeCache(kv=cache.kv, t=cache.t + 1)

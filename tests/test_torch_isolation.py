@@ -45,7 +45,9 @@ def test_no_reference_imports(path):
 def test_scan_covers_the_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
     for must in ("launch/prune.py", "kernels/ops.py", "core/sparseswaps.py",
-                 "pruning/pipeline.py", "convert.py"):
+                 "pruning/pipeline.py", "convert.py", "kernels/spmm.py",
+                 "serve/engine.py", "ckpt/store.py", "launch/serve.py",
+                 "core/packed.py"):
         assert must in names
 
 

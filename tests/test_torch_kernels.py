@@ -12,9 +12,12 @@ fp32 rounding, not bit for bit: XLA's CPU backend contracts
 (rtol 1e-5 on |ΔL| scale). Grams sum in another order (rtol 1e-5; bf16
 inputs are exact in fp32, so the same bound holds).
 
-The ``gpu``-marked test holds each CUDA kernel against its plain version
+The ``gpu``-marked tests hold each CUDA kernel against its plain version
 on the card: bitwise for the swap searches (no FMA on either side), a
-relative tolerance for the Gram (fp32 sums in another order).
+relative tolerance for the Gram (fp32 sums in another order), and for
+spmm 1e-5 of max|y| in fp32 and one bf16 ulp (or 1e-5 of max|y|) in
+bf16 — the kernel and the plain matmul sum in other orders — with the
+nm24 and gathered packings of one 2:4 mask bitwise equal.
 """
 import numpy as np
 import pytest
@@ -25,7 +28,9 @@ from repro_torch.core import masks as tmasks  # noqa: E402
 from repro_torch.core import swap_math as sm  # noqa: E402
 from repro_torch.core.warmstart import warmstart_mask  # noqa: E402
 from repro_torch.kernels import gram as gram_mod  # noqa: E402
+from repro_torch.core import packed as tpacked  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
 from repro_torch.kernels import swap_argmin as argmin_mod  # noqa: E402
 from repro_torch.kernels import swap_topk as topk_mod  # noqa: E402
 
@@ -262,4 +267,117 @@ def test_cuda_kernels_match_plain(cuda, d_out, d_in):
         Gp = gram_mod.gram_xtx_plain(xx)
         assert torch.equal(Gk, Gk.T)                          # exact mirror
         torch.testing.assert_close(Gk, Gp, rtol=1e-5, atol=1e-4)
-    assert ops.LAUNCHES == {"gram_xtx": 2, "swap_topk": 2, "swap_argmin": 1}
+    assert ops.LAUNCHES == {"gram_xtx": 2, "swap_topk": 2, "swap_argmin": 1,
+                            "spmm": 0}
+
+
+def _spmm_tol(want: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound: 1e-5 of max|y|, and in bf16 one ulp of the
+    plain element as well."""
+    w32 = want.float()
+    tol = torch.full_like(w32, 1e-5 * float(w32.abs().max()))
+    if want.dtype == torch.bfloat16:
+        mag = w32.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(mag)) - 7))
+    return tol
+
+
+def _spmm_ok(got, want) -> bool:
+    return bool(((got.float() - want.float()).abs() <= _spmm_tol(want)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 4, 5, 8, 9, 37, 130])
+def test_cuda_spmm_matches_plain(cuda, dtype, T):
+    """Both kernels (tensor cores for bf16, CUDA cores for fp32), the
+    decode and prefill tilings, split d_in, every epilogue."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    d_out, d_in = 70, 1200
+    w = torch.randn(d_out, d_in, generator=gen, device=cuda).to(dt)
+    x = torch.randn(2, T, d_in, generator=gen, device=cuda).to(dt)
+    bias = torch.randn(d_out, generator=gen, device=cuda)
+    scores = torch.rand(d_out, d_in, generator=gen, device=cuda)
+    m24 = tmasks.make_mask(scores, tmasks.NM(2, 4))
+    m60 = tmasks.make_mask(scores, tmasks.PerRow(0.6))
+    nm = tpacked.pack(w, m24, "nm24")
+    ga = tpacked.pack(w, m24, "gathered")
+    g60 = tpacked.pack(w, m60, "gathered")
+    x2 = x.reshape(-1, d_in)
+    ops.reset_launches()
+    for act in (None, *spmm_mod.EPILOGUES):
+        b = bias if act in (None, "silu") else None
+        y_nm = ops.spmm(x, nm, bias=b, act=act)
+        assert y_nm.dtype == dt and y_nm.shape == (2, T, d_out)
+        assert torch.equal(y_nm, ops.spmm(x, ga, bias=b, act=act)), act
+        assert _spmm_ok(y_nm.reshape(-1, d_out),
+                        spmm_mod.spmm_plain(x2, nm, b, act)), act
+        got = ops.spmm(x, g60, bias=b, act=act).reshape(-1, d_out)
+        assert _spmm_ok(got, spmm_mod.spmm_plain(x2, g60, b, act)), act
+    # spmm_gather takes columns in any order (it sorts them)
+    perm = torch.randperm(g60.k, generator=gen, device=cuda)
+    vals, idx = g60.values[:, perm], g60.idx[:, perm]
+    got = ops.spmm_gather(x2, vals, idx, d_in=d_in)
+    assert _spmm_ok(got, spmm_mod.spmm_plain(x2, g60))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spmm"] == 3 * len(spmm_mod.EPILOGUES) + 3 + 1
+
+
+@pytest.mark.gpu
+def test_cuda_spmm_contracts(cuda):
+    """bf16 rows whose columns do not ascend come out NaN on the tensor
+    cores; d_in % 8 != 0 and fp32 take the CUDA-core kernel, which sums
+    any column order right."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    d_out, d_in = 40, 1204
+    w = torch.randn(d_out, d_in, generator=gen, device=cuda)
+    x = torch.randn(6, d_in, generator=gen, device=cuda)
+    mask = tmasks.make_mask(torch.rand(d_out, d_in, generator=gen,
+                                       device=cuda), tmasks.PerRow(0.6))
+    for dt in (torch.float32, torch.bfloat16):
+        pw = tpacked.pack(w.to(dt), mask, "gathered")
+        assert _spmm_ok(ops.spmm(x.to(dt), pw),
+                        spmm_mod.spmm_plain(x.to(dt), pw))
+        perm = torch.randperm(pw.k, generator=gen, device=cuda)
+        shuf = tpacked.PackedWeight(values=pw.values[:, perm].contiguous(),
+                                    idx=pw.idx[:, perm].contiguous(),
+                                    fmt="gathered", d_in=d_in)
+        assert _spmm_ok(ops.spmm(x.to(dt), shuf),   # CUDA cores: any order
+                        spmm_mod.spmm_plain(x.to(dt), pw))
+    w8, x8 = w[:, :1200], x[:, :1200]
+    m8 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen, device=cuda),
+                          tmasks.PerRow(0.6))
+    pw = tpacked.pack(w8.to(torch.bfloat16), m8, "gathered")
+    perm = torch.randperm(pw.k, generator=gen, device=cuda)
+    shuf = tpacked.PackedWeight(values=pw.values[:, perm].contiguous(),
+                                idx=pw.idx[:, perm].contiguous(),
+                                fmt="gathered", d_in=1200)
+    assert bool(torch.isnan(ops.spmm(x8.to(torch.bfloat16), shuf)).all())
+    # a dense gathered row (64 slots in every tile), and a column past
+    # d_in: that row only comes out NaN
+    full = tpacked.pack(w8.to(torch.bfloat16), torch.ones_like(w8), "gathered")
+    assert _spmm_ok(ops.spmm(x8.to(torch.bfloat16), full),
+                    spmm_mod.spmm_plain(x8.to(torch.bfloat16), full))
+    idx = pw.idx.clone()
+    idx[5, -1] = 1200 + 3
+    y = ops.spmm(x8.to(torch.bfloat16),
+                 tpacked.PackedWeight(pw.values, idx, "gathered", 1200))
+    assert bool(torch.isnan(y[:, 5]).all())
+    assert not bool(torch.isnan(y[:, :5]).any() or torch.isnan(y[:, 6:]).any())
+    # 2:4 positions that do not ascend within a block: that row only
+    m24 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen,
+                                      device=cuda), tmasks.NM(2, 4))
+    pw = tpacked.pack(w8.to(torch.bfloat16), m24, "nm24")
+    idx = pw.idx.clone()
+    idx[3, :2] = idx[3, :2].flip(0)
+    y = ops.spmm(x8.to(torch.bfloat16),
+                 tpacked.PackedWeight(pw.values, idx, "nm24", 1200, 2, 4))
+    assert bool(torch.isnan(y[:, 3]).all())
+    assert not bool(torch.isnan(y[:, :3]).any() or torch.isnan(y[:, 4:]).any())
+    # other N:M patterns take the CUDA-core kernel
+    m48 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen,
+                                      device=cuda), tmasks.NM(4, 8))
+    pw = tpacked.pack(w8.to(torch.bfloat16), m48, "nm24", n=4, m=8)
+    assert _spmm_ok(ops.spmm(x8.to(torch.bfloat16), pw),
+                    spmm_mod.spmm_plain(x8.to(torch.bfloat16), pw))

@@ -21,13 +21,14 @@ and its time:
    on feasible entries. Times with CUDA events at the w_down shape
    (R = 4096, d = 14336), the plain version's time, ``torch.matmul``'s
    time for the Gram (``library_ms``), and the bound from shapes.
-   ``spmm`` at the serve path's shapes — w_gate (14336 x 4096, silu) and
-   w_down (4096 x 14336), T = 4 (decode) and 128 (prefill), nm24 on a
-   2:4 mask and gathered on a PerRow(0.6) mask — in fp32 (within 1e-5
-   of max|y|: fp32 sums in another order) and bf16 (within one bf16 ulp
-   of the plain element, or 1e-5 of max|y|: the two fp32 sums round to
-   neighbouring bf16 values). Times in bf16 with a cold L2 (flushed
-   before each launch): the kernel, the plain version,
+   ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
+   4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
+   (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
+   and gathered on a PerRow(0.6) mask — in fp32 (within 1e-5 of max|y|:
+   fp32 sums in another order) and bf16 (within one bf16 ulp of the
+   plain element, or 1e-5 of max|y|: the two fp32 sums round to
+   neighbouring bf16 values). Times, at w_gate and w_down, in bf16 with
+   a cold L2 (flushed before each launch): the kernel, the plain version,
    ``torch.matmul(x, (W*mask).T)`` on the dense masked weight
    (``library_ms``, the masked format's cost), and the bound
    max(2*T*d_out*K at the bf16 tensor-core peak, bytes at the HBM rate).
@@ -50,10 +51,12 @@ and its time:
    Asserts: every packed generate launched spmm 7 sites x 2 layers x
    (1 prefill + 15 decode steps) = 224 times; nm24 and gathered give
    bitwise equal tokens and logits for the 2:4 masks; packed vs masked
-   prefill logits within SERVE_TOL of max|logits| (the masked path
-   rounds each linear's pre-activation to bf16 before the bias and
-   activation, the kernel keeps it in fp32); nm24 holds fewer weight
-   bytes than masked. Prints per format the prefill ms, decode tok/s,
+   logits within SERVE_TOL of max|logits| at the prefill and at every
+   decode step, the packed model fed the masked model's greedy tokens
+   (teacher-forced: greedy tokens of near-tied logits part ways), since
+   the masked path rounds each linear's pre-activation to bf16 before
+   the bias and activation and the kernel keeps it in fp32; nm24 holds
+   fewer weight bytes than masked. Prints per format the prefill ms, decode tok/s,
    weight bytes and ``kernel_used`` (best of 3 warm runs).
 7. the kernels line, the card line, and last {"ok": true, "device": ...}.
 
@@ -290,10 +293,11 @@ def spmm_tol(want):
     return tol
 
 
-def check_spmm(d_out: int, d_in: int, act, tag: str) -> dict:
+def check_spmm(d_out: int, d_in: int, act, tag: str, *,
+               time_it: bool = True) -> dict:
     """spmm against its plain version at one weight shape, T = 4 and 128,
-    nm24 (2:4) and gathered (PerRow 0.6), fp32 and bf16; bf16 times.
-    Returns {(T, fmt): timings}."""
+    nm24 (2:4) and gathered (PerRow 0.6), fp32 and bf16; bf16 times when
+    asked. Returns {(T, fmt): timings}."""
     import torch
     from repro_torch.core import masks, packed
     from repro_torch.kernels import ops
@@ -320,6 +324,11 @@ def check_spmm(d_out: int, d_in: int, act, tag: str) -> dict:
                 errs[str(dt).split(".")[1]] = float(diff.max())
                 require(ok and got.dtype == dt,
                         f"spmm {tag} T={T} {fmt} {dt} out of tolerance")
+            if not time_it:
+                log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {fmt} "
+                    f"K={pw.k}: max_abs_err fp32 {errs['float32']:.3e} "
+                    f"bf16 {errs['bfloat16']:.3e}")
+                continue
             wm = (w * mask[fmt]).to(torch.bfloat16)
             ms = cold_ms(lambda: ops.spmm(x, pw, act=act), reps=20)
             plain_ms = cold_ms(lambda: spmm_mod.spmm_plain(x, pw, None, act),
@@ -341,6 +350,28 @@ def check_spmm(d_out: int, d_in: int, act, tag: str) -> dict:
                 f"{nbytes / 1e6:.1f} MB; kernel at "
                 f"{100 * b_ms / ms:.1f}% of the bound)")
     return out
+
+
+def forced_logits(eng, prompt: dict, tokens):
+    """(n_new, B, vocab) fp32 logits of ``eng``'s model at the prefill and
+    at each decode step, fed ``tokens`` (B, n_new) in place of its own
+    greedy choices; the cache is sized as ``generate`` sizes it."""
+    import torch
+    from repro_torch.serve.engine import next_pow2
+
+    api = eng.api
+    B, S = prompt["tokens"].shape
+    n_new = tokens.shape[1]
+    with torch.no_grad():
+        cache = api.init_cache(eng.params, B, next_pow2(S + n_new))
+        logits, cache = api.prefill(eng.params, prompt, cache,
+                                    masks=eng.masks)
+        out = [logits[:, -1].float()]
+        for i in range(n_new - 1):
+            logits, cache = api.decode_step(eng.params, tokens[:, i:i + 1],
+                                            cache, masks=eng.masks)
+            out.append(logits[:, -1].float())
+    return torch.stack(out)
 
 
 def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
@@ -394,15 +425,20 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
     for packed_name, masked_name in (("nm24_2:4", "masked_2:4"),
                                      ("gathered_2:4", "masked_2:4"),
                                      ("gathered_0.6", "masked_0.6")):
-        ref = traces[masked_name][0]
+        ref = traces[masked_name]
+        forced = forced_logits(engines[packed_name], prompt,
+                               toks[masked_name][0])
         scale = float(ref.abs().max())
-        err = float((traces[packed_name][0] - ref).abs().max())
-        prune_gap = float((traces["dense"][0] - ref).abs().max())
+        errs = (forced - ref).abs().amax(dim=(1, 2))      # per position
+        err = float(errs.max())
+        prune_gap = float((traces["dense"][0] - ref[0]).abs().max())
         agree = float((toks[packed_name][0] == toks[masked_name][0])
                       .float().mean())
-        log(f"   {packed_name} vs {masked_name}: prefill logits max_abs_err "
-            f"{err:.4e} ({err / scale:.2e} of max|logits| {scale:.3f}; "
-            f"dense vs masked {prune_gap:.4e}), greedy tokens agree "
+        log(f"   {packed_name} vs {masked_name} (fed the masked tokens): "
+            f"logits max_abs_err prefill {float(errs[0]):.4e}, decode steps "
+            f"{float(errs[1:].max()):.4e} ({err / scale:.2e} of "
+            f"max|logits| {scale:.3f}; dense vs masked prefill "
+            f"{prune_gap:.4e}); free-running greedy tokens agree "
             f"{100 * agree:.1f}%")
         require(math.isfinite(err) and err <= SERVE_TOL * scale,
                 f"{packed_name} vs {masked_name} beyond {SERVE_TOL} of "
@@ -463,6 +499,8 @@ def main() -> int:
         spmm_res = check_spmm(14336, 4096, "silu", "w_gate")
         spmm_res.update({(T, f"{fmt} w_down"): r for (T, fmt), r in
                          check_spmm(4096, 14336, None, "w_down").items()})
+        check_spmm(4096, 4096, None, "wq/wo", time_it=False)
+        check_spmm(1024, 4096, None, "wk/wv", time_it=False)
         results["spmm"] = spmm_res[(128, "nm24")]
         torch.cuda.empty_cache()
 

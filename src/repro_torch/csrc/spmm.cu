@@ -19,11 +19,10 @@
 // multiplies. A 2:4 row's slots of a tile are a static range, loaded 8
 // slots (16 B of values, 8 B of positions) per lane; a gathered row keeps
 // a cursor that a warp advances 32 slots at a time with a ballot (64
-// slots prefetched), so its columns must ascend strictly (as packing
-// emits them): a row whose columns do not, or whose nm24 positions do
-// not ascend within a block, is flagged and comes out NaN. When the row
-// blocks are too few to fill the card (decode, narrow layers), d_in is
-// split over blockIdx.z and a second kernel adds the fp32 partials in
+// slots prefetched), which needs the format's ascending columns (below).
+// When the row blocks are too few to fill the card (decode, narrow
+// layers), d_in is split over blockIdx.z and a second kernel (counted
+// with the first as one launch of spmm) adds the fp32 partials in
 // split order, then applies the epilogue. The dense tiles of the nm24
 // and gathered packings of one 2:4 mask are identical, and the sum order
 // depends only on the shapes (tiles, splits, the MMA), never on timing
@@ -34,9 +33,14 @@
 // tokens, stages x[tokens, d tile] transposed in shared memory as fp32,
 // and lane l owns the slots l, l+32, ... of each of its rows, walking
 // them with a cursor and a register ring of prefetched (column, value)
-// pairs; a column below the tile (out of order) reads x from global
-// memory, so any column order is summed right. Each lane sums its slots
-// in slot order; the lanes meet in a fixed shuffle tree.
+// pairs. Each lane sums its slots in slot order; the lanes meet in a
+// fixed shuffle tree.
+//
+// The format's one contract, for both kernels: each row's columns
+// ascend strictly within [0, d_in) (nm24: positions below m, ascending
+// within each block), as packing emits them. A row that breaks it is
+// flagged as its slots are read and comes out NaN, whatever the
+// epilogue; nothing reads x out of order.
 //
 // What bounds it on an H100: at every shape of the serving path the work
 // is bytes-bound — the packed weight is read once per launch, against
@@ -84,6 +88,18 @@ __device__ __forceinline__ int col_of(const int32_t* irow, int s, int, int) {
   return irow[s];
 }
 
+// slot s of a row holds column c: does it keep the row's columns
+// strictly ascending within [0, d_in)?
+__device__ __forceinline__ bool slot_ok(const uint8_t* irow, int s, int,
+                                        int n, int m, int) {
+  return irow[s] < m && (s % n == 0 || irow[s - 1] < irow[s]);
+}
+__device__ __forceinline__ bool slot_ok(const int32_t* irow, int s, int c,
+                                        int, int, int d_in) {
+  return c >= 0 && c < d_in && (s == 0 || irow[s - 1] < c);
+}
+
+// relu keeps a NaN (a flagged row) NaN, as torch.relu does; fmaxf would not
 __device__ __forceinline__ float epilogue(float v, int act) {
   switch (act) {
     case ACT_SILU:
@@ -93,9 +109,9 @@ __device__ __forceinline__ float epilogue(float v, int act) {
       return 0.5f * v * (1.0f + tanhf(k0 * (v + 0.044715f * v * v * v)));
     }
     case ACT_RELU:
-      return fmaxf(v, 0.0f);
+      return v < 0.0f ? 0.0f : v;
     case ACT_RELU2: {
-      const float r = fmaxf(v, 0.0f);
+      const float r = v < 0.0f ? 0.0f : v;
       return r * r;
     }
     case ACT_SIGMOID:
@@ -128,9 +144,11 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
   int cur[RPW];                              // slot of ring entry 0
   int rc[RPW][PF];                           // ring: columns (INT_MAX = end)
   float rv[RPW][PF];                         // ring: values
+  bool bad[RPW];                             // a slot broke the contract
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     cur[i] = lane;
+    bad[i] = false;
 #pragma unroll
     for (int t = 0; t < TT; ++t) acc[i][t] = 0.0f;
     const int row = rw + i;
@@ -138,8 +156,10 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
     for (int j = 0; j < PF; ++j) {
       const int s = lane + 32 * j;
       if (row < d_out && s < K) {
-        rc[i][j] = col_of(idx + (size_t)row * K, s, n, m);
+        const TI* irow = idx + (size_t)row * K;
+        rc[i][j] = col_of(irow, s, n, m);
         rv[i][j] = to_f32(vals[(size_t)row * K + s]);
+        bad[i] |= !slot_ok(irow, s, rc[i][j], n, m, d_in);
       } else {
         rc[i][j] = INT_MAX;
         rv[i][j] = 0.0f;
@@ -168,7 +188,7 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
       while (rc[i][0] < d1) {
         const int c = rc[i][0];
         const float v = rv[i][0];
-        if (c >= d0) {
+        if (c >= d0) {                        // else a flagged slot
           const float* xr = &xs[c - d0][0];
 #pragma unroll
           for (int t = 0; t < TT; t += 4) {
@@ -177,14 +197,6 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
             acc[i][t + 1] = fmaf(v, xv.y, acc[i][t + 1]);
             acc[i][t + 2] = fmaf(v, xv.z, acc[i][t + 2]);
             acc[i][t + 3] = fmaf(v, xv.w, acc[i][t + 3]);
-          }
-        } else if (c >= 0) {                  // column out of order
-#pragma unroll
-          for (int t = 0; t < TT; ++t) {
-            const int tok = t0 + t;
-            const float xv =
-                tok < n_tok ? to_f32(x[(size_t)tok * d_in + c]) : 0.0f;
-            acc[i][t] = fmaf(v, xv, acc[i][t]);
           }
         }
 #pragma unroll
@@ -197,6 +209,7 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
         if (s < K) {
           rc[i][PF - 1] = col_of(irow, s, n, m);
           rv[i][PF - 1] = to_f32(vrow[s]);
+          bad[i] |= !slot_ok(irow, s, rc[i][PF - 1], n, m, d_in);
         } else {
           rc[i][PF - 1] = INT_MAX;
           rv[i][PF - 1] = 0.0f;
@@ -208,13 +221,15 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
   // the 32 lane sums of each (row, token) in a fixed tree
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
+    const bool flagged = __any_sync(0xffffffffu, bad[i]);
 #pragma unroll
     for (int t = 0; t < TT; ++t) {
       float v = acc[i][t];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) ys[t][warp * RPW + i] = v;
+      if (lane == 0)
+        ys[t][warp * RPW + i] = flagged ? __int_as_float(0x7fc00000) : v;
     }
   }
   __syncthreads();
@@ -426,9 +441,10 @@ spmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
   if constexpr (!NM) {
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      // first slot with column >= this split's first column
+      // first slot with column >= this split's first column (the first
+      // split starts at slot 0, so it meets a negative column and flags it)
       const int row = rw + i;
-      int lo = 0, hi = row < d_out ? K : 0;
+      int lo = 0, hi = row < d_out && kt0 > 0 ? K : 0;
       const int kstart = kt0 * BK;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;

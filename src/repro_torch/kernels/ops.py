@@ -9,11 +9,11 @@ Each wrapper checks device, dtype and shapes, allocates its outputs with
   beside the launcher in the kernel's module.
 
 ``LAUNCHES[name]`` counts kernel launches (never plain-version calls), so
-a run can show which kernels its main path went through.
+a run can show which kernels its main path went through: one per wrapper
+call that launched. An spmm call that splits d_in runs two CUDA kernels
+(the product and the ordered sum of its fp32 partials) and counts one.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -123,9 +123,12 @@ def spmm(x: torch.Tensor, pw: PackedWeight, *, bias=None,
     """act(x @ unpack(pw)ᵀ + bias) from an unstacked (d_out, k) packed
     leaf. x: (..., d_in) fp32 or bf16 -> (..., d_out) in x's dtype; the
     kernel takes values in x's dtype. ``bias`` (d_out,) and ``act`` (an
-    ``EPILOGUES`` key) run on the fp32 sum. Columns ascend within each
-    row (nm24: within each block), as packing emits them; on the card a
-    bf16 row that breaks this comes out NaN."""
+    ``EPILOGUES`` key) run on the fp32 sum. Each row's columns ascend
+    strictly within [0, d_in) (nm24: positions below m, ascending within
+    each block), as packing emits them; on the card a row that breaks
+    this comes out NaN. With k % 8 == 0, nm24 values and idx start 16
+    and 8 bytes aligned (the tensor cores' loader reads 8 slots at a
+    time), as every per-layer slice of a packed tree does."""
     if pw.values.ndim != 2:
         raise ValueError(
             f"spmm wants an unstacked (d_out, k) PackedWeight; got values "
@@ -164,9 +167,10 @@ def spmm(x: torch.Tensor, pw: PackedWeight, *, bias=None,
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:                 # the kernel loads x 16 B at a time
         x2 = x2.clone()
-    if pw.values.data_ptr() % 16 or pw.idx.data_ptr() % 8:
-        pw = dataclasses.replace(pw, values=pw.values.clone(),
-                                 idx=pw.idx.clone())   # 2:4 loads 16 B / 8 B
+    if pw.fmt == "nm24" and k % 8 == 0 and (pw.values.data_ptr() % 16
+                                            or pw.idx.data_ptr() % 8):
+        raise ValueError("nm24 values and idx with k % 8 == 0 must start "
+                         "16 and 8 bytes aligned")
     if bias is not None:
         bias = bias.float().contiguous()
     y = torch.empty((x2.shape[0], d_out), dtype=x2.dtype, device=x2.device)

@@ -41,26 +41,21 @@ def serve(arch: str, *, tiny: bool = True, batch: int = 4,
           masks_from: str | None = None, fmt: str | None = None,
           seed: int = 0, bench: bool = False,
           bench_out: Path | None = None, device="cuda",
-          params: dict | None = None, prompt: dict | None = None,
           verbose: bool = True) -> dict:
     """Serve a batch of prompts; returns tokens + timing (+ bench rows).
 
     ``masks``/``masks_from`` feed the sparse formats. ``fmt=None`` picks
-    "masked" when a mask source is given, "dense" otherwise. ``params``
-    and ``prompt`` replace the seeded init and the synthetic validation
-    prompt (the tests feed the reference's this way).
+    "masked" when a mask source is given, "dense" otherwise.
     """
     dev = resolve_device(device)
     disable_tf32()
     cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
     api = models.build(cfg)
-    if params is None:
-        params = api.init(seed=seed, device=dev)
-    if prompt is None:
-        corpus = synthetic.CorpusConfig(cfg.vocab_size, seed=seed)
-        pipe = synthetic.DataPipeline(corpus, batch, prompt_len, split="val",
-                                      device=dev)
-        prompt = pipe.get(0)
+    params = api.init(seed=seed, device=dev)
+    corpus = synthetic.CorpusConfig(cfg.vocab_size, seed=seed)
+    pipe = synthetic.DataPipeline(corpus, batch, prompt_len, split="val",
+                                  device=dev)
+    prompt = pipe.get(0)
     mask_src = masks_from if masks_from is not None else masks
     if fmt is None:
         fmt = "masked" if mask_src is not None else "dense"

@@ -325,59 +325,65 @@ def test_cuda_spmm_matches_plain(cuda, dtype, T):
 
 
 @pytest.mark.gpu
-def test_cuda_spmm_contracts(cuda):
-    """bf16 rows whose columns do not ascend come out NaN on the tensor
-    cores; d_in % 8 != 0 and fp32 take the CUDA-core kernel, which sums
-    any column order right."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_spmm_contracts(cuda, dtype):
+    """One contract for both kernels: a row whose columns do not ascend
+    strictly within [0, d_in) (nm24: positions within a block) comes out
+    NaN, that row only, whatever the epilogue. d_in = 1200 takes the
+    tensor cores in bf16, d_in = 1204 and fp32 the CUDA cores."""
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    d_out, d_in = 40, 1204
-    w = torch.randn(d_out, d_in, generator=gen, device=cuda)
-    x = torch.randn(6, d_in, generator=gen, device=cuda)
-    mask = tmasks.make_mask(torch.rand(d_out, d_in, generator=gen,
-                                       device=cuda), tmasks.PerRow(0.6))
-    for dt in (torch.float32, torch.bfloat16):
-        pw = tpacked.pack(w.to(dt), mask, "gathered")
-        assert _spmm_ok(ops.spmm(x.to(dt), pw),
-                        spmm_mod.spmm_plain(x.to(dt), pw))
+    d_out = 40
+    for d_in in (1200, 1204):
+        w = torch.randn(d_out, d_in, generator=gen, device=cuda).to(dt)
+        x = torch.randn(6, d_in, generator=gen, device=cuda).to(dt)
+        scores = torch.rand(d_out, d_in, generator=gen, device=cuda)
+        pw = tpacked.pack(w, tmasks.make_mask(scores, tmasks.PerRow(0.6)),
+                          "gathered")
+        assert _spmm_ok(ops.spmm(x, pw), spmm_mod.spmm_plain(x, pw))
+        full = tpacked.pack(w, torch.ones_like(w), "gathered")  # 64 a tile
+        assert _spmm_ok(ops.spmm(x, full), spmm_mod.spmm_plain(x, full))
+        cases = []
         perm = torch.randperm(pw.k, generator=gen, device=cuda)
-        shuf = tpacked.PackedWeight(values=pw.values[:, perm].contiguous(),
-                                    idx=pw.idx[:, perm].contiguous(),
-                                    fmt="gathered", d_in=d_in)
-        assert _spmm_ok(ops.spmm(x.to(dt), shuf),   # CUDA cores: any order
-                        spmm_mod.spmm_plain(x.to(dt), pw))
-    w8, x8 = w[:, :1200], x[:, :1200]
-    m8 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen, device=cuda),
-                          tmasks.PerRow(0.6))
-    pw = tpacked.pack(w8.to(torch.bfloat16), m8, "gathered")
-    perm = torch.randperm(pw.k, generator=gen, device=cuda)
-    shuf = tpacked.PackedWeight(values=pw.values[:, perm].contiguous(),
-                                idx=pw.idx[:, perm].contiguous(),
-                                fmt="gathered", d_in=1200)
-    assert bool(torch.isnan(ops.spmm(x8.to(torch.bfloat16), shuf)).all())
-    # a dense gathered row (64 slots in every tile), and a column past
-    # d_in: that row only comes out NaN
-    full = tpacked.pack(w8.to(torch.bfloat16), torch.ones_like(w8), "gathered")
-    assert _spmm_ok(ops.spmm(x8.to(torch.bfloat16), full),
-                    spmm_mod.spmm_plain(x8.to(torch.bfloat16), full))
-    idx = pw.idx.clone()
-    idx[5, -1] = 1200 + 3
-    y = ops.spmm(x8.to(torch.bfloat16),
-                 tpacked.PackedWeight(pw.values, idx, "gathered", 1200))
-    assert bool(torch.isnan(y[:, 5]).all())
-    assert not bool(torch.isnan(y[:, :5]).any() or torch.isnan(y[:, 6:]).any())
-    # 2:4 positions that do not ascend within a block: that row only
-    m24 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen,
-                                      device=cuda), tmasks.NM(2, 4))
-    pw = tpacked.pack(w8.to(torch.bfloat16), m24, "nm24")
-    idx = pw.idx.clone()
-    idx[3, :2] = idx[3, :2].flip(0)
-    y = ops.spmm(x8.to(torch.bfloat16),
-                 tpacked.PackedWeight(pw.values, idx, "nm24", 1200, 2, 4))
-    assert bool(torch.isnan(y[:, 3]).all())
-    assert not bool(torch.isnan(y[:, :3]).any() or torch.isnan(y[:, 4:]).any())
+        shuf = tpacked.PackedWeight(pw.values[:, perm].contiguous(),
+                                    pw.idx[:, perm].contiguous(), "gathered",
+                                    d_in)
+        cases.append((shuf, range(d_out)))                # every row
+        idx = pw.idx.clone()
+        idx[5, -1] = d_in + 3                             # past d_in
+        idx[9, 0] = -1                                    # below 0
+        idx[12, 7] = idx[12, 6]                           # a repeat
+        cases.append((tpacked.PackedWeight(pw.values, idx, "gathered", d_in),
+                      (5, 9, 12)))
+        if d_in % 4 == 0:
+            m24 = tmasks.make_mask(scores, tmasks.NM(2, 4))
+            nm = tpacked.pack(w, m24, "nm24")
+            assert _spmm_ok(ops.spmm(x, nm), spmm_mod.spmm_plain(x, nm))
+            idx = nm.idx.clone()
+            idx[3, :2] = idx[3, :2].flip(0)               # within a block
+            idx[7, 10] = 4                                # past the block
+            cases.append((tpacked.PackedWeight(nm.values, idx, "nm24", d_in,
+                                               2, 4), (3, 7)))
+        for bad, rows in cases:
+            rows = list(rows)
+            keep = [r for r in range(d_out) if r not in rows]
+            for act in (None, "relu"):
+                y = ops.spmm(x, bad, act=act)
+                assert bool(torch.isnan(y[:, rows]).all()), (d_in, act)
+                assert not bool(torch.isnan(y[:, keep]).any()), (d_in, act)
     # other N:M patterns take the CUDA-core kernel
     m48 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen,
                                       device=cuda), tmasks.NM(4, 8))
-    pw = tpacked.pack(w8.to(torch.bfloat16), m48, "nm24", n=4, m=8)
-    assert _spmm_ok(ops.spmm(x8.to(torch.bfloat16), pw),
-                    spmm_mod.spmm_plain(x8.to(torch.bfloat16), pw))
+    w8 = torch.randn(d_out, 1200, generator=gen, device=cuda).to(dt)
+    x8 = torch.randn(6, 1200, generator=gen, device=cuda).to(dt)
+    pw = tpacked.pack(w8, m48, "nm24", n=4, m=8)
+    assert _spmm_ok(ops.spmm(x8, pw), spmm_mod.spmm_plain(x8, pw))
+    # a misaligned nm24 view raises rather than being copied per call
+    m24 = tmasks.make_mask(torch.rand(d_out, 1200, generator=gen,
+                                      device=cuda), tmasks.NM(2, 4))
+    nm = tpacked.pack(w8, m24, "nm24")
+    off = torch.empty(nm.values.numel() + 1, dtype=dt, device=cuda)[1:]
+    off.copy_(nm.values.reshape(-1))
+    with pytest.raises(ValueError, match="aligned"):
+        ops.spmm(x8, tpacked.PackedWeight(off.view(nm.values.shape), nm.idx,
+                                          "nm24", 1200, 2, 4))

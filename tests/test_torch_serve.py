@@ -10,9 +10,11 @@ goes to the port through numpy. Checked:
 * ``ServeEngine`` for dense, masked, nm24 and gathered: ``logits_trace``
   within atol 1e-5 (the reference's own packed-vs-masked bound), equal
   greedy tokens and weight bytes; nm24 == gathered bitwise in the port;
-* ``serve(masks_from=...)`` on a reference launcher ``--out-dir`` gives
-  the reference's tokens; a ``weights/`` or executor ``groups/`` artifact
-  raises ``NotImplementedError``;
+* a reference launcher ``--out-dir``: loaded by ``load_mask_tree`` into
+  ``ServeEngine`` it gives the reference ``serve``'s tokens and weight
+  bytes, and the port's ``serve(masks_from=...)`` serves it; a
+  ``weights/`` or executor ``groups/`` artifact raises
+  ``NotImplementedError``;
 * the CLI: ``launch.prune --out-dir`` then ``launch.serve --masks-from``.
 """
 import json
@@ -34,6 +36,7 @@ from repro.train import steps as jsteps  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch import models as tmodels  # noqa: E402
+from repro_torch.core import packed as tpacked  # noqa: E402
 from repro_torch.launch import prune as tprune  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
@@ -172,13 +175,19 @@ def test_serve_from_reference_out_dir(world, tmp_path):
     pipe = jsynthetic.DataPipeline(
         jsynthetic.CorpusConfig(world["japi"].cfg.vocab_size, seed=0), 2, 8,
         split="val")
-    got = tserve.serve(ARCH, tiny=True, batch=2, prompt_len=8, gen=3,
+    tmask = tpacked.load_mask_tree(world["tapi"].cfg, world["tparams"],
+                                   tmp_path)
+    eng = ServeEngine(world["tapi"], world["tparams"], masks=tmask,
+                      fmt="nm24", device="cpu")
+    got = eng.generate(convert.from_numpy(_np_tree(pipe.get(0))), 3)
+    assert np.array_equal(got.tokens.numpy(), np.asarray(want["tokens"]))
+    assert eng.weight_bytes() == want["weight_bytes"]
+    # the launcher serves the same directory (its own seeded weights)
+    out = tserve.serve(ARCH, tiny=True, batch=2, prompt_len=8, gen=3,
                        masks_from=str(tmp_path), fmt="nm24", device="cpu",
-                       params=world["tparams"],
-                       prompt=convert.from_numpy(_np_tree(pipe.get(0))),
                        verbose=False)
-    assert np.array_equal(got["tokens"].numpy(), np.asarray(want["tokens"]))
-    assert got["weight_bytes"] == want["weight_bytes"]
+    assert out["tokens"].shape == (2, 3)
+    assert out["weight_bytes"] == want["weight_bytes"]
     # executor groups/ and a weights/ splice are not ported: both raise
     with pytest.raises(NotImplementedError, match="groups"):
         ServeEngine(world["tapi"], world["tparams"], fmt="nm24",
@@ -186,7 +195,7 @@ def test_serve_from_reference_out_dir(world, tmp_path):
     (tmp_path / "weights").mkdir()
     with pytest.raises(NotImplementedError, match="weights"):
         tserve.serve(ARCH, tiny=True, masks_from=str(tmp_path),
-                     device="cpu", params=world["tparams"], verbose=False)
+                     device="cpu", verbose=False)
     with pytest.raises(FileNotFoundError, match="no mask checkpoint"):
         tserve.serve(ARCH, tiny=True, masks_from=str(tmp_path / "nothing"),
                      device="cpu", verbose=False)

@@ -1,4 +1,6 @@
 """Atomic checkpoints in the reference's on-disk format (numpy only)."""
-from .store import latest_valid, restore, save, steps, validate
+from .store import (gc, latest_valid, restore, restore_latest, save, steps,
+                    validate)
 
-__all__ = ["latest_valid", "restore", "save", "steps", "validate"]
+__all__ = ["gc", "latest_valid", "restore", "restore_latest", "save",
+           "steps", "validate"]

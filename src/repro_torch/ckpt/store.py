@@ -14,10 +14,12 @@ writes. Writes land in ``step_X.tmp-<nonce>/`` first, are fsync'd, then
 renamed, so a reader never sees a partial checkpoint; a hash mismatch
 marks a checkpoint invalid and ``latest_valid`` skips it.
 
-fp32, int32 and uint8 leaves travel both ways. bf16 leaves (the
-reference writes them through ml_dtypes) wait for the ``weights/`` rule
-(ROADMAP A2) and raise here; so do sharded, multi-host restores, and the
-reference's retry of transient I/O errors.
+fp32, int32 and uint8 leaves travel both ways. bf16 leaves (a
+``weights/`` dump of updated bf16 weights) are written byte for byte as
+the reference writes them: its ml_dtypes arrays land in the .npz as raw
+2-byte records under manifest dtype "bfloat16". Reading bf16 back waits
+for the ``weights/`` splice (ROADMAP A2) and raises, as do sharded,
+multi-host restores and the reference's retry of transient I/O errors.
 """
 from __future__ import annotations
 
@@ -42,18 +44,22 @@ def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
     return [(prefix[:-1], tree)]
 
 
-def _to_numpy(name: str, leaf) -> np.ndarray:
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(array to store, manifest dtype); bf16 travels as raw 2-byte
+    records, the bytes the reference's ml_dtypes arrays hold."""
     if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"leaf {name!r} is bfloat16; bf16 checkpoints wait for the "
-                "weights/ rule (ROADMAP A2)")
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+            return leaf.view(torch.int16).numpy().view("V2"), "bfloat16"
+        leaf = leaf.numpy()
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
 def _sha256(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    # hashed in place: a contiguous array is its own byte buffer
+    return hashlib.sha256(
+        np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).hexdigest()
 
 
 def _write_fsync(path: Path, write) -> None:
@@ -76,12 +82,12 @@ def save(ckpt_dir: str | Path, step: int, tree, *,
         fname = "shard_0_0.npz"
         bufs: dict[str, np.ndarray] = {}
         for name, leaf in _flatten(tree):
-            arr = _to_numpy(name, leaf)
+            arr, dtype = _to_numpy(leaf)
             key = f"{name}__0"
             bufs[key] = arr
             manifest["leaves"].append({
                 "path": name, "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": dtype,
                 "shards": [{"file": fname, "key": key,
                             "index": [[0, -1]] * arr.ndim,
                             "sha256": _sha256(arr)}],
@@ -90,7 +96,16 @@ def save(ckpt_dir: str | Path, step: int, tree, *,
             _write_fsync(tmp / fname, lambda f: np.savez(f, **bufs))
         _write_fsync(tmp / "MANIFEST.json",
                      lambda f: f.write(json.dumps(manifest).encode()))
-        os.replace(tmp, final)                    # atomic publish
+        if final.exists():
+            # a rerun at the same step supersedes it: move the old one
+            # aside (a .tmp- name readers skip), publish, then delete it
+            old = Path(tempfile.mkdtemp(prefix=final.name + ".tmp-old-",
+                                        dir=ckpt_dir))
+            os.replace(final, old)
+            os.replace(tmp, final)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            os.replace(tmp, final)                # atomic publish
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -157,13 +172,38 @@ def latest_valid(ckpt_dir: str | Path) -> int | None:
     return None
 
 
+def restore_latest(ckpt_dir: str | Path) -> tuple[int, dict, dict] | None:
+    """(step, {path: np.ndarray}, manifest) of the newest checkpoint whose
+    every shard passes its hash check, or None: the step ``latest_valid``
+    picks, restored, with each shard read once instead of twice."""
+    for s in reversed(steps(ckpt_dir)):
+        try:
+            tree, man = restore(ckpt_dir, s)
+        except (OSError, KeyError, ValueError):
+            continue
+        return s, tree, man
+    return None
+
+
+def gc(ckpt_dir: str | Path, keep: int = 3) -> None:
+    """Remove stale .tmp dirs and every checkpoint but the newest ``keep``."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.is_dir():
+        return
+    for d in ckpt_dir.iterdir():
+        if ".tmp-" in d.name:
+            shutil.rmtree(d, ignore_errors=True)
+    ss = steps(ckpt_dir)
+    for s in ss[:-keep] if keep else []:
+        shutil.rmtree(ckpt_dir / f"step_{s:08d}", ignore_errors=True)
+
+
 def _slices(index: list, shape: list) -> tuple:
     return tuple(slice(a, shape[i] if b == -1 else b)
                  for i, (a, b) in enumerate(index))
 
 
-def restore(ckpt_dir: str | Path, step: int, *,
-            check_hashes: bool = True) -> tuple[dict, dict]:
+def restore(ckpt_dir: str | Path, step: int) -> tuple[dict, dict]:
     """Every leaf of one checkpoint, assembled from its shards' index
     slices: ({path: np.ndarray}, manifest). Raises ``IOError`` on a hash
     mismatch."""
@@ -181,7 +221,7 @@ def restore(ckpt_dir: str | Path, step: int, *,
             full = np.zeros(e["shape"], dtype=e["dtype"])
             for sh in e["shards"]:
                 arr = shards.get(sh)
-                if check_hashes and _sha256(arr) != sh["sha256"]:
+                if _sha256(arr) != sh["sha256"]:
                     raise IOError(f"hash mismatch in {d}/{sh['file']}:"
                                   f"{sh['key']}")
                 full[_slices(sh["index"], e["shape"])] = arr

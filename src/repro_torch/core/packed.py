@@ -327,8 +327,8 @@ def load_masks_and_weights(cfg, params: dict,
     d = Path(ckpt_dir)
     if (d / "groups").is_dir():
         raise NotImplementedError(
-            f"{d} holds executor groups/ checkpoints; reading them waits for "
-            "the executor port (ROADMAP A1) — serve the run's masks/ instead")
+            f"{d} holds executor groups/ checkpoints; serving from them is "
+            "not ported yet (ROADMAP A2) — serve the run's masks/ instead")
     if ckpt.steps(d):
         return _masks_from_tree_ckpt(cfg, params, d), params
     if (d / "weights").is_dir():
@@ -355,10 +355,10 @@ def _masks_from_tree_ckpt(cfg, params: dict, d: Path) -> dict:
     the models index unconditionally."""
     from repro_torch import ckpt
 
-    step = ckpt.latest_valid(d)
-    if step is None:
+    found = ckpt.restore_latest(d)
+    if found is None:
         raise FileNotFoundError(f"no valid checkpoint under {d}")
-    restored, _ = ckpt.restore(d, step)
+    _, restored, _ = found
     dev = _device_of(params)
     tree: dict = {}
     for path, leaf in restored.items():

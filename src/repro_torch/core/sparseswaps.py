@@ -6,23 +6,39 @@ G (d_in, d_in) shared. Three swap-search backends:
 * ``dense``   — materialize ΔL (R, d, d). Reference; small d only.
 * ``chunked`` — stream over p-chunks of G; O(R·d·chunk) memory.
 * ``kernel``  — the hand-written CUDA kernels (``repro_torch.kernels``):
-  ``swap_argmin`` for k = 1, ``swap_topk`` for the k > 1 candidate search.
-  On a CPU tensor the wrappers take their plain PyTorch versions.
+  ``swap_argmin`` for k = 1, ``swap_topk`` for the k > 1 candidate search
+  and ``swap_commit`` for its candidate-space commit. On a CPU tensor the wrappers take their plain PyTorch versions.
 
 ``method="auto"`` picks ``kernel`` for CUDA tensors and keeps the
 reference's CPU rule otherwise (dense while R·d²·4 ≤ 256 MB, else
 chunked). N:M patterns always use the block-diagonal search.
 
 k-swap refinement (``k_swaps > 1``): every O(R·d²) search returns the k
-best candidate columns per row, and ``swap_math.commit_swaps_columns``
-commits them greedily, re-pairing each column's u against the updated
-state (N:M commits in candidate space with ``commit_swaps``). Each pass
-stays exactly monotone; a pass that accepts nothing certifies a 1-swap
-fixed point.
+best candidates per row and a greedy exact commit applies them:
+
+* unstructured, ``commit_mode="columns"`` (the default): the stale top-k
+  columns each re-pair their u against the updated state
+  (``swap_math.commit_swaps_columns``);
+* unstructured, ``commit_mode="candidates"`` on the ``kernel`` backend:
+  ``ops.swap_topk_commit``, whose greedy decisions run in the CUDA commit
+  kernel (``csrc/swap_commit.cu``);
+* otherwise (N:M, or ``"candidates"`` on dense/chunked): the O(R·k²)
+  candidate-space commit ``swap_math.commit_swaps``.
+
+Each pass stays exactly monotone; a pass that accepts nothing certifies a
+1-swap fixed point.
 
 The refinement loop is a Python loop with one host read per pass (does
 any row still accept?), so it executes exactly the reference's number of
 passes. Losses are tracked incrementally: L_{t+1} = L_t + ΣΔL*.
+
+Active-row compaction (``compact_every = S > 0``): every S passes, rows
+whose last pass accepted nothing (certified converged) leave the working
+set, so late passes score only the rows still moving. Working-set sizes
+are bucketed to powers of two; pad slots repeat an active row and scatter
+back identical values. The initial state is computed once at the full
+block shape and then gathered, and every later step is row-independent,
+so masks, swaps and losses are bitwise those of the uncompacted loop.
 
 Search-pass accounting: wrap a refinement in
 ``with sparseswaps.count_search_passes() as cnt:`` to count the search
@@ -34,12 +50,14 @@ import contextlib
 import dataclasses
 from typing import Literal
 
+import numpy as np
 import torch
 
 from . import masks as masks_lib
 from . import swap_math as sm
 
 Method = Literal["auto", "dense", "chunked", "kernel"]
+COMMIT_MODES = ("columns", "candidates")
 
 
 @dataclasses.dataclass
@@ -142,55 +160,188 @@ def _topk_swaps(method: str, block: int | None, chunk: int, k: int,
 
 
 def _swap_step(w, m, c, loss, swaps, G, *, eps, method, block, chunk,
-               k_swaps):
+               k_swaps, commit_mode: str = "columns"):
     """One search pass + commit. Returns (m, c, loss, swaps, row_accepted).
 
     ``k_swaps == 1`` keeps the argmin + ``apply_swap`` path; ``k_swaps > 1``
-    runs one top-k search, then the column-rescored commit (unstructured)
-    or the candidate-space commit (N:M).
+    runs one top-k search, then the column-rescored commit (unstructured,
+    ``"columns"``), the kernel's candidate commit (unstructured,
+    ``"candidates"`` on ``kernel``) or the candidate-space commit.
     """
     if k_swaps == 1:
         dl, u, p = _best_swap(method, block, chunk, w, m, c, G)
         m, c, acc = sm.apply_swap(w, m, c, G, dl, u, p, eps=eps)
         loss = torch.where(acc, loss + dl, loss)
         return m, c, loss, swaps + acc.to(swaps.dtype), acc
-    dl, u, p = _topk_swaps(method, block, chunk, k_swaps, w, m, c, G)
-    if block is None:
+    if block is None and commit_mode == "columns":
+        dl, u, p = _topk_swaps(method, block, chunk, k_swaps, w, m, c, G)
         m, c, dsum, nacc = sm.commit_swaps_columns(w, m, c, G, dl, p, eps=eps)
+    elif method == "kernel" and block is None:
+        from repro_torch.kernels import ops
+
+        m, c, dsum, nacc = ops.swap_topk_commit(w, m, c, G, k=k_swaps, eps=eps)
     else:
+        dl, u, p = _topk_swaps(method, block, chunk, k_swaps, w, m, c, G)
         m, c, dsum, nacc = sm.commit_swaps(w, m, c, G, dl, u, p, eps=eps)
     return m, c, loss + dsum, swaps + nacc, nacc > 0
 
 
 def _init_carry(w, m0, G):
     """Initial (c, loss) for a row block — the one O(R·d²) matmul, left to
-    ``torch.matmul`` (run with TF32 off)."""
+    ``torch.matmul`` (run with TF32 off). The compacted loop calls it at
+    the same block shapes as the plain one, then gathers rows from it."""
     return sm.correlation_vector(w, m0, G), sm.row_loss(w, m0, G)
+
+
+def _refine_carry(w, m, c, loss, swaps, G, *, n_iter: int, eps: float,
+                  method: str, block: int | None, chunk: int, k_swaps: int,
+                  commit_mode: str = "columns"):
+    """Run up to ``n_iter`` passes from a carry; stop once no row accepts.
+
+    Returns (m, c, loss, swaps, t, row_alive): ``t`` = passes executed,
+    ``row_alive`` = whether each row's LAST pass accepted a swap (rows are
+    independent, so False certifies that row converged).
+    """
+    alive = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
+    t = 0
+    while t < n_iter:
+        m, c, loss, swaps, alive = _swap_step(
+            w, m, c, loss, swaps, G, eps=eps, method=method, block=block,
+            chunk=chunk, k_swaps=k_swaps, commit_mode=commit_mode)
+        t += 1
+        if not bool(alive.any()):
+            break
+    return m, c, loss, swaps, t, alive
 
 
 def _refine_block(w, m0, G, *, t_max: int, eps: float, method: str,
                   block: int | None, chunk: int, track_history: bool,
-                  k_swaps: int = 1):
+                  k_swaps: int = 1, commit_mode: str = "columns"):
     """Refine one block of rows. Returns (m, loss0, loss, swaps, t, hist).
 
     Early-exits once no row accepts (one host read per pass); with
     ``track_history`` runs all ``t_max`` passes and records the mean loss.
     """
     c, loss0 = _init_carry(w, m0, G)
-    m, loss = m0, loss0
     swaps = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
-    hist = []
-    t = 0
-    while t < t_max:
-        m, c, loss, swaps, acc = _swap_step(
-            w, m, c, loss, swaps, G, eps=eps, method=method, block=block,
-            chunk=chunk, k_swaps=k_swaps)
-        t += 1
-        if track_history:
-            hist.append(loss.mean())
-        elif not bool(acc.any()):
+    kw = dict(eps=eps, method=method, block=block, chunk=chunk,
+              k_swaps=k_swaps, commit_mode=commit_mode)
+    if not track_history:
+        m, _, loss, swaps, t, _ = _refine_carry(w, m0, c, loss0, swaps, G,
+                                                n_iter=t_max, **kw)
+        return m, loss0, loss, swaps, t, None
+    m, loss, hist = m0, loss0, []
+    for _ in range(t_max):
+        m, c, loss, swaps, _ = _swap_step(w, m, c, loss, swaps, G, **kw)
+        hist.append(loss.mean())
+    return m, loss0, loss, swaps, t_max, torch.stack(hist) if hist else None
+
+
+# ---------------------------------------------------------------------------
+# active-row compaction
+# ---------------------------------------------------------------------------
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    """Smallest power of two >= n (>= lo)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _gather_rows(state: dict, idx: list[torch.Tensor]) -> dict:
+    """Per-instance row gather: x (N, R, ...) + idx[i] (R',) -> (N, R', ...)."""
+    return {k: torch.stack([x[i].index_select(0, ii) for i, ii in enumerate(idx)])
+            for k, x in state.items()}
+
+
+def _scatter_rows(state: dict, sub: dict, idx: list[torch.Tensor]) -> dict:
+    """Inverse of ``_gather_rows``, in place; duplicate indices write equal
+    values."""
+    for k, x in state.items():
+        for i, ii in enumerate(idx):
+            x[i].index_copy_(0, ii, sub[k][i])
+    return state
+
+
+def refine_stacked_compacted(W, M0, G, *, t_max: int, eps: float,
+                             method: str, block: int | None, chunk: int,
+                             k_swaps: int, compact_every: int,
+                             commit_mode: str = "columns",
+                             row_block: int | None = None):
+    """Stacked refinement with active-row compaction.
+
+    W, M0: (N, R, d); G: (N, d, d). Every ``compact_every`` passes the
+    working set drops rows whose last pass accepted nothing, per instance;
+    the next segment scores only surviving rows. Working-set sizes bucket
+    to powers of two; pad slots repeat an instance's first active row.
+    Instances run one after another, each until its own rows settle (the
+    reference vmaps them, running no-op passes on settled lanes); a
+    segment's pass count is the maximum over instances, as there.
+
+    Returns (M, L0, L, swaps, passes): stacked results + total search
+    passes executed.
+    """
+    N, R, d = W.shape
+    rb = row_block or R
+    true_R = R
+    pad = (-R) % rb
+    if pad:
+        # converged dummy rows, as the uncompacted path pads them, so
+        # _init_carry runs at the same block shapes
+        W = torch.cat([W, W.new_zeros(N, pad, d)], dim=1)
+        M0 = torch.cat([M0, M0.new_ones(N, pad, d)], dim=1)
+        R += pad
+    Cs, Ls = [], []
+    for i in range(N):
+        cs, ls = zip(*(_init_carry(W[i, lo:lo + rb], M0[i, lo:lo + rb], G[i])
+                       for lo in range(0, R, rb)))
+        Cs.append(torch.cat(cs))
+        Ls.append(torch.cat(ls))
+    L0 = torch.stack(Ls)
+    state = {"m": M0.clone(), "c": torch.stack(Cs), "l": L0.clone(),
+             "s": torch.zeros((N, R), dtype=torch.int64, device=W.device)}
+
+    active = [np.arange(R)] * N
+    done, passes = 0, 0
+    while done < t_max and any(a.size for a in active):
+        width = _bucket(max(a.size for a in active))
+        if width >= R:                      # nothing to compact away yet
+            width = R
+            idx = np.tile(np.arange(R), (N, 1))
+            reals = [R] * N
+        else:
+            idx = np.stack([
+                np.concatenate([a, np.full(width - a.size,
+                                           a[0] if a.size else 0)])
+                for a in active])
+            reals = [a.size for a in active]
+        idx_t = [torch.as_tensor(ii, dtype=torch.int64, device=W.device)
+                 for ii in idx]
+        seg = min(compact_every, t_max - done)
+        sub = _gather_rows(state, idx_t)
+        wg = _gather_rows({"w": W}, idx_t)["w"]
+        outs = [_refine_carry(
+                    wg[i], sub["m"][i], sub["c"][i], sub["l"][i], sub["s"][i],
+                    G[i], n_iter=seg, eps=eps, method=method, block=block,
+                    chunk=chunk, k_swaps=k_swaps, commit_mode=commit_mode)
+                for i in range(N)]
+        stack = lambda j: torch.stack([o[j] for o in outs])
+        _scatter_rows(state, {"m": stack(0), "c": stack(1), "l": stack(2),
+                              "s": stack(3)}, idx_t)
+        t_host = max(o[4] for o in outs)
+        record_search_passes(t_host, N * width)
+        passes += t_host
+        alive = stack(5).cpu().numpy()
+        # next working set: the gathered rows whose last pass accepted
+        active = [idx[i, :reals[i]][alive[i, :reals[i]]] for i in range(N)]
+        if t_host < seg:        # every gathered row converged mid-segment
             break
-    return m, loss0, loss, swaps, t, (torch.stack(hist) if hist else None)
+        done += seg
+    trim = lambda x: x[:, :true_R]
+    return (trim(state["m"]), trim(L0), trim(state["l"]), trim(state["s"]),
+            passes)
 
 
 def refine(
@@ -206,6 +357,8 @@ def refine(
     row_block: int | None = None,
     track_history: bool = False,
     k_swaps: int = 1,
+    compact_every: int = 0,
+    commit_mode: str = "columns",
 ) -> RefineResult:
     """Run SparseSwaps on a full weight matrix.
 
@@ -214,7 +367,21 @@ def refine(
     under a keep-all mask — no candidate is ever feasible) and sliced
     back. ``k_swaps``: candidate swaps committed per search pass;
     ``t_max`` bounds search PASSES.
+
+    ``compact_every = S``: gather converged rows out of the working set
+    every S passes (bitwise the same masks, swaps and losses; fewer rows
+    scored late in the run). Incompatible with ``track_history``.
+
+    ``commit_mode`` (k > 1, unstructured only): ``"columns"`` re-searches
+    the best u per candidate column; ``"candidates"`` re-scores the
+    searched pairs in O(R·k²) candidate space (in the CUDA commit kernel
+    on the ``kernel`` backend). N:M always commits in candidate space.
     """
+    if compact_every and track_history:
+        raise ValueError("compact_every is incompatible with track_history")
+    if commit_mode not in COMMIT_MODES:
+        raise ValueError(f"unknown commit_mode {commit_mode!r}; "
+                         f"have {COMMIT_MODES}")
     d_out, d_in = W.shape
     block = pattern.block(d_in)
     meth = _pick_method(method, d_in, row_block or d_out, W.device)
@@ -229,12 +396,22 @@ def refine(
         W32 = torch.cat([W32, W32.new_zeros(pad, d_in)])
         M32 = torch.cat([M32, M32.new_ones(pad, d_in)])
 
+    if compact_every:
+        m, l0, l1, swaps, passes = refine_stacked_compacted(
+            W32[None], M32[None], G32[None], t_max=t_max, eps=eps,
+            method=meth, block=block, chunk=chunk, k_swaps=k,
+            compact_every=compact_every, row_block=rb,
+            commit_mode=commit_mode)
+        return RefineResult(
+            mask=m[0, :d_out], loss_init=l0[0, :d_out],
+            loss_final=l1[0, :d_out], swaps=swaps[0, :d_out], iters=passes)
+
     outs = []
     for lo in range(0, W32.shape[0], rb):
         out = _refine_block(
             W32[lo:lo + rb], M32[lo:lo + rb], G32, t_max=t_max, eps=eps,
             method=meth, block=block, chunk=chunk,
-            track_history=track_history, k_swaps=k)
+            track_history=track_history, k_swaps=k, commit_mode=commit_mode)
         record_search_passes(out[4], rb)
         outs.append(out)
     cat = lambda i: torch.cat([o[i] for o in outs])[:d_out]
@@ -258,10 +435,12 @@ def refine_layer(
     method: Method = "auto",
     row_block: int | None = None,
     k_swaps: int = 1,
+    compact_every: int = 0,
 ) -> RefineResult:
     """Convenience: warmstart + refine in one call (the paper's pipeline)."""
     from .warmstart import warmstart_mask
 
     m0 = warmstart_mask(W, G, pattern, criterion=warmstart)
     return refine(W, G, m0, pattern, t_max=t_max, eps=eps, method=method,
-                  row_block=row_block, k_swaps=k_swaps)
+                  row_block=row_block, k_swaps=k_swaps,
+                  compact_every=compact_every)

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 * ``gram``        — fp32-accumulating Xᵀ X for calibration (paper §2.1.2).
-* ``swap_topk``   — fused k-best swap search (the k-swap hot path).
+* ``swap_topk``   — fused k-best swap search (the k-swap hot path), and
+  ``swap_commit``, the greedy candidate-space commit of its candidates.
 * ``swap_argmin`` — fused 1-swap search (paper Eq. 5).
 * ``spmm``        — packed sparse matmul (nm24 / gathered) with the bias
   and activation fused, for serving.

@@ -28,11 +28,11 @@ _COMMON = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC")
 _REPORT = ("-Xptxas", "-v")
 # Per-library extra flags. -fmad=false: no multiply-add contraction, so
-# the swap kernels evaluate ΔL exactly as the plain PyTorch versions do
-# (the Gram has always been built alongside them with it). spmm allows
-# contraction.
+# the swap kernels and the commit evaluate ΔL exactly as the plain PyTorch
+# versions do (the Gram has always been built alongside them with it).
+# spmm allows contraction.
 _EXTRA = {"gram": ("-fmad=false",), "swap_topk": ("-fmad=false",),
-          "swap_argmin": ("-fmad=false",)}
+          "swap_argmin": ("-fmad=false",), "swap_commit": ("-fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

@@ -26,7 +26,7 @@ from . import swap_argmin as argmin_mod
 from . import swap_topk as topk_mod
 
 LAUNCHES: dict[str, int] = {"gram_xtx": 0, "swap_topk": 0, "swap_argmin": 0,
-                            "spmm": 0}
+                            "swap_commit": 0, "spmm": 0}
 
 
 def reset_launches() -> None:
@@ -87,6 +87,13 @@ def swap_topk(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
     """k best candidate swaps per row: (ΔL, u, p) each (R, k), ascending by
     (ΔL, p). Equal to ``swap_math.topk_swaps_chunked`` on feasible entries;
     the +inf tail's indices are clamped into range. Indices are int64."""
+    vals, u, p = _swap_topk(w, m, c, G, k=k)
+    return vals, u.long(), p.long()
+
+
+def _swap_topk(w, m, c, G, *, k: int):
+    """``swap_topk`` with the indices as produced: int32 from the kernel,
+    int64 from the plain version."""
     _check_swap_shapes(w, m, c, G)
     R, d = w.shape
     k = min(k, d)
@@ -100,7 +107,63 @@ def swap_topk(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
     p = torch.empty((R, k), dtype=torch.int32, device=w.device)
     topk_mod.launch(a, b, w32, G32, vals, u, p, k=k)
     LAUNCHES["swap_topk"] += 1
-    return vals, u.long(), p.long()
+    return vals, u, p
+
+
+def swap_commit(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid, *, eps: float,
+                k: int):
+    """Greedy accept/reject of a gathered candidate batch
+    (``swap_math.commit_decisions``): wu, wp, cu, cp, u, p, valid (R, k);
+    Suu, Sup, Spp (R, k, k) from ``swap_math.gather_candidate_stats``.
+    Returns (acc (R, k) 0/1 fp32, dl (R, k) fp32, 0 where rejected); on
+    the card bitwise equal to the plain version."""
+    R, kk = wu.shape
+    if kk != k or not 1 <= k <= topk_mod.MAX_K:
+        raise ValueError(f"swap_commit takes (R, k) candidates with "
+                         f"1 <= k <= {topk_mod.MAX_K}; got {tuple(wu.shape)} "
+                         f"for k={k}")
+    for name, t in (("wp", wp), ("cu", cu), ("cp", cp), ("u", u), ("p", p),
+                    ("valid", valid)):
+        if t.shape != (R, k):
+            raise ValueError(f"{name} must be ({R}, {k}), got {tuple(t.shape)}")
+    for name, t in (("Suu", Suu), ("Sup", Sup), ("Spp", Spp)):
+        if t.shape != (R, k, k):
+            raise ValueError(f"{name} must be ({R}, {k}, {k}), "
+                             f"got {tuple(t.shape)}")
+    if not _on_cuda(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid):
+        return topk_mod.swap_commit_plain(wu, wp, cu, cp, Suu, Sup, Spp, u, p,
+                                          valid, eps=eps, k=k)
+    f32 = [t.float().contiguous() for t in (wu, wp, cu, cp, Suu, Sup, Spp,
+                                            valid)]
+    u32, p32 = u.int().contiguous(), p.int().contiguous()
+    acc = torch.empty((R, k), dtype=torch.float32, device=wu.device)
+    dl = torch.empty((R, k), dtype=torch.float32, device=wu.device)
+    if R:
+        topk_mod.launch_commit(*f32[:7], u32, p32, f32[7], acc, dl, eps=eps)
+        LAUNCHES["swap_commit"] += 1
+    return acc, dl
+
+
+def swap_topk_commit(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
+                     G: torch.Tensor, *, k: int, eps: float = 0.0):
+    """One k-swap step with the candidate-space commit: the top-k search
+    (``swap_topk``), the O(R·k²) sub-Gram gather
+    (``swap_math.gather_candidate_stats``), the greedy decisions
+    (``swap_commit``) and the full-width Eq. 6 apply
+    (``swap_math.apply_commits``). Returns (m', c', dl_sum (R,),
+    n_accepted (R,)) like ``swap_math.commit_swaps``, and equal to it given
+    the same candidates. The gather and the apply stay plain tensor ops, as
+    the reference runs them outside its kernels. The search's int32
+    indices go to the commit kernel as they are; only the gather and the
+    apply see them widened."""
+    dl, u_raw, p_raw = _swap_topk(w, m, c, G, k=k)
+    u, p = u_raw.long(), p_raw.long()
+    c32 = c.float()
+    valid = torch.isfinite(dl).float()     # +inf tail: clamped, never accepted
+    wu, wp, cu, cp, Suu, Sup, Spp = sm.gather_candidate_stats(w, c32, G, u, p)
+    acc, dls = swap_commit(wu, wp, cu, cp, Suu, Sup, Spp, u_raw, p_raw, valid,
+                           eps=eps, k=dl.shape[1])
+    return sm.apply_commits(w, m, c32, G, acc, dls, u, p)
 
 
 def gram_xtx(x: torch.Tensor) -> torch.Tensor:

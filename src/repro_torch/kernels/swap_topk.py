@@ -1,10 +1,12 @@
-"""Fused k-best swap search: the CUDA kernel's launcher and its plain
-PyTorch version.
+"""Fused k-best swap search and the candidate-space commit: the CUDA
+kernels' launchers and their plain PyTorch versions.
 
-The kernel (``csrc/swap_topk.cu``) replaces the search kernel of the
-Pallas module ``src/repro/kernels/swap_topk.py`` (``_topk_kernel``); the
-in-kernel commit (``_commit_kernel``) is not ported yet.
-``repro_torch.kernels.ops.swap_topk`` is the public wrapper.
+Two kernels replace the two of the Pallas module
+``src/repro/kernels/swap_topk.py``: ``csrc/swap_topk.cu`` its search
+(``_topk_kernel``) and ``csrc/swap_commit.cu`` its commit
+(``_commit_kernel``, the greedy accept/reject of
+``swap_math.commit_decisions``). ``repro_torch.kernels.ops.swap_topk``,
+``ops.swap_commit`` and ``ops.swap_topk_commit`` are the public wrappers.
 """
 from __future__ import annotations
 
@@ -47,3 +49,36 @@ def launch(a, b, w, G, vals, u, p, *, k: int) -> None:
                     stream)
     if err != 0:
         raise RuntimeError(f"swap_topk kernel launch failed: CUDA error {err}")
+
+
+def swap_commit_plain(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid, *,
+                      eps: float, k: int):
+    """``swap_math.commit_decisions``: (acc (R, k) 0/1 fp32, dl (R, k)
+    re-scored ΔL, 0 where rejected)."""
+    return sm.commit_decisions(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid,
+                               eps=eps, k=k)
+
+
+def _commit_fn():
+    fn = build.load("swap_commit").swap_commit_decide
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_commit(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid, acc, dl, *,
+                  eps: float) -> None:
+    """Run the commit kernel on contiguous CUDA tensors: fp32 (R, k)
+    wu, wp, cu, cp, valid; fp32 (R, k, k) Suu, Sup, Spp; int32 (R, k) u, p;
+    into fp32 (R, k) acc and dl."""
+    R, k = wu.shape
+    with torch.cuda.device(wu.device):
+        stream = torch.cuda.current_stream(wu.device).cuda_stream
+        err = _commit_fn()(
+            wu.data_ptr(), wp.data_ptr(), cu.data_ptr(), cp.data_ptr(),
+            Suu.data_ptr(), Sup.data_ptr(), Spp.data_ptr(), u.data_ptr(),
+            p.data_ptr(), valid.data_ptr(), acc.data_ptr(), dl.data_ptr(),
+            R, k, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"swap_commit kernel launch failed: CUDA error {err}")

@@ -3,19 +3,33 @@
     PYTHONPATH=src python -m repro_torch.launch.prune --arch llama31-8b \
         --tiny --sparsity 0.6 --method sparseswaps --t-max 50 --device cpu
 
-Initialises the model from ``--seed``, calibrates on the synthetic corpus,
-prunes every prunable linear with one global rule, and prints the
-per-site error reductions and the dense vs pruned perplexity. It runs on
-``--device cuda`` unless asked for the CPU, and raises when the card is
-missing. TF32 is turned off for matmuls and cuDNN, so fp32 products run
-in full fp32.
+Initialises the model from ``--seed``, plans the run (``--plan-only``
+prints the resolved per-site table — engine paths, weight/Gram bytes and
+the calibration cost block — and exits without spending a FLOP: the
+params then live on ``device="meta"``), calibrates, executes the plan
+group by group, and prints the per-site error reductions and the dense vs
+pruned perplexity. It runs on ``--device cuda`` unless asked for the CPU,
+and raises when the card is missing. TF32 is turned off for matmuls and
+cuDNN, so fp32 products run in full fp32.
+
+``--recipe recipe.json`` swaps the single global rule for a per-site
+recipe (mixed N:M + unstructured, skip lists, per-rule t_max; the
+reference's JSON). Calibration streams through ``pruning.stats``:
+skip-rule sites accumulate nothing, and ``--calib-stats minimal`` drops
+dsnot-only sites to O(d) moments. ``--compact-every S`` gathers converged
+rows out of the swap search every S passes.
 
 ``--out-dir D`` writes ``D/masks`` (a step-0 masks-tree checkpoint in the
-reference's format) and ``D/report.json``, so that
+reference's format), ``D/recipe.json``, ``D/report.json`` and, for
+sparsegpt, ``D/weights`` (the updated weights); group checkpoints go under
+``D/prune_ckpt/groups/`` and, with ``--calib-ckpt-every k``, calibration
+checkpoints under ``D/prune_ckpt/calib/``, so a rerun into the same
+directory resumes. Then
 
     python -m repro_torch.launch.serve --masks-from D --format nm24 ...
 
-serves the pruned model, as the reference's launchers do.
+serves the pruned model, as the reference's launchers do. ``--mesh``,
+``--recover*`` and ``--from-ckpt`` are not ported yet (ROADMAP A3, A5).
 """
 from __future__ import annotations
 
@@ -24,30 +38,70 @@ import json
 from pathlib import Path
 
 from repro_torch import ckpt, configs, models, pruning
-from repro_torch.core import masks as masks_lib
 from repro_torch.device import disable_tf32, resolve_device
+from repro_torch.pruning.executor import changed_leaves
+
+
+def _build_recipe(pattern, *, recipe: str | None, warmstart: str,
+                  method: str, t_max: int,
+                  k_swaps: int | None = None) -> pruning.PruneRecipe:
+    if recipe is not None:
+        return pruning.PruneRecipe.from_json(Path(recipe).read_text())
+    return pruning.PruneRecipe.single(
+        pattern, method=method, warmstart=warmstart, t_max=t_max,
+        k_swaps=k_swaps)
 
 
 def prune(arch: str, *, tiny: bool = False, pattern="0.6",
           warmstart: str = "wanda", method: str = "sparseswaps",
-          t_max: int = 50, k_swaps: int | None = None, n_calib: int = 16,
+          t_max: int = 50, k_swaps: int | None = None,
+          compact_every: int | None = None, n_calib: int = 16,
           calib_seq: int = 128, calib_batch: int = 4, seed: int = 0,
-          out_dir: str | None = None, device="cuda",
+          out_dir: str | None = None, calib_ckpt_every: int = 0,
+          recipe: str | None = None, plan_only: bool = False,
+          calib_stats: str = "full", device="cuda", n_layers: int | None = None,
+          callback: pruning.PruneCallback | None = None,
           verbose: bool = True) -> dict:
+    """The launcher as a function. ``n_layers`` cuts the depth (the
+    widths stay); ``callback`` receives the executor's progress (default:
+    one printed line per group when ``verbose``)."""
     dev = resolve_device(device)
     disable_tf32()
     cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     api = models.build(cfg)
+    rec = _build_recipe(pattern, recipe=recipe, warmstart=warmstart,
+                        method=method, t_max=t_max, k_swaps=k_swaps)
+
+    if plan_only:
+        # shapes only: no weight materialized, no FLOP spent
+        plan = pruning.plan_pruning(api, api.init(seed=seed, device="meta"),
+                                    rec, compact_every=compact_every)
+        print(plan.describe())
+        return {"plan": plan}
+
     params = api.init(seed=seed, device=dev)
+    plan = pruning.plan_pruning(api, params, rec, compact_every=compact_every)
+    if verbose:
+        print(plan.describe())
     batches = list(pruning.calibration_batches(
         cfg, n_samples=n_calib, seq_len=calib_seq, batch_size=calib_batch,
         seed=seed, device=dev))
-    report = pruning.prune_model(
-        api, params, batches, masks_lib.parse_pattern(pattern),
-        method=method, warmstart=warmstart, t_max=t_max, k_swaps=k_swaps,
-        progress=verbose)
+    # recipe-aware calibration driven by the executor: skip-rule taps never
+    # accumulate; "minimal" drops dsnot-only sites to feature moments
+    executor = pruning.PruneExecutor(
+        api, params, plan,
+        calib_spec=plan.calib_spec(minimal=(calib_stats == "minimal")),
+        calib_ckpt_every=calib_ckpt_every,
+        ckpt_dir=Path(out_dir) / "prune_ckpt" if out_dir else None,
+        callback=callback if callback is not None
+        else (pruning.PrintProgress() if verbose else None))
+    report = executor.run(batches)
+    eval_params = (report.updated_params if report.updated_params is not None
+                   else params)
     dense_eval = pruning.evaluate(api, params, seed=seed, device=dev)
-    sparse_eval = pruning.evaluate(api, params, masks=report.masks,
+    sparse_eval = pruning.evaluate(api, eval_params, masks=report.masks,
                                    seed=seed, device=dev)
     if verbose:
         print(report.summary())
@@ -56,16 +110,24 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
         print(f"pruned: ppl {sparse_eval['perplexity']:.2f}  "
               f"acc {100*sparse_eval['accuracy']:.2f}%")
     if out_dir:
-        write_out_dir(Path(out_dir), arch, report, dense_eval, sparse_eval)
-    return {"report": report, "dense": dense_eval, "pruned": sparse_eval}
+        write_out_dir(Path(out_dir), arch, rec, params, report, dense_eval,
+                      sparse_eval)
+    return {"report": report, "dense": dense_eval, "pruned": sparse_eval,
+            "plan": plan, "stats": executor.stats}
 
 
-def write_out_dir(out: Path, arch: str, report, dense_eval: dict,
-                  sparse_eval: dict) -> None:
-    """``out/masks`` (masks-tree checkpoint, step 0) and ``out/report.json``
+def write_out_dir(out: Path, arch: str, recipe, params, report,
+                  dense_eval: dict, sparse_eval: dict) -> None:
+    """``out/masks`` (masks-tree checkpoint, step 0), ``out/weights`` (the
+    leaves sparsegpt updated), ``out/recipe.json`` and ``out/report.json``
     with the reference's keys that apply to this launcher."""
     out.mkdir(parents=True, exist_ok=True)
     ckpt.save(out / "masks", 0, report.masks)
+    if report.updated_params is not None:
+        upd = changed_leaves(params, report.updated_params)
+        if upd:
+            ckpt.save(out / "weights", 0, upd)
+    (out / "recipe.json").write_text(recipe.to_json())
     doc = {
         "arch": arch, "method": report.method,
         "warmstart": report.warmstart, "pattern": report.pattern,
@@ -87,21 +149,39 @@ def main(argv=None):
     ap.add_argument("--warmstart", default="wanda",
                     choices=["magnitude", "wanda", "ria"])
     ap.add_argument("--method", default="sparseswaps",
-                    choices=["none", "sparseswaps"])
+                    choices=["none", "sparseswaps", "dsnot", "sparsegpt"])
     ap.add_argument("--t-max", type=int, default=50)
     ap.add_argument("--k-swaps", type=int, default=None,
                     help="swaps committed per search pass (default: auto)")
+    ap.add_argument("--compact-every", type=int, default=None,
+                    help="gather converged rows out every S passes")
     ap.add_argument("--n-calib", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir", default=None,
-                    help="write masks/ (checkpoint) and report.json here")
+                    help="write masks/, recipe.json and report.json here; "
+                         "group checkpoints under <out>/prune_ckpt")
+    ap.add_argument("--recipe", default=None, metavar="recipe.json",
+                    help="per-site rules (overrides --sparsity/--method/...)")
+    ap.add_argument("--plan-only", action="store_true",
+                    help="print the resolved plan table and exit")
+    ap.add_argument("--calib-stats", default="full",
+                    choices=["full", "minimal"],
+                    help="full: skip-aware Gram for every refined site; "
+                         "minimal: dsnot-only sites drop to O(d) moments "
+                         "(their reported losses become diagonal proxies)")
+    ap.add_argument("--calib-ckpt-every", type=int, default=0,
+                    help="checkpoint the calibration accumulator every k "
+                         "batches (under <out>/prune_ckpt/calib)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     prune(args.arch, tiny=args.tiny, pattern=args.sparsity,
           warmstart=args.warmstart, method=args.method, t_max=args.t_max,
-          k_swaps=args.k_swaps, n_calib=args.n_calib, seed=args.seed,
-          out_dir=args.out_dir, device=args.device)
+          k_swaps=args.k_swaps, compact_every=args.compact_every,
+          n_calib=args.n_calib, seed=args.seed, out_dir=args.out_dir,
+          recipe=args.recipe, plan_only=args.plan_only,
+          calib_stats=args.calib_stats,
+          calib_ckpt_every=args.calib_ckpt_every, device=args.device)
 
 
 if __name__ == "__main__":

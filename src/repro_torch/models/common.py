@@ -29,12 +29,13 @@ from repro_torch.kernels.spmm import EPILOGUES, apply_epilogue  # noqa: F401
 class TapPolicy:
     """Decides what calibration statistics a tap site emits, and how.
 
-    * ``fields(name)`` — which of ``("g", "s", "n")`` the tap named
-      ``name`` emits: the (d, d) Gram contribution, the feature sums and
-      the token count. An empty tuple skips the tap.
+    * ``fields(name)`` — which of ``("g", "d", "s", "n")`` the tap named
+      ``name`` emits: the (d, d) Gram contribution, its diagonal only
+      (Σx² per feature, the moments level), the feature sums and the
+      token count. An empty tuple skips the tap.
     * ``gram(x2)`` — XᵀX for a flattened (tokens, d) fp32 chunk.
       Calibration installs a policy that sends it to the CUDA kernel
-      (``repro_torch.pruning.calibrate.CalibSpec``).
+      (``repro_torch.pruning.stats.CalibSpec``).
     """
 
     def fields(self, name: str) -> tuple[str, ...]:
@@ -68,6 +69,8 @@ def emit_tap(taps: Taps, name: str, x: torch.Tensor) -> None:
     ent = {}
     if "g" in fields:
         ent["g"] = pol.gram(x2)
+    if "d" in fields:
+        ent["d"] = (x2 * x2).sum(0)
     if "s" in fields:
         ent["s"] = x2.sum(0)
     if "n" in fields:

@@ -79,9 +79,11 @@ class DecodeCache(NamedTuple):
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
     """Random params from a seeded ``torch.Generator`` on ``device``, with
     the reference's shapes and init scales (normal, 0.02 for embeddings,
-    d_in^-0.5 for linears)."""
+    d_in^-0.5 for linears). On ``device="meta"`` only shapes and dtypes
+    exist (no generator, no memory): what planning reads."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     dt = getattr(torch, cfg.dtype)
     params = {
         "embed": common.normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02,

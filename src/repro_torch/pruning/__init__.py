@@ -1,15 +1,31 @@
-"""Pruning pipeline: calibrate -> enumerate sites -> refine -> report."""
-from .calibrate import (CalibSpec, CalibStats, accumulate, accumulate_stats,
-                        calibration_batches)
-from .engine import GroupResult, RefineContext, refine_group, register
+"""Pruning pipeline: recipe -> plan -> execute (calibrate / refine / report).
+
+``prune_model`` remains the one-call entry point (a single-rule recipe);
+``PruneRecipe`` / ``plan_pruning`` / ``PruneExecutor`` expose the staged
+API with per-site rules, dry-run cost tables and group-granular resume.
+"""
+from .calibrate import accumulate, calibration_batches
+from .engine import (GroupResult, RefineContext, refine_group,
+                     refine_group_reference, register)
 from .evaluate import evaluate, perplexity, top1_accuracy, val_batches
+from .executor import PruneCallback, PruneExecutor, PrintProgress
 from .pipeline import PruneReport, SiteReport, prune_model
-from .sites import GramBatch, SiteGroup, build_mask_tree, enumerate_sites
+from .plan import PlannedGroup, PrunePlan, plan_pruning
+from .recipe import PruneRecipe, ResolvedRule, SiteRule
+from .recover import RecoverSpec
+from .sites import (GramBatch, GramStats, SiteGroup, SiteSpec, TapSpec,
+                    build_mask_tree, enumerate_sites, prunable_param_count,
+                    site_specs, tap_specs)
+from .stats import CalibSpec, CalibStats, accumulate_stats
 
 __all__ = [
-    "CalibSpec", "CalibStats", "GramBatch", "GroupResult", "PruneReport",
-    "RefineContext", "SiteGroup", "SiteReport", "accumulate",
-    "accumulate_stats", "build_mask_tree", "calibration_batches",
-    "enumerate_sites", "evaluate", "perplexity", "prune_model",
-    "refine_group", "register", "top1_accuracy", "val_batches",
+    "CalibSpec", "CalibStats", "GramBatch", "GramStats", "GroupResult",
+    "PlannedGroup", "PrintProgress", "PruneCallback", "PruneExecutor",
+    "PrunePlan", "PruneRecipe", "PruneReport", "RecoverSpec",
+    "RefineContext", "ResolvedRule", "SiteGroup", "SiteReport", "SiteRule",
+    "SiteSpec", "TapSpec", "accumulate", "accumulate_stats",
+    "build_mask_tree", "calibration_batches", "enumerate_sites", "evaluate",
+    "perplexity", "plan_pruning", "prunable_param_count", "prune_model",
+    "refine_group", "refine_group_reference", "register", "site_specs",
+    "tap_specs", "top1_accuracy", "val_batches",
 ]

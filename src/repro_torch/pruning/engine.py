@@ -9,8 +9,12 @@ instances, over N·rows). Methods plug in through a registry::
     @register("sparseswaps")
     def _refine_sparseswaps(W, gram, pattern, ctx) -> GroupResult: ...
 
-Ported so far: ``none`` (warmstart only) and ``sparseswaps``. DSnoT,
-SparseGPT, compaction and mesh-sharded refinement come later.
+Registered: ``none`` (warmstart only), ``sparseswaps`` (with active-row
+compaction under ``ctx.compact_every``), ``dsnot`` (runs off moments
+alone) and ``sparsegpt`` (mask + updated weights).
+``refine_instance`` / ``refine_group_reference`` keep the per-instance
+loop the batched engine is held against. Mesh-sharded refinement is not
+ported yet (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import sparseswaps
 from repro_torch.core import swap_math as sm
+from repro_torch.core.dsnot import _dsnot_rows, dsnot as _dsnot
+from repro_torch.core.sparsegpt import sparsegpt as _sparsegpt
 from repro_torch.core.warmstart import warmstart_mask
 
 from . import sites as sites_lib
@@ -33,14 +39,23 @@ class RefineContext:
     """Per-run knobs every refiner sees.
 
     ``k_swaps``: candidate swaps committed per search pass (None = auto,
-    8). ``t_max`` bounds search PASSES. The search runs the CUDA kernels
-    for tensors on the card and the reference's dense/chunked rule on the
-    CPU.
+    8). ``t_max`` bounds search PASSES. ``compact_every``: gather converged
+    rows out of the working set every S passes (None/0 = off). The search
+    runs the CUDA kernels for tensors on the card and the reference's
+    dense/chunked rule on the CPU.
     """
 
     warmstart: str = "wanda"
     t_max: int = 100
+    eps: float = 0.0
     k_swaps: int | None = None
+    compact_every: int | None = None
+
+    def with_overrides(self, **overrides) -> "RefineContext":
+        """Per-group context: replace only the knobs a recipe rule sets
+        (``None`` means inherit)."""
+        kept = {k: v for k, v in overrides.items() if v is not None}
+        return dataclasses.replace(self, **kept) if kept else self
 
 
 @dataclasses.dataclass
@@ -51,6 +66,7 @@ class GroupResult:
     loss_init: torch.Tensor      # (N, d_out) exact row loss, warmstart
     loss_final: torch.Tensor     # (N, d_out) after refinement
     swaps: torch.Tensor          # (N, d_out) accepted swaps per row
+    new_weights: torch.Tensor | None = None   # (N, d_out, d_in), sparsegpt
 
 
 REFINERS: dict = {}
@@ -71,11 +87,20 @@ def refine_group(method: str, group: sites_lib.SiteGroup,
     """Refine every instance of ``group``."""
     if method not in REFINERS:
         raise ValueError(f"unknown method {method!r}; have {sorted(REFINERS)}")
+    if group.gram.G is None and method != "dsnot":
+        raise ValueError(
+            f"method {method!r} needs full Gram statistics but group "
+            f"{group.name!r} was calibrated at moments level — rebuild the "
+            f"CalibSpec from the current plan (pruning.stats)")
     return REFINERS[method](group.weights, group.gram, pattern, ctx)
 
 
+# ---------------------------------------------------------------------------
+# per-instance building blocks
+# ---------------------------------------------------------------------------
+
 def _warmstart_batch(W, G, pattern, criterion):
-    """(N, R, d) stacked warmstart masks."""
+    """(N, R, d) stacked warmstart masks; ``G`` may be the (N, d) diagonal."""
     return torch.stack([warmstart_mask(W[i].float(), G[i], pattern, criterion)
                         for i in range(W.shape[0])])
 
@@ -85,14 +110,39 @@ def _row_loss_batch(W, M, G):
                         for i in range(W.shape[0])])
 
 
+def _row_loss_diag_batch(W, M, diag):
+    """Diagonal (Jensen) proxy of the row loss: Σ_j c_j² G_jj.
+
+    Used when only moments-level statistics exist (dsnot under a minimal
+    ``CalibSpec``): exact for uncorrelated features, an upper bound
+    otherwise — the reported losses are then proxies.
+    """
+    C = W.float() * (1.0 - M)
+    return torch.einsum("nrj,nj->nr", C * C, diag.float())
+
+
+def _sparsegpt_loss(W, W1, G):
+    """||WX - W1X||² per row via G: the loss of (mask, updated weights)
+    against the dense output."""
+    diff = W.float() - W1
+    return torch.einsum("ri,ij,rj->r", diff, G.float(), diff)
+
+
+def _no_swaps(W):
+    return torch.zeros(W.shape[:2], dtype=torch.int64, device=W.device)
+
+
+# ---------------------------------------------------------------------------
+# methods
+# ---------------------------------------------------------------------------
+
 @register("none")
 def _refine_none(W, gram, pattern, ctx):
     """Warmstart mask only (= Wanda / RIA / magnitude baselines)."""
     m0 = _warmstart_batch(W, gram.G, pattern, ctx.warmstart)
     l0 = _row_loss_batch(W, m0, gram.G)
     return GroupResult(masks=m0, loss_init=l0, loss_final=l0,
-                       swaps=torch.zeros(W.shape[:2], dtype=torch.int64,
-                                         device=W.device))
+                       swaps=_no_swaps(W))
 
 
 @register("sparseswaps")
@@ -104,8 +154,16 @@ def _refine_sparseswaps(W, gram, pattern, ctx):
     meth = sparseswaps._pick_method("auto", d, N * R, W.device)
     block = pattern.block(d)
     k = sparseswaps._pick_k(ctx.k_swaps, d, block)
+
+    if ctx.compact_every:
+        m, l0, l1, swaps, _ = sparseswaps.refine_stacked_compacted(
+            W.float(), m0, gram.G.float(), t_max=ctx.t_max, eps=ctx.eps,
+            method=meth, block=block, chunk=CHUNK, k_swaps=k,
+            compact_every=ctx.compact_every)
+        return GroupResult(masks=m, loss_init=l0, loss_final=l1, swaps=swaps)
+
     outs = [sparseswaps._refine_block(
-                W[i].float(), m0[i], gram.G[i], t_max=ctx.t_max, eps=0.0,
+                W[i].float(), m0[i], gram.G[i], t_max=ctx.t_max, eps=ctx.eps,
                 method=meth, block=block, chunk=CHUNK, track_history=False,
                 k_swaps=k)
             for i in range(N)]
@@ -113,3 +171,100 @@ def _refine_sparseswaps(W, gram, pattern, ctx):
     stack = lambda j: torch.stack([o[j] for o in outs])
     return GroupResult(masks=stack(0), loss_init=stack(1),
                        loss_final=stack(2), swaps=stack(3))
+
+
+@register("dsnot")
+def _refine_dsnot(W, gram, pattern, ctx):
+    """DSnoT baseline: surrogate-driven swaps from feature mean/variance.
+
+    Runs off moments alone: with a full Gram the reported losses are the
+    exact row objective; at moments level the warmstart scores from
+    diag(G) (the same masks — Wanda/RIA read only the diagonal) and the
+    losses fall back to the diagonal proxy.
+    """
+    d = W.shape[2]
+    g_or_diag = gram.G if gram.G is not None else gram.gram_diag
+    row_loss = (_row_loss_batch if gram.G is not None
+                else _row_loss_diag_batch)
+    m0 = _warmstart_batch(W, g_or_diag, pattern, ctx.warmstart)
+    l0 = row_loss(W, m0, g_or_diag)
+    block = pattern.block(d)
+    mean, var, ex2 = gram.mean, gram.variance, gram.ex2
+    m1 = torch.stack([
+        _dsnot_rows(W[i].float(), m0[i], mean[i], var[i], ex2[i],
+                    t_max=ctx.t_max, block=block)
+        for i in range(W.shape[0])])
+    l1 = row_loss(W, m1, g_or_diag)
+    return GroupResult(masks=m1, loss_init=l0, loss_final=l1,
+                       swaps=_no_swaps(W))
+
+
+@register("sparsegpt")
+def _refine_sparsegpt(W, gram, pattern, ctx):
+    """SparseGPT baseline: OBS mask + weight update, per instance."""
+    m0 = _warmstart_batch(W, gram.G, pattern, ctx.warmstart)
+    l0 = _row_loss_batch(W, m0, gram.G)
+    outs = [_sparsegpt(W[i], gram.G[i], pattern) for i in range(W.shape[0])]
+    W1 = torch.stack([o[0] for o in outs])
+    m1 = torch.stack([o[1] for o in outs])
+    l1 = torch.stack([_sparsegpt_loss(W[i], W1[i], gram.G[i])
+                      for i in range(W.shape[0])])
+    return GroupResult(masks=m1, loss_init=l0, loss_final=l1,
+                       swaps=_no_swaps(W), new_weights=W1)
+
+
+# ---------------------------------------------------------------------------
+# per-instance reference path (under test against the engine)
+# ---------------------------------------------------------------------------
+
+def refine_instance(W, gram: sites_lib.GramStats, pattern, *, method: str,
+                    warmstart: str, t_max: int, eps: float, k_swaps=None,
+                    compact_every=None):
+    """Prune one (d_out, d_in) instance. Returns (mask, l0, l1, swaps, W')."""
+    G = gram.G
+    zeros = torch.zeros(W.shape[0], dtype=torch.int64, device=W.device)
+    if G is None:
+        if method != "dsnot":
+            raise ValueError(f"method {method!r} needs full Gram statistics")
+        diag = gram.gram_diag
+        m0 = warmstart_mask(W, diag, pattern, criterion=warmstart)
+        l0 = _row_loss_diag_batch(W[None], m0[None], diag[None])[0]
+        m1 = _dsnot(W, m0, gram.mean, gram.variance, gram.ex2, pattern,
+                    t_max=t_max)
+        l1 = _row_loss_diag_batch(W[None], m1[None], diag[None])[0]
+        return m1, l0, l1, zeros, None
+    m0 = warmstart_mask(W, G, pattern, criterion=warmstart)
+    l0 = sm.row_loss(W.float(), m0, G)
+
+    if method == "none":
+        return m0, l0, l0, zeros, None
+    if method == "sparseswaps":
+        k = sparseswaps._pick_k(k_swaps, W.shape[1], pattern.block(W.shape[1]))
+        res = sparseswaps.refine(W, G, m0, pattern, t_max=t_max, eps=eps,
+                                 k_swaps=k, compact_every=compact_every or 0)
+        return res.mask, res.loss_init, res.loss_final, res.swaps, None
+    if method == "dsnot":
+        m1 = _dsnot(W, m0, gram.mean, gram.variance, gram.ex2, pattern,
+                    t_max=t_max)
+        return m1, l0, sm.row_loss(W.float(), m1, G), zeros, None
+    if method == "sparsegpt":
+        W1, m1 = _sparsegpt(W, G, pattern)
+        return m1, l0, _sparsegpt_loss(W, W1, G), zeros, W1
+    raise ValueError(f"unknown method {method!r}")
+
+
+def refine_group_reference(method: str, group: sites_lib.SiteGroup,
+                           pattern: masks_lib.Pattern,
+                           ctx: RefineContext) -> GroupResult:
+    """The per-instance Python loop, reshaped into a GroupResult."""
+    outs = [refine_instance(
+                group.weights[i], group.gram.instance(i), pattern,
+                method=method, warmstart=ctx.warmstart, t_max=ctx.t_max,
+                eps=ctx.eps, k_swaps=ctx.k_swaps,
+                compact_every=ctx.compact_every)
+            for i in range(group.n_instances)]
+    stack = lambda j: torch.stack([o[j] for o in outs])
+    return GroupResult(masks=stack(0), loss_init=stack(1),
+                       loss_final=stack(2), swaps=stack(3),
+                       new_weights=stack(4) if outs[0][4] is not None
+                       else None)

@@ -1,0 +1,182 @@
+"""Pruning plans: resolve a recipe against a model before spending FLOPs.
+
+``plan_pruning(api, params, recipe)`` maps every enumerated ``SiteSpec``
+through the recipe's first-match resolution and precomputes, per group,
+what executing it will cost and which engine path it will take. On one
+device the paths are:
+
+* ``batched`` — the engine's refiner over the stacked group;
+* ``skip``    — the rule leaves the site dense.
+
+``PrunePlan.describe()`` renders the whole thing as a table — the dry-run
+view ``launch/prune.py --plan-only`` prints. ``params`` may live on
+``device="meta"``: planning reads shapes only. The mesh paths
+(rows-/gram-sharded) are not ported yet (ROADMAP A5).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from . import engine as engine_lib
+from . import recipe as recipe_lib
+from . import sites as sites_lib
+from . import stats as stats_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedGroup:
+    """One site group with its resolved rule and cost estimate."""
+
+    spec: sites_lib.SiteSpec
+    rule: recipe_lib.ResolvedRule
+    engine_path: str             # batched | skip
+
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    @property
+    def skip(self) -> bool:
+        return self.rule.skip
+
+    @property
+    def weight_bytes(self) -> int:
+        return 0 if self.skip else self.spec.weight_bytes
+
+    @property
+    def gram_bytes(self) -> int:
+        return 0 if self.skip else self.spec.gram_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class PrunePlan:
+    """The resolved, costed execution order ``PruneExecutor`` runs."""
+
+    groups: tuple[PlannedGroup, ...]
+    recipe: recipe_lib.PruneRecipe
+    compact_every: int | None = None   # active-row compaction period
+    cfg: object = None                 # ArchConfig
+
+    @property
+    def active_groups(self) -> tuple[PlannedGroup, ...]:
+        return tuple(g for g in self.groups if not g.skip)
+
+    def total_weight_bytes(self) -> int:
+        return sum(g.weight_bytes for g in self.groups)
+
+    def total_gram_bytes(self) -> int:
+        return sum(g.gram_bytes for g in self.groups)
+
+    def base_context(self) -> engine_lib.RefineContext:
+        """Run-wide knobs; the executor layers rule overrides per group."""
+        return engine_lib.RefineContext(
+            warmstart=self.recipe.warmstart, t_max=self.recipe.t_max,
+            eps=self.recipe.eps, k_swaps=self.recipe.k_swaps, compact_every=self.compact_every)
+
+    def group_context(self, g: PlannedGroup) -> engine_lib.RefineContext:
+        return self.base_context().with_overrides(
+            warmstart=g.rule.warmstart, t_max=g.rule.t_max, eps=g.rule.eps,
+            k_swaps=g.rule.k_swaps)
+
+    # -- calibration costing ------------------------------------------------
+
+    def calib_spec(self, *, minimal: bool = True) -> stats_lib.CalibSpec:
+        """The recipe-aware ``CalibSpec`` this plan needs (see stats)."""
+        return stats_lib.CalibSpec.from_plan(self.cfg, self, minimal=minimal)
+
+    def calib_costs(self, *, minimal: bool = True) -> list[tuple]:
+        """(TapSpec, level) per calibration tap under the recipe."""
+        spec = self.calib_spec(minimal=minimal)
+        taps = sites_lib.tap_specs(self.cfg, [g.spec for g in self.groups])
+        return [(t, spec.level(t.name)) for t in taps]
+
+    def total_calib_bytes(self, *, minimal: bool = True) -> int:
+        """Accumulator footprint during calibration (fp32)."""
+        return sum(t.bytes_at(lvl)
+                   for t, lvl in self.calib_costs(minimal=minimal))
+
+    def describe(self) -> str:
+        """The dry-run table: every group, its treatment, its cost."""
+        hdr = (f"{'site':30s} {'n':>4s} {'d_out x d_in':>14s} "
+               f"{'pattern':>8s} {'method':>11s} {'warm':>9s} {'t_max':>5s} "
+               f"{'k':>4s} {'path':>13s} {'W MiB':>8s} {'G MiB':>8s}")
+        lines = [hdr, "-" * len(hdr)]
+        for g in self.groups:
+            s, r = g.spec, g.rule
+            if g.skip:
+                lines.append(
+                    f"{s.name:30s} {s.n_instances:4d} "
+                    f"{f'{s.d_out} x {s.d_in}':>14s} {'-':>8s} {'skip':>11s} "
+                    f"{'-':>9s} {'-':>5s} {'-':>4s} {'skip':>13s} {'-':>8s} "
+                    f"{'-':>8s}")
+                continue
+            k_s = "auto" if r.k_swaps is None else str(r.k_swaps)
+            lines.append(
+                f"{s.name:30s} {s.n_instances:4d} "
+                f"{f'{s.d_out} x {s.d_in}':>14s} {r.pattern_str:>8s} "
+                f"{r.method:>11s} {r.warmstart:>9s} {r.t_max:5d} "
+                f"{k_s:>4s} {g.engine_path:>13s} {g.weight_bytes/2**20:8.1f} "
+                f"{g.gram_bytes/2**20:8.1f}")
+        lines.append("-" * len(hdr))
+        lines.append(
+            f"{len(self.active_groups)}/{len(self.groups)} groups to refine "
+            f"| mesh: none | totals: W {self.total_weight_bytes()/2**20:.1f} "
+            f"MiB, G {self.total_gram_bytes()/2**20:.1f} MiB")
+        if self.cfg is not None:
+            lines.append("")
+            lines.extend(self._describe_calibration())
+        return "\n".join(lines)
+
+    def _describe_calibration(self) -> list[str]:
+        """The calibration cost block: per-tap level + accumulator bytes.
+
+        The table shows the *minimal* (recipe-aware) levels; the totals
+        line also quotes the skip-aware full-Gram footprint (the executor
+        and launcher default).
+        """
+        hdr = (f"{'calibration tap':30s} {'level':>8s} {'n x d':>12s} "
+               f"{'MiB':>8s}")
+        lines = [hdr, "-" * len(hdr)]
+        for tap, lvl in self.calib_costs(minimal=True):
+            lines.append(
+                f"{'.'.join(tap.path):30s} {lvl:>8s} "
+                f"{f'{tap.n} x {tap.d_in}':>12s} "
+                f"{tap.bytes_at(lvl)/2**20:8.2f}")
+        lines.append("-" * len(hdr))
+        minimal = self.total_calib_bytes(minimal=True)
+        skip_full = self.total_calib_bytes(minimal=False)
+        legacy = sum(t.bytes_at("gram") for t, _ in self.calib_costs())
+        lines.append(
+            f"calibration state: {skip_full/2**20:.2f} MiB skip-aware full "
+            f"(executor default) | {minimal/2**20:.2f} MiB minimal | "
+            f"{legacy/2**20:.2f} MiB legacy every-tap")
+        return lines
+
+
+def plan_pruning(api, params, recipe: recipe_lib.PruneRecipe, *,
+                 mesh=None, compact_every: int | None = None) -> PrunePlan:
+    """Resolve ``recipe`` against the model's sites into a ``PrunePlan``.
+
+    Pure shape arithmetic: ``params`` may live on ``device="meta"`` and no
+    calibration is required. A recipe that attaches recovery raises
+    ``NotImplementedError`` here, before any work.
+    """
+    if recipe.recover is not None:
+        raise NotImplementedError(
+            f"the recipe asks for recovery ({recipe.recover.select}); "
+            "post-prune recovery is not ported yet (ROADMAP A3: training "
+            "and recovery)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded refinement is not ported yet (ROADMAP A5: "
+            "distribution)")
+    specs = sites_lib.site_specs(api.cfg, params)
+    recipe.validate(specs)
+    groups = []
+    for spec in specs:
+        rule = recipe.resolve(spec.name, tuple(spec.labels()))
+        groups.append(PlannedGroup(spec=spec, rule=rule,
+                                   engine_path="skip" if rule.skip
+                                   else "batched"))
+    return PrunePlan(groups=tuple(groups), recipe=recipe,
+                     compact_every=compact_every, cfg=api.cfg)

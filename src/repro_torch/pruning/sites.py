@@ -9,6 +9,10 @@ The paper prunes all linear layers except the embedding and the head
 (§3). For the dense transformer that is attention wq/wk/wv/wo and MLP
 w_gate/w_up/w_down. wq/wk/wv (and w_gate/w_up) share their input, hence
 their Gram; taps are accumulated per projection name anyway.
+
+Shape-only views (``SiteSpec``, ``TapSpec``) let the planner resolve a
+recipe and cost a run before any weight exists: ``site_specs`` reads
+nothing but ``.shape``, so params on ``device="meta"`` do.
 """
 from __future__ import annotations
 
@@ -20,12 +24,62 @@ from repro_torch.configs.base import ArchConfig
 
 
 @dataclasses.dataclass
-class GramBatch:
-    """Stacked calibration statistics for all instances of a site group."""
+class GramStats:
+    """Calibration statistics of one site instance.
 
-    G: torch.Tensor          # (N, d_in, d_in) fp32
+    ``G`` is None at the moments level (a dsnot-only site never pays the
+    (d, d) Gram); ``diag`` then carries Σx² per feature, all that Wanda/RIA
+    warmstarts and DSnoT's feature variances need.
+    """
+
+    G: torch.Tensor | None   # (d_in, d_in) fp32, or None (moments level)
+    count: torch.Tensor      # () token count
+    mean: torch.Tensor       # (d_in,)
+    diag: torch.Tensor | None = None   # (d_in,) Σx², set when G is None
+
+    @property
+    def gram_diag(self) -> torch.Tensor:
+        return torch.diagonal(self.G) if self.G is not None else self.diag
+
+    @property
+    def ex2(self) -> torch.Tensor:
+        return self.gram_diag / torch.clamp(self.count, min=1.0)
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return torch.clamp(self.ex2 - self.mean ** 2, min=0.0)
+
+
+@dataclasses.dataclass
+class GramBatch:
+    """Stacked calibration statistics for all instances of a site group;
+    as in ``GramStats``, ``G`` is None at the moments level and ``diag``
+    holds the (N, d_in) Σx² stack instead."""
+
+    G: torch.Tensor | None   # (N, d_in, d_in) fp32, or None (moments level)
     count: torch.Tensor      # (N,) token counts
     mean: torch.Tensor       # (N, d_in)
+    diag: torch.Tensor | None = None   # (N, d_in) Σx², set when G is None
+
+    @property
+    def gram_diag(self) -> torch.Tensor:
+        if self.G is not None:
+            return torch.diagonal(self.G, dim1=-2, dim2=-1)
+        return self.diag
+
+    @property
+    def ex2(self) -> torch.Tensor:
+        return self.gram_diag / torch.clamp(self.count, min=1.0)[:, None]
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return torch.clamp(self.ex2 - self.mean ** 2, min=0.0)
+
+    def instance(self, i: int) -> GramStats:
+        return GramStats(
+            G=None if self.G is None else self.G[i],
+            count=self.count[i], mean=self.mean[i],
+            diag=None if self.diag is None else self.diag[i])
 
 
 @dataclasses.dataclass
@@ -43,11 +97,53 @@ class SiteGroup:
     mask_path: tuple[str, ...]
     stack_shape: tuple[int, ...]
 
+    @property
+    def n_instances(self) -> int:
+        return self.weights.shape[0]
+
     def labels(self) -> list[str]:
         """Per-instance labels like 'layers.attn.wq[3]'."""
-        if not self.stack_shape:
-            return [self.name]
-        return [f"{self.name}[{i}]" for i in range(self.stack_shape[0])]
+        return _instance_labels(self.name, self.stack_shape)
+
+    @property
+    def spec(self) -> "SiteSpec":
+        return SiteSpec(name=self.name, n_instances=self.n_instances,
+                        d_out=int(self.weights.shape[1]),
+                        d_in=int(self.weights.shape[2]),
+                        stack_shape=self.stack_shape)
+
+
+def _instance_labels(name: str, stack_shape: tuple[int, ...]) -> list[str]:
+    if not stack_shape:
+        return [name]
+    idx = [()]
+    for d in stack_shape:
+        idx = [(*i, j) for i in idx for j in range(d)]
+    return [f"{name}{list(i)}" for i in idx]
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteSpec:
+    """Shape-only description of one SiteGroup — no weights, no Grams."""
+
+    name: str
+    n_instances: int
+    d_out: int
+    d_in: int
+    stack_shape: tuple[int, ...]
+
+    def labels(self) -> list[str]:
+        return _instance_labels(self.name, self.stack_shape)
+
+    @property
+    def weight_bytes(self) -> int:
+        """fp32 bytes of the stacked weights as the refiners see them."""
+        return 4 * self.n_instances * self.d_out * self.d_in
+
+    @property
+    def gram_bytes(self) -> int:
+        """fp32 bytes of the stacked (N, d_in, d_in) calibration Grams."""
+        return 4 * self.n_instances * self.d_in * self.d_in
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -73,19 +169,26 @@ def _get(tree, path):
 
 
 def _gram_batch(tap_entry: dict) -> GramBatch:
-    """A stacked tap entry {g, s, n} (leading layer axis) -> GramBatch."""
-    g = tap_entry["g"]
+    """A stacked tap entry {g|d, s, n} (leading layer axis) -> GramBatch."""
     s = tap_entry["s"]
-    count = tap_entry["n"].reshape(-1).float().expand(s.shape[0])
-    return GramBatch(G=g, count=count,
-                     mean=s / torch.clamp(count, min=1.0)[:, None])
+    N = s.shape[0]
+    n = tap_entry["n"].reshape(-1).float()
+    count = n.expand(N) if n.shape[0] == 1 else n
+    return GramBatch(G=tap_entry.get("g"), count=count,
+                     mean=s / torch.clamp(count, min=1.0)[:, None],
+                     diag=tap_entry.get("d"))
 
 
-def enumerate_sites(cfg: ArchConfig, params: dict,
-                    taps: dict) -> list[SiteGroup]:
-    """Pair every prunable weight stack with its calibration Gram stats."""
+def enumerate_sites(cfg: ArchConfig, params: dict, taps: dict, *,
+                    only: set | None = None) -> list[SiteGroup]:
+    """Pair every prunable weight stack with its calibration statistics.
+
+    ``only`` restricts to the named groups: skip-listed sites never touch
+    their (possibly absent) taps."""
     groups = []
     for name, ppath, tpath, n_stack in _table(cfg):
+        if only is not None and name not in only:
+            continue
         w = _get(params, ppath)
         groups.append(SiteGroup(
             name=name,
@@ -95,6 +198,66 @@ def enumerate_sites(cfg: ArchConfig, params: dict,
             stack_shape=tuple(w.shape[:n_stack]),
         ))
     return groups
+
+
+def site_specs(cfg: ArchConfig, params: dict) -> list[SiteSpec]:
+    """Prunable sites from shapes alone (no taps, no FLOPs)."""
+    specs = []
+    for name, ppath, _, n_stack in _table(cfg):
+        shape = tuple(_get(params, ppath).shape)
+        stack_shape = tuple(int(d) for d in shape[:n_stack])
+        n = 1
+        for d in stack_shape:
+            n *= d
+        specs.append(SiteSpec(name=name, n_instances=n,
+                              d_out=int(shape[n_stack]),
+                              d_in=int(shape[n_stack + 1]),
+                              stack_shape=stack_shape))
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class TapSpec:
+    """Shape-only description of one calibration tap (accumulator entry).
+
+    ``path`` locates the entry in the taps tree, ``name`` is the key the
+    model emits it under (the ``TapPolicy`` lookup key), ``n`` the stacked
+    instance count during accumulation, ``sites`` every site group fed by
+    this tap.
+    """
+
+    path: tuple[str, ...]
+    name: str
+    d_in: int
+    n: int
+    sites: tuple[str, ...]
+
+    def bytes_at(self, level: str) -> int:
+        """fp32 accumulator bytes at a ``pruning.stats`` level."""
+        if level == "none":
+            return 0
+        per = self.d_in * self.d_in if level == "gram" else self.d_in
+        return 4 * self.n * (per + self.d_in + 1)      # g|d + s + n
+
+
+def _emission_name(tpath: tuple[str, ...]) -> str:
+    """The key the model emits a tap under."""
+    return tpath[-1]
+
+
+def tap_specs(cfg: ArchConfig, specs: list[SiteSpec]) -> list[TapSpec]:
+    """Calibration taps with their accumulation-time shapes."""
+    by_name = {s.name: s for s in specs}
+    out: dict[tuple[str, ...], TapSpec] = {}
+    for name, _, tpath, _ in _table(cfg):
+        s = by_name[name]
+        prev = out.get(tpath)
+        if prev is None:
+            out[tpath] = TapSpec(path=tpath, name=_emission_name(tpath),
+                                 d_in=s.d_in, n=s.n_instances, sites=(name,))
+        else:
+            out[tpath] = dataclasses.replace(prev, sites=(*prev.sites, name))
+    return list(out.values())
 
 
 def build_mask_tree(cfg: ArchConfig, site_masks: dict[str, torch.Tensor],
@@ -111,3 +274,8 @@ def build_mask_tree(cfg: ArchConfig, site_masks: dict[str, torch.Tensor],
             node = node.setdefault(k, {})
         node[g.mask_path[-1]] = m
     return tree
+
+
+def prunable_param_count(cfg: ArchConfig, params: dict) -> int:
+    """Weights in scope for pruning (the paper's sparsity denominator)."""
+    return sum(_get(params, ppath).numel() for _, ppath, _, _ in _table(cfg))

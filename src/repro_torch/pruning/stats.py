@@ -1,0 +1,256 @@
+"""Streaming, recipe-aware calibration statistics (one device).
+
+The refinement needs only G = XᵀX "accumulated on-the-fly as calibration
+samples pass through the layer" (paper §2.1.2), and different methods
+need different statistics: sparseswaps/sparsegpt the full Gram, Wanda/RIA
+warmstarts its diagonal, DSnoT only feature means and variances. This
+module plans, accumulates and checkpoints exactly that state:
+
+* ``CalibSpec`` — derived from a resolved plan: per tap, which level of
+  statistics to accumulate ("gram" | "moments" | "none"). Skip-rule sites
+  accumulate nothing; dsnot-only sites pay O(d) instead of O(d²).
+* ``CalibStats`` — the accumulated state: the model-structured tap tree of
+  raw additive moments (fp32, on the device).
+* ``accumulate_stats`` — one forward per batch; the first batch's taps
+  become the accumulator and later batches add into it in place (the
+  reference's donated carry starts from zeros: 0 + x == x, so the sums
+  agree bit for bit). Gram contributions go through
+  ``kernels.ops.gram_xtx``: the CUDA kernel for activations on the card,
+  its plain version on the CPU.
+* checkpoint/resume under ``ckpt_dir`` in the reference's format, keyed by
+  the spec fingerprint, so a resumed job never mixes statistics from a
+  different recipe.
+
+Mesh-sharded accumulation is not ported yet (ROADMAP A5): ``mesh=``
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from pathlib import Path
+
+import torch
+
+from repro_torch import ckpt
+from repro_torch.core import gram as gram_lib
+from repro_torch.kernels import ops
+from repro_torch.models import ModelApi
+from repro_torch.models import common as common_lib
+
+from . import sites as sites_lib
+
+LEVELS = ("none", "moments", "gram")
+_RANK = {lvl: i for i, lvl in enumerate(LEVELS)}
+_FIELDS = {"none": (), "moments": ("d", "s", "n"), "gram": ("g", "s", "n")}
+
+
+def required_level(rule) -> str:
+    """The statistics a resolved site rule needs: nothing for a skip,
+    feature moments for dsnot, the full Gram for everything else."""
+    if rule.skip:
+        return "none"
+    if rule.method == "dsnot":
+        return "moments"
+    return "gram"
+
+
+def _max_level(a: str, b: str) -> str:
+    return a if _RANK[a] >= _RANK[b] else b
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibSpec:
+    """Which statistics calibration accumulates, per emitted tap name;
+    omitted taps default to "none" (never emitted)."""
+
+    levels: tuple[tuple[str, str], ...]
+
+    def __post_init__(self):
+        bad = [lvl for _, lvl in self.levels if lvl not in LEVELS]
+        if bad:
+            raise ValueError(f"unknown levels {bad}; have {LEVELS}")
+        object.__setattr__(self, "levels",
+                           tuple(sorted(dict(self.levels).items())))
+
+    @classmethod
+    def full(cls, cfg) -> "CalibSpec":
+        """Every tap at gram level."""
+        names = {sites_lib._emission_name(tpath)
+                 for _, _, tpath, _ in sites_lib._table(cfg)}
+        return cls(levels=tuple((n, "gram") for n in sorted(names)))
+
+    @classmethod
+    def from_plan(cls, cfg, plan, *, minimal: bool = True) -> "CalibSpec":
+        """The per-tap levels a resolved ``PrunePlan`` needs: per tap, the
+        max over the site groups it feeds. ``minimal=False`` promotes every
+        non-skipped tap to gram level (skip-aware, exact dsnot losses);
+        ``minimal=True`` drops dsnot-only taps to moments."""
+        by_site = {g.spec.name: required_level(g.rule) for g in plan.groups}
+        if not minimal:
+            by_site = {k: ("none" if v == "none" else "gram")
+                       for k, v in by_site.items()}
+        levels: dict[str, str] = {}
+        for tap in sites_lib.tap_specs(cfg, [g.spec for g in plan.groups]):
+            lvl = "none"
+            for site in tap.sites:
+                lvl = _max_level(lvl, by_site.get(site, "none"))
+            levels[tap.name] = _max_level(levels.get(tap.name, "none"), lvl)
+        return cls(levels=tuple(levels.items()))
+
+    def level(self, name: str) -> str:
+        return dict(self.levels).get(name, "none")
+
+    def covers(self, other: "CalibSpec") -> bool:
+        """True when stats under this spec satisfy ``other``'s needs."""
+        mine = dict(self.levels)
+        return all(_RANK[mine.get(n, "none")] >= _RANK[lvl]
+                   for n, lvl in other.levels)
+
+    def fingerprint(self) -> str:
+        """Content hash for checkpoint keying (the reference's)."""
+        return hashlib.sha256(
+            json.dumps(self.levels).encode()).hexdigest()[:16]
+
+    def policy(self) -> common_lib.TapPolicy:
+        return _SpecTapPolicy(self)
+
+
+class _SpecTapPolicy(common_lib.TapPolicy):
+    """TapPolicy driven by a CalibSpec; Grams go through the kernel wrapper."""
+
+    def __init__(self, spec: CalibSpec):
+        self._levels = dict(spec.levels)
+
+    def fields(self, name: str) -> tuple[str, ...]:
+        return _FIELDS[self._levels.get(name, "none")]
+
+    def gram(self, x2: torch.Tensor) -> torch.Tensor:
+        return ops.gram_xtx(x2)
+
+
+@dataclasses.dataclass
+class CalibStats:
+    """Accumulated calibration statistics: the model-structured tap tree
+    of raw additive moments (absent keys for skipped taps, "d" in place of
+    "g" at the moments level), and the number of batches folded in."""
+
+    taps: dict
+    spec: CalibSpec
+    batches: int = 0
+
+    def tap_bytes(self) -> int:
+        """Total accumulator footprint in bytes."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for _, leaf in _flatten(self.taps))
+
+    def gram_state(self, path: tuple[str, ...]) -> gram_lib.GramState:
+        """One tap entry as a ``core.gram.GramState`` (stacked dims kept)."""
+        ent = self.taps
+        for k in path:
+            ent = ent[k]
+        g = ent["g"] if "g" in ent else ent["d"]
+        return gram_lib.state_from_moments(g, ent["s"], ent["n"])
+
+
+def _flatten(tree: dict, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _flatten(v, f"{prefix}{k}/")
+        else:
+            out.append((f"{prefix}{k}", v))
+    return out
+
+
+def _add_into(acc: dict, new: dict) -> None:
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _add_into(acc[k], v)
+        else:
+            acc[k] += v
+
+
+def _expected_leaves(api: ModelApi, params, spec: CalibSpec) -> dict:
+    """{leaf path: shape} of the tap tree ``spec`` accumulates."""
+    out = {}
+    for tap in sites_lib.tap_specs(api.cfg,
+                                   sites_lib.site_specs(api.cfg, params)):
+        lvl = spec.level(tap.name)
+        name = "/".join(tap.path)
+        for f in _FIELDS[lvl]:
+            out[f"{name}/{f}"] = {"g": [tap.n, tap.d_in, tap.d_in],
+                                  "d": [tap.n, tap.d_in],
+                                  "s": [tap.n, tap.d_in], "n": [tap.n]}[f]
+    return out
+
+
+def _try_resume(ckpt_dir: Path, spec: CalibSpec, expected: dict, device):
+    """(start batch, taps) of the newest checkpoint under ``ckpt_dir`` that
+    matches ``spec`` and the tap shapes; (0, None) otherwise."""
+    found = ckpt.restore_latest(ckpt_dir)
+    if found is None:
+        return 0, None
+    step, flat, man = found
+    if (man.get("extra", {}).get("calib_spec") != spec.fingerprint()
+            or {k: list(v.shape) for k, v in flat.items()} != expected):
+        return 0, None
+    taps: dict = {}
+    for path, arr in flat.items():
+        keys = path.split("/")
+        node = taps
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = torch.from_numpy(arr).to(device)
+    return step, taps
+
+
+def _device_of(params) -> torch.device:
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
+@torch.no_grad()
+def accumulate_stats(api: ModelApi, params, batches, *,
+                     spec: CalibSpec | None = None, mesh=None,
+                     ckpt_dir=None, checkpoint_every: int = 0) -> CalibStats:
+    """Stream calibration batches into a ``CalibStats`` accumulator.
+
+    ``ckpt_dir`` + ``checkpoint_every``: persist the accumulator every k
+    batches and resume a matching interrupted run, keyed by the spec
+    fingerprint (a different recipe recomputes).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded calibration is not ported yet (ROADMAP A5: "
+            "distribution)")
+    spec = spec if spec is not None else CalibSpec.full(api.cfg)
+    policy = spec.policy()
+    start, total = 0, None
+    if ckpt_dir is not None:
+        ckpt_dir = Path(ckpt_dir)
+        start, total = _try_resume(ckpt_dir, spec,
+                                   _expected_leaves(api, params, spec),
+                                   _device_of(params))
+    done = start
+    for i, batch in enumerate(batches):
+        if i < start:
+            continue
+        _, aux = api.loss(params, batch, masks=None, want_taps=True,
+                          tap_policy=policy)
+        if total is None:
+            total = aux["taps"]
+        else:
+            _add_into(total, aux["taps"])
+        done = i + 1
+        if (ckpt_dir is not None and checkpoint_every
+                and done % checkpoint_every == 0):
+            ckpt.save(ckpt_dir, done, total,
+                      extra={"calib_spec": spec.fingerprint()})
+            ckpt.gc(ckpt_dir, keep=1)
+    if done == 0:
+        raise ValueError("no calibration batches provided")
+    return CalibStats(taps=total, spec=spec, batches=done)

@@ -47,7 +47,10 @@ def test_scan_covers_the_port():
     for must in ("launch/prune.py", "kernels/ops.py", "core/sparseswaps.py",
                  "pruning/pipeline.py", "convert.py", "kernels/spmm.py",
                  "serve/engine.py", "ckpt/store.py", "launch/serve.py",
-                 "core/packed.py"):
+                 "core/packed.py", "core/dsnot.py", "core/sparsegpt.py",
+                 "pruning/recipe.py", "pruning/plan.py",
+                 "pruning/executor.py", "pruning/stats.py",
+                 "pruning/recover.py", "runtime/fault_tolerance.py"):
         assert must in names
 
 

@@ -268,7 +268,31 @@ def test_cuda_kernels_match_plain(cuda, d_out, d_in):
         assert torch.equal(Gk, Gk.T)                          # exact mirror
         torch.testing.assert_close(Gk, Gp, rtol=1e-5, atol=1e-4)
     assert ops.LAUNCHES == {"gram_xtx": 2, "swap_topk": 2, "swap_argmin": 1,
-                            "spmm": 0}
+                            "swap_commit": 0, "spmm": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_out,d_in,k", [(33, 300, 8), (64, 1024, 5),
+                                          (40, 96, 32)])
+def test_cuda_swap_commit_matches_plain(cuda, d_out, d_in, k):
+    """The commit kernel equals commit_decisions bit for bit on swap_topk's
+    candidates (the +inf tail included), accepts and rejects, and the
+    fused step equals the plain candidate-space commit."""
+    w, m, c, G = _port_problem(d_in + k, d_out, d_in, cuda)
+    dl, u, p = ops.swap_topk(w, m, c, G, k=k)
+    valid = torch.isfinite(dl).float()
+    stats = sm.gather_candidate_stats(w, c, G, u, p)
+    ops.reset_launches()
+    acc, dls = ops.swap_commit(*stats, u, p, valid, eps=0.0, k=k)
+    want = topk_mod.swap_commit_plain(*stats, u, p, valid, eps=0.0, k=k)
+    assert torch.equal(acc, want[0]) and torch.equal(dls, want[1])
+    assert 0 < int(acc.sum()) < acc.numel()             # accepts and rejects
+    assert bool((dls[acc == 0] == 0).all())
+    got = ops.swap_topk_commit(w, m, c, G, k=k)
+    plain = sm.commit_swaps(w, m, c, G, dl, u, p)
+    for g, t in zip(got, plain):
+        assert torch.equal(g, t)
+    assert ops.LAUNCHES["swap_commit"] == 2
 
 
 def _spmm_tol(want: torch.Tensor) -> torch.Tensor:

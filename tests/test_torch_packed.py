@@ -330,6 +330,18 @@ def test_ckpt_rejects_corruption_and_bf16(tmp_path):
     assert tckpt.latest_valid(tmp_path) == 1            # skips the corrupt one
     with pytest.raises(IOError, match="hash mismatch"):
         tckpt.restore(tmp_path, 2)
+    # bf16 leaves are written byte for byte as the reference writes them
+    # (raw 2-byte records, dtype "bfloat16"); reading them here waits for
+    # the weights/ splice
+    b = torch.tensor([1.5, -2.25, 3e-3], dtype=torch.bfloat16)
+    tckpt.save(tmp_path, 3, {"a": b})
+    jckpt.save(tmp_path / "ref", 3, {"a": jax.numpy.asarray(
+        b.float().numpy()).astype(jax.numpy.bfloat16)})
+    leaf = lambda d: json.loads((d / "step_00000003" / "MANIFEST.json")
+                                .read_text())["leaves"][0]
+    mine, theirs = leaf(tmp_path), leaf(tmp_path / "ref")
+    assert mine["dtype"] == theirs["dtype"] == "bfloat16"
+    assert mine["shards"][0]["sha256"] == theirs["shards"][0]["sha256"]
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        tckpt.save(tmp_path, 3, {"a": torch.ones(2, dtype=torch.bfloat16)})
-    assert tckpt.steps(tmp_path) == [1, 2]               # nothing half-written
+        tckpt.restore(tmp_path, 3)
+    assert tckpt.steps(tmp_path) == [1, 2, 3]            # nothing half-written

@@ -73,12 +73,14 @@ def test_kernel_method_on_cpu_takes_plain_versions():
     args = (torch.from_numpy(W), torch.from_numpy(G), torch.from_numpy(m0),
             tmasks.PerRow(0.6))
     ops.reset_launches()
-    for k in (1, 8):
-        a = tss.refine(*args, t_max=20, method="kernel", k_swaps=k)
-        b = tss.refine(*args, t_max=20, method="chunked", k_swaps=k)
+    for k, mode in ((1, "columns"), (8, "columns"), (8, "candidates")):
+        a = tss.refine(*args, t_max=20, method="kernel", k_swaps=k,
+                       commit_mode=mode)
+        b = tss.refine(*args, t_max=20, method="chunked", k_swaps=k,
+                       commit_mode=mode)
         assert torch.equal(a.mask, b.mask)
     assert ops.LAUNCHES == {"gram_xtx": 0, "swap_topk": 0, "swap_argmin": 0,
-                            "spmm": 0}
+                            "swap_commit": 0, "spmm": 0}
     assert tss._pick_method("auto", 32, 12, "cpu") == "dense"
     assert tss._pick_method("auto", 32, 12, "cuda") == "kernel"
     assert tss._pick_method("auto", 1024, 1024, "cpu") == "chunked"

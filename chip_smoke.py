@@ -30,10 +30,15 @@ and its time:
    fp32 sums in another order) and bf16 (within one bf16 ulp of the
    plain element, or 1e-5 of max|y|: the two fp32 sums round to
    neighbouring bf16 values). Times, at w_gate and w_down, in bf16 with
-   a cold L2 (flushed before each launch): the kernel, the plain version,
-   ``torch.matmul(x, (W*mask).T)`` on the dense masked weight
-   (``library_ms``, the masked format's cost), and the bound
-   max(2*T*d_out*K at the bf16 tensor-core peak, bytes at the HBM rate).
+   a cold L2 (a 128 MB rewrite before each call), by device time alone:
+   torch.profiler sums the kernels of each call (spmm: the product kernel
+   and its split reduction; the library call: every kernel it launched;
+   the flush's kernel excluded by name), so the host's work in the
+   wrapper is never counted; the median and min-max of 20 calls of the
+   kernel, of ``torch.matmul(x, (W*mask).T)`` on the dense masked weight
+   (``library_ms``, the masked format's cost) and of the plain version,
+   and the bound max(2*T*d_out*K at the bf16 tensor-core peak, bytes at
+   the HBM rate).
 4. main path — ``prune_model`` (the recipe -> plan -> executor shim) on
    llama31-8b at full width (d_model 4096, 32 heads / 8 KV heads, d_ff
    14336, vocab 128256) with the depth cut to 2 layers, bf16, random
@@ -170,27 +175,6 @@ def cuda_ms(fn, *, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def cold_ms(fn, *, reps: int) -> float:
-    """Mean device time of ``fn()`` in ms with a cold L2: a 128 MB buffer
-    is rewritten before each launch (the serving loop meets each weight
-    after ~300 MB of others), and CUDA events bracket the launch alone."""
-    import torch
-
-    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    fn()
-    total = 0.0
-    for _ in range(reps):
-        flush.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
 
 
 def kernel_ms(fn, kernel: str, *, reps: int) -> float:
@@ -413,6 +397,7 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
     from repro_torch.core import masks, packed
     from repro_torch.kernels import ops
     from repro_torch.kernels import spmm as spmm_mod
+    from repro_torch.launch.profile_spmm import cold_device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(d_out + d_in)
     w = torch.randn(d_out, d_in, generator=gen, device="cuda") * d_in ** -0.5
@@ -441,10 +426,11 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                     f"bf16 {errs['bfloat16']:.3e}")
                 continue
             wm = (w * mask[fmt]).to(torch.bfloat16)
-            ms = cold_ms(lambda: ops.spmm(x, pw, act=act), reps=20)
-            plain_ms = cold_ms(lambda: spmm_mod.spmm_plain(x, pw, None, act),
-                               reps=5)
-            lib_ms = cold_ms(lambda: torch.matmul(x, wm.T), reps=20)
+            ms, ms_lo, ms_hi = cold_device_ms(lambda: ops.spmm(x, pw, act=act))
+            plain_ms, _, _ = cold_device_ms(
+                lambda: spmm_mod.spmm_plain(x, pw, None, act))
+            lib_ms, lib_lo, lib_hi = cold_device_ms(
+                lambda: torch.matmul(x, wm.T))
             del wm
             K = pw.k
             nbytes = (2 * T * d_in + pw.nbytes + 2 * T * d_out)
@@ -455,10 +441,11 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                              "shape": f"{tag} T={T} {fmt} bf16"}
             log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {fmt} "
                 f"K={K}: max_abs_err fp32 {errs['float32']:.3e} bf16 "
-                f"{errs['bfloat16']:.3e}; bf16 kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, torch.matmul on masked dense "
-                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-                f"{nbytes / 1e6:.1f} MB; kernel at "
+                f"{errs['bfloat16']:.3e}; bf16 device time, median [min-max] "
+                f"of 20 cold calls: kernel {ms:.4f} [{ms_lo:.4f}-{ms_hi:.4f}] "
+                f"ms, plain {plain_ms:.4f} ms, torch.matmul on masked dense "
+                f"{lib_ms:.4f} [{lib_lo:.4f}-{lib_hi:.4f}] ms, bound "
+                f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB; kernel at "
                 f"{100 * b_ms / ms:.1f}% of the bound)")
     return out
 

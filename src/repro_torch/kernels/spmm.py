@@ -2,9 +2,20 @@
 its plain PyTorch version, and the epilogue table.
 
 ``y = act(x @ (mask ⊙ W)ᵀ + b)`` from a ``core.packed`` format (nm24 or
-gathered). The kernel (``csrc/spmm.cu``) replaces the Pallas TPU kernel
-``src/repro/kernels/spmm.py::_spmm_kernel``; see the source for its
-design and what bounds it. ``repro_torch.kernels.ops.spmm`` (and
+gathered). The kernels (``csrc/spmm.cu``) replace the Pallas TPU kernel
+``src/repro/kernels/spmm.py::_spmm_kernel``; the source's head note
+gives the design and what bounds it. In short, for bf16: in nm24 (2:4)
+a producer warp streams 128-row x 128-column tiles of packed values,
+positions and x by TMA through a ring of 4 shared-memory stages, and 8
+warps build their ``mma.sync`` A fragments in registers from the
+(value, position) pairs — no dense tile in shared memory; gathered
+densifies 64 x 64 tiles in shared memory.
+Both split d_in by one plan, a function of the shapes (whole 128-column
+tiles; one block per SM; scratch no larger than the nm24 weight), and
+run the same MMA chain per output element, so the two packings of one
+2:4 mask give bitwise equal y. Both are bound by the weight bytes they
+stream; 2:4 sparse MMA (``mma.sp``) is not used, since it would break
+that equality. ``repro_torch.kernels.ops.spmm`` (and
 ``spmm_nm24``/``spmm_gather``) is the public wrapper.
 
 Both versions compute in fp32 — products, sum, bias and activation —

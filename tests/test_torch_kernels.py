@@ -312,13 +312,22 @@ def _spmm_ok(got, want) -> bool:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T", [1, 4, 5, 8, 9, 37, 130])
-def test_cuda_spmm_matches_plain(cuda, dtype, T):
+@pytest.mark.parametrize("T,d_out,d_in", [
+    (1, 70, 1200), (4, 70, 1200), (5, 70, 1200), (8, 70, 1200),
+    (9, 70, 1200), (37, 70, 1200), (130, 70, 1200),
+    (2, 4160, 2080),     # decode: 4 splits of 5 tiles wrap the 4-stage ring
+    (64, 70, 5536),      # prefill (128 tokens): 8 splits of 6 tiles
+])
+def test_cuda_spmm_matches_plain(cuda, dtype, T, d_out, d_in):
     """Both kernels (tensor cores for bf16, CUDA cores for fp32), the
-    decode and prefill tilings, split d_in, every epilogue."""
+    decode and prefill tilings, every epilogue. x holds 2T tokens. Every
+    d_in ends in a ragged 128-column tile; T = 130 and the last two cases
+    give a block more tiles than the nm24 ring has stages; d_in = 1200
+    stages nm24 positions by cp.async (k % 16 != 0), the others by TMA.
+    d_in is split at T <= 37 and in the last two cases (at decode and at
+    128 tokens)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(T)
-    d_out, d_in = 70, 1200
     w = torch.randn(d_out, d_in, generator=gen, device=cuda).to(dt)
     x = torch.randn(2, T, d_in, generator=gen, device=cuda).to(dt)
     bias = torch.randn(d_out, generator=gen, device=cuda)
@@ -386,8 +395,10 @@ def test_cuda_spmm_contracts(cuda, dtype):
             idx = nm.idx.clone()
             idx[3, :2] = idx[3, :2].flip(0)               # within a block
             idx[7, 10] = 4                                # past the block
+            idx[11, 591] = idx[11, 590]                   # a repeat, in the
+                                                          # ragged last tile
             cases.append((tpacked.PackedWeight(nm.values, idx, "nm24", d_in,
-                                               2, 4), (3, 7)))
+                                               2, 4), (3, 7, 11)))
         for bad, rows in cases:
             rows = list(rows)
             keep = [r for r in range(d_out) if r not in rows]

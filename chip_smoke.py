@@ -14,15 +14,23 @@ and its time:
    (one nvcc per source, all at once); print registers, shared memory and
    spills per kernel.
 3. kernel checks — each kernel against its plain PyTorch version at the
-   main path's shapes: ``gram_xtx`` at 512 tokens, d = 4096 and 14336
-   (relative tolerance 1e-5 of max|G|: fp32 sums in another order);
+   main path's shapes: ``gram_xtx`` at 512 tokens, d = 4096 and 14336,
+   with bf16 activations (the tensor-core path the main path takes) and
+   fp32 ones (the CUDA-core path): within 1e-5 of max|G| (fp32 sums in
+   another order; products of bf16 values are exact in fp32) and G == Gᵀ
+   exactly. Each dtype timed at both shapes by device time with a cold L2
+   (as spmm below): the kernel, the plain version, the dtype's one
+   PyTorch call (``torch.mm(x.T, x, out_dtype=torch.float32)`` for bf16,
+   ``torch.matmul(x.T, x)`` for fp32; ``library_ms``), and the bound
+   (bf16: bytes 2·T·d + 4·d² against T·d·(d+1) operations at the bf16
+   tensor-core peak; fp32: 4·(T·d + d²) bytes against the fp32 peak).
    ``swap_topk`` (k = 8) and ``swap_argmin`` on a Wanda 0.6 mask over a
    correlated Gram at (R, d) = (14336, 4096) and (4096, 14336), bitwise
    on feasible entries; ``swap_commit`` on ``swap_topk``'s k = 8
    candidates at (R, d) = (4096, 14336), bitwise, with at least one
    accept and one reject. Times with CUDA events at the w_down shape
-   (R = 4096, d = 14336), the plain version's time, ``torch.matmul``'s
-   time for the Gram (``library_ms``), and the bound from shapes.
+   (R = 4096, d = 14336), the plain version's time, and the bound from
+   shapes.
    ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
    4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
    (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
@@ -45,7 +53,9 @@ and its time:
    weights from seed 0: 16 calibration samples x 128 tokens in batches of
    4, Wanda warmstart, PerRow(0.6), k-swap with k = 8, t_max = 4 search
    passes; then dense vs pruned perplexity on 4 validation batches of
-   8 x 128. Asserts the gram_xtx and swap_topk kernels ran, exact per-row
+   8 x 128. Asserts that all 7 taps x 2 layers x 4 batches = 56 Gram
+   launches took the bf16 tensor-core path (none the fp32 one), that
+   swap_topk ran, exact per-row
    sparsity at every site, monotone row losses, a positive mean error
    reduction over Wanda, finite perplexities.
 5. second path — on layer 0's w_down with its calibration Gram:
@@ -184,10 +194,12 @@ def kernel_ms(fn, kernel: str, *, reps: int) -> float:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_spmm import profiler_preroll
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_preroll()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -341,37 +353,49 @@ def check_refined(W, G, res, pattern, tag: str) -> None:
 
 
 def check_gram(T: int, d: int) -> dict:
+    """gram_xtx in bf16 and fp32 against its plain version (within 1e-5
+    of max|G|, exactly symmetric), then device times with a cold L2.
+    Returns {dtype tag: timings}."""
     import torch
     from repro_torch.kernels import gram as gram_mod
     from repro_torch.kernels import ops
+    from repro_torch.launch.profile_spmm import cold_device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(d)
     x = torch.randn(T, d, generator=gen, device="cuda")
+    flops = float(T) * d * (d + 1)           # the symmetric half
     out = {}
-    for xx, tag in ((x, "fp32"), (x.to(torch.bfloat16), "bf16")):
+    for xx, tag in ((x.to(torch.bfloat16), "bf16"), (x, "fp32")):
         Gk = ops.gram_xtx(xx)
         Gp = gram_mod.gram_xtx_plain(xx)
         err = float((Gk - Gp).abs().max())
         scale = float(Gp.abs().max())
         sym = torch.equal(Gk, Gk.T)
         log(f"   gram_xtx T={T} d={d} {tag}: max_abs_err {err:.3e} "
-            f"(max|G| {scale:.3e}) symmetric={sym}")
+            f"(max|G| {scale:.3e}, {err / scale:.2e} of it) symmetric={sym}")
         require(err <= 1e-5 * scale and sym,
                 f"gram_xtx T={T} d={d} {tag} out of tolerance")
-        if tag == "fp32":
-            out["max_abs_err"] = err
-    ms = cuda_ms(lambda: ops.gram_xtx(x), reps=10)
-    plain_ms = cuda_ms(lambda: gram_mod.gram_xtx_plain(x), reps=10)
-    lib_ms = cuda_ms(lambda: torch.matmul(x.T, x), reps=10)
-    flops = float(T) * d * (d + 1)           # the symmetric half
-    b_ms, b_by = bound(flops, 4.0 * (T * d + d * d))
-    out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms, shape=f"T={T} d={d} fp32")
-    log(f"   gram_xtx T={T} d={d}: kernel {ms:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s on the half it computes), "
-        f"plain {plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms "
-        f"({2 * T * d * d / lib_ms / 1e9:.1f} TFLOP/s on the full product), "
-        f"bound {b_ms:.3f} ms ({b_by})")
+        del Gk, Gp
+        if tag == "bf16":
+            lib_name = "torch.mm(x.T, x, out_dtype=torch.float32)"
+            lib = lambda: torch.mm(xx.T, xx, out_dtype=torch.float32)
+            b_ms, b_by = bound(flops, 2.0 * T * d + 4.0 * d * d, PEAK_BF16)
+        else:
+            lib_name = "torch.matmul(x.T, x)"
+            lib = lambda: torch.matmul(xx.T, xx)
+            b_ms, b_by = bound(flops, 4.0 * (T * d + d * d))
+        ms, ms_lo, ms_hi = cold_device_ms(lambda: ops.gram_xtx(xx))
+        plain_ms, _, _ = cold_device_ms(lambda: gram_mod.gram_xtx_plain(xx))
+        lib_ms, lib_lo, lib_hi = cold_device_ms(lib)
+        out[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "shape": f"T={T} d={d} {tag}"}
+        log(f"   gram_xtx T={T} d={d} {tag}: device time, median [min-max] "
+            f"of 20 calls, L2 flushed: kernel {ms:.4f} [{ms_lo:.4f}-"
+            f"{ms_hi:.4f}] ms ({flops / ms / 1e9:.1f} TFLOP/s on the half "
+            f"it computes), plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} "
+            f"[{lib_lo:.4f}-{lib_hi:.4f}] ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"kernel at {100 * b_ms / ms:.1f}% of the bound)")
     return out
 
 
@@ -756,7 +780,7 @@ def main() -> int:
     results = {}
     with Phase("3 kernel checks at main-path shapes"):
         check_gram(512, 4096)
-        results["gram_xtx"] = check_gram(512, 14336)
+        results["gram_xtx"] = check_gram(512, 14336)["bf16"]
         w, m, c, G = swap_problem(14336, 4096, seed=1)    # w_gate / w_up
         check_swaps(w, m, c, G, 8, "R=14336 d=4096", time_it=False)
         del w, m, c, G
@@ -804,8 +828,13 @@ def main() -> int:
         log(f"   dense  ppl {dense['perplexity']:.4f} acc {dense['accuracy']:.4f}")
         log(f"   pruned ppl {pruned['perplexity']:.4f} acc {pruned['accuracy']:.4f}")
         log(f"   launches {main_launches}")
-        require(main_launches["gram_xtx"] > 0 and main_launches["swap_topk"] > 0,
-                "the main path did not launch gram_xtx and swap_topk")
+        n_gram = 7 * cfg.n_layers * len(batches)
+        require(main_launches["gram_xtx_bf16"] == n_gram
+                and main_launches["gram_xtx"] == 0,
+                f"the main path's Gram launches were not all {n_gram} on "
+                "the bf16 path")
+        require(main_launches["swap_topk"] > 0,
+                "the main path did not launch swap_topk")
         for s in report.sites:
             node = report.masks
             for k in s.name.split("."):
@@ -911,7 +940,8 @@ def main() -> int:
     with Phase("7 recipe path: launch.prune with a mixed recipe, resume"):
         recipe_path(cfg)
 
-    launches = {"gram_xtx": main_launches["gram_xtx"],
+    launches = {"gram_xtx": main_launches["gram_xtx_bf16"]
+                + main_launches["gram_xtx"],
                 "swap_topk": main_launches["swap_topk"],
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches, "spmm": serve_launches}

@@ -98,6 +98,8 @@
 #include <string.h>
 #include <limits.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int NT = 256;               // CUDA-core kernel: threads per block
@@ -383,55 +385,12 @@ __device__ __forceinline__ int sw64(int r, int c) {
   return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// the producer's arrival, announcing the bytes the tile's copies bring
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// one 2-D TMA box (inner coordinate c0, row c1) completing on mbarrier bar;
-// the box's parts past the tensor's edges arrive as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(bar) : "memory");
-}
-
 // 8 bytes by cp.async (zero fill when n = 0): positions whose rows are
 // not 16-byte aligned (k % 16 != 0), which the TMA cannot read
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                                           int n) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
 }
 
 // Issue the copies of one tile (columns [k0, k0 + NM_BK)) into a stage,
@@ -988,44 +947,6 @@ int launch_reduce(const Plan& p, const float* wsf, const float* bias,
   splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       wsf, bias, y, p.splits, n_tok, d_out, act);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D map over a row-major (rows, cols) array with row_bytes per row,
-// read in boxes of (box_rows, 64) elements; false if the driver refuses.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                uint64_t cols, uint64_t rows, uint64_t row_bytes,
-                uint32_t box_rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BN, int WM, int WN, int S>

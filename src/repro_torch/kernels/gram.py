@@ -3,7 +3,8 @@ PyTorch version.
 
 The kernel (``csrc/gram.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/gram.py::_kernel``; see the source for its design and
-what bounds it. ``repro_torch.kernels.ops.gram_xtx`` is the public wrapper.
+what bounds it. bf16 activations run on the tensor cores, fp32 ones on the
+CUDA cores. ``repro_torch.kernels.ops.gram_xtx`` is the public wrapper.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ import torch
 from . import build
 
 _SYMBOLS = {torch.float32: "gram_xtx_f32", torch.bfloat16: "gram_xtx_bf16"}
+# the row length each path reads in: a multiple of 16 bytes (the TMA's row
+# stride for bf16, 16-byte cp.async for fp32)
+_ROW_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def gram_xtx_plain(x: torch.Tensor) -> torch.Tensor:
@@ -22,11 +26,26 @@ def gram_xtx_plain(x: torch.Tensor) -> torch.Tensor:
     return x32.T @ x32
 
 
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """x (T, d) as the kernel reads it: contiguous, 16-byte aligned, rows
+    of a multiple of ``_ROW_ALIGN`` elements. Where x is not so already (d
+    not a multiple, or a view), a copy into a zero-padded (T, round_up(d))
+    buffer, as the reference pads its operands; the padding adds zero
+    rows and columns to XᵀX, which the kernel does not write."""
+    T, d = x.shape
+    ld = -(-d // _ROW_ALIGN[x.dtype]) * _ROW_ALIGN[x.dtype]
+    if ld == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    xp = torch.zeros((T, ld), dtype=x.dtype, device=x.device)
+    xp[:, :d] = x
+    return xp
+
+
 def _fn(dtype: torch.dtype):
     lib = build.load("gram")
     fn = getattr(lib, _SYMBOLS[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -34,12 +53,15 @@ def _fn(dtype: torch.dtype):
 def launch(x: torch.Tensor, out: torch.Tensor) -> None:
     """Run the kernel: out = XᵀX.
 
-    x: (T, d) contiguous fp32/bf16 CUDA tensor; out: (d, d) contiguous fp32
-    on the same device. The caller checks shapes and devices.
+    x: (T, d) fp32/bf16 CUDA tensor with T > 0 (copied by ``_padded`` where
+    the kernel cannot read it as it is); out: (d, d) contiguous fp32 on the
+    same device. The caller checks shapes and devices.
     """
     T, d = x.shape
+    xp = _padded(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn(x.dtype)(x.data_ptr(), out.data_ptr(), T, d, stream)
+        err = _fn(x.dtype)(xp.data_ptr(), out.data_ptr(), T, d, xp.shape[1],
+                           stream)
     if err != 0:
         raise RuntimeError(f"gram_xtx kernel launch failed: CUDA error {err}")

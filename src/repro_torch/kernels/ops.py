@@ -10,7 +10,9 @@ Each wrapper checks device, dtype and shapes, allocates its outputs with
 
 ``LAUNCHES[name]`` counts kernel launches (never plain-version calls), so
 a run can show which kernels its main path went through: one per wrapper
-call that launched. An spmm call that splits d_in runs two CUDA kernels
+call that launched. The Gram counts its two input paths apart:
+``gram_xtx`` (fp32, CUDA cores) and ``gram_xtx_bf16`` (tensor cores). An
+spmm call that splits d_in runs two CUDA kernels
 (the product and the ordered sum of its fp32 partials) and counts one.
 """
 from __future__ import annotations
@@ -25,7 +27,8 @@ from . import spmm as spmm_mod
 from . import swap_argmin as argmin_mod
 from . import swap_topk as topk_mod
 
-LAUNCHES: dict[str, int] = {"gram_xtx": 0, "swap_topk": 0, "swap_argmin": 0,
+LAUNCHES: dict[str, int] = {"gram_xtx": 0, "gram_xtx_bf16": 0,
+                            "swap_topk": 0, "swap_argmin": 0,
                             "swap_commit": 0, "spmm": 0}
 
 
@@ -167,17 +170,20 @@ def swap_topk_commit(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
 
 
 def gram_xtx(x: torch.Tensor) -> torch.Tensor:
-    """Xᵀ X (fp32) for activations x: (..., tokens, d), fp32 or bf16."""
+    """Xᵀ X (fp32) for activations x: (..., tokens, d), fp32 or bf16; on
+    the card exactly symmetric."""
     x2 = x.reshape(-1, x.shape[-1])
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram_xtx takes fp32 or bf16, got {x2.dtype}")
-    x2 = x2.contiguous()
     if not _on_cuda(x2):
         return gram_mod.gram_xtx_plain(x2)
     d = x2.shape[1]
+    if x2.numel() == 0:
+        return torch.zeros((d, d), dtype=torch.float32, device=x2.device)
     out = torch.empty((d, d), dtype=torch.float32, device=x2.device)
     gram_mod.launch(x2, out)
-    LAUNCHES["gram_xtx"] += 1
+    LAUNCHES["gram_xtx_bf16" if x2.dtype == torch.bfloat16
+             else "gram_xtx"] += 1
     return out
 
 

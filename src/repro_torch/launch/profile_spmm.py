@@ -107,6 +107,17 @@ def _runner(lib, x: torch.Tensor, pw, y: torch.Tensor):
     return run
 
 
+def profiler_preroll(n: int = 16) -> None:
+    """Inside a torch.profiler trace, before the launches it measures:
+    ``n`` small fill kernels, then a synchronize. Late in a long process
+    the profiler drops the first few kernel records of a trace (1-3 seen
+    on an H100), and these are the ones it drops."""
+    pad = torch.empty(256, device="cuda")
+    for _ in range(n):
+        pad.zero_()
+    torch.cuda.synchronize()
+
+
 def cold_device_ms(fn, reps: int = REPS,
                    tries: int = 3) -> tuple[float, float, float]:
     """Device time of ``fn()`` in ms with a cold L2, as (median, min, max)
@@ -117,7 +128,7 @@ def cold_device_ms(fn, reps: int = REPS,
     kernel excluded by name, the host's work between launches never
     counted. A trace that lost kernel records (fewer flushes than calls)
     is measured again, up to ``tries`` times. ``chip_smoke.py`` times
-    spmm with it too."""
+    spmm and the Gram with it too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,6 +137,7 @@ def cold_device_ms(fn, reps: int = REPS,
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_preroll()          # before the first flush: not counted
             for _ in range(reps):
                 flush.bitwise_not_()
                 fn()

@@ -33,16 +33,19 @@ class TapPolicy:
       ``name`` emits: the (d, d) Gram contribution, its diagonal only
       (Σx² per feature, the moments level), the feature sums and the
       token count. An empty tuple skips the tap.
-    * ``gram(x2)`` — XᵀX for a flattened (tokens, d) fp32 chunk.
-      Calibration installs a policy that sends it to the CUDA kernel
-      (``repro_torch.pruning.stats.CalibSpec``).
+    * ``gram(x2)`` — XᵀX in fp32 for a flattened (tokens, d) chunk in
+      the activations' own dtype (bf16 on the card): products of bf16
+      values are exact in fp32, so only the order of the fp32 sums is the
+      policy's. Calibration installs a policy that sends it to the CUDA
+      kernel (``repro_torch.pruning.stats.CalibSpec``).
     """
 
     def fields(self, name: str) -> tuple[str, ...]:
         return ("g", "s", "n")
 
     def gram(self, x2: torch.Tensor) -> torch.Tensor:
-        return x2.T @ x2
+        x = x2.float()
+        return x.T @ x
 
 
 DEFAULT_TAP_POLICY = TapPolicy()
@@ -65,10 +68,11 @@ def emit_tap(taps: Taps, name: str, x: torch.Tensor) -> None:
     fields = pol.fields(name)
     if not fields:
         return
-    x2 = x.reshape(-1, x.shape[-1]).float()
+    xd = x.reshape(-1, x.shape[-1])
+    x2 = xd.float()
     ent = {}
     if "g" in fields:
-        ent["g"] = pol.gram(x2)
+        ent["g"] = pol.gram(xd)
     if "d" in fields:
         ent["d"] = (x2 * x2).sum(0)
     if "s" in fields:

@@ -33,6 +33,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import spmm as spmm_mod  # noqa: E402
 from repro_torch.kernels import swap_argmin as argmin_mod  # noqa: E402
 from repro_torch.kernels import swap_topk as topk_mod  # noqa: E402
+from repro_torch.models import common  # noqa: E402
+from repro_torch.pruning import stats as stats_mod  # noqa: E402
 
 try:  # the reference package, on JAX's CPU backend
     import jax.numpy as jnp
@@ -119,6 +121,34 @@ def test_gram_update_streaming():
     np.testing.assert_allclose(Gt.numpy(), ref.gram_accum_ref(
         torch.zeros(32, 32), _t(np.concatenate(xs))).numpy(),
         rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("policy", ["default", "calibration"])
+def test_bf16_taps_equal_fp32_upcast_route(policy):
+    """bf16 activations reach the tap policy's Gram in their own dtype; on
+    the CPU the taps equal, bit for bit, those of upcasting first (the
+    route before: ``x.float()`` then XᵀX), accumulated over two calls."""
+    pol = (common.DEFAULT_TAP_POLICY if policy == "default"
+           else stats_mod.CalibSpec(levels=(("t", "gram"),)).policy())
+    rng = np.random.default_rng(5)
+    xs = [_t(rng.normal(size=(2, 9, 40))).to(torch.bfloat16) for _ in range(2)]
+    taps = common.Taps(pol)
+    for x in xs:
+        common.emit_tap(taps, "t", x)
+    ent = taps.entries["t"]
+    x32 = [x.reshape(-1, 40).float() for x in xs]
+    assert ent["g"].dtype == torch.float32
+    assert torch.equal(ent["g"], x32[0].T @ x32[0] + x32[1].T @ x32[1])
+    assert torch.equal(ent["s"], x32[0].sum(0) + x32[1].sum(0))
+    assert float(ent["n"]) == 36.0
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+
+
+def test_tap_policy_gram_upcasts_bf16():
+    x = _t(np.random.default_rng(6).normal(size=(33, 24))).to(torch.bfloat16)
+    got = common.DEFAULT_TAP_POLICY.gram(x)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, gram_mod.gram_xtx_plain(x))
 
 
 # ---------------------------------------------------------------------------
@@ -267,8 +297,39 @@ def test_cuda_kernels_match_plain(cuda, d_out, d_in):
         Gp = gram_mod.gram_xtx_plain(xx)
         assert torch.equal(Gk, Gk.T)                          # exact mirror
         torch.testing.assert_close(Gk, Gp, rtol=1e-5, atol=1e-4)
-    assert ops.LAUNCHES == {"gram_xtx": 2, "swap_topk": 2, "swap_argmin": 1,
-                            "swap_commit": 0, "spmm": 0}
+    assert ops.LAUNCHES == {"gram_xtx": 1, "gram_xtx_bf16": 1, "swap_topk": 2,
+                            "swap_argmin": 1, "swap_commit": 0, "spmm": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,d", [
+    (130, 96),      # one diagonal tile, a partial last strip
+    (512, 96),
+    (130, 300),     # bf16 rows padded to 304 (a copy), fp32 read in place
+    (512, 1024),    # 36 tiles, 8 strips through the 3-stage ring
+    (130, 4160),    # a ragged last tile (64 of 128 columns)
+])
+def test_cuda_gram_matches_plain(cuda, T, d):
+    """Both input paths (bf16 on the tensor cores, fp32 on the CUDA
+    cores) against the plain fp32 product: exactly symmetric, within
+    rtol 1e-5 / atol 1e-4, one launch each on its own counter; a view
+    whose rows are not contiguous reads through the padded copy."""
+    gen = torch.Generator(device=cuda).manual_seed(T + d)
+    x = torch.randn(T, d, generator=gen, device=cuda)
+    ops.reset_launches()
+    for xx in (x, x.to(torch.bfloat16)):
+        Gk = ops.gram_xtx(xx)
+        Gp = gram_mod.gram_xtx_plain(xx)
+        assert Gk.dtype == torch.float32 and Gk.shape == (d, d)
+        assert torch.equal(Gk, Gk.T)                          # exact mirror
+        torch.testing.assert_close(Gk, Gp, rtol=1e-5, atol=1e-4)
+    assert ops.LAUNCHES["gram_xtx"] == 1 and ops.LAUNCHES["gram_xtx_bf16"] == 1
+    base = torch.randn(T, d + 5, generator=gen, device=cuda)
+    for xx in (base[:, 3:d + 3], base.to(torch.bfloat16)[:, 3:d + 3]):
+        Gk = ops.gram_xtx(xx)
+        assert torch.equal(Gk, Gk.T)
+        torch.testing.assert_close(Gk, gram_mod.gram_xtx_plain(xx), rtol=1e-5,
+                                   atol=1e-4)
 
 
 @pytest.mark.gpu

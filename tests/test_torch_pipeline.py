@@ -163,7 +163,10 @@ def test_profile_prune_runs_on_cpu(capsys):
     from repro_torch.launch import profile_prune
 
     profile_prune.main(["--tiny", "--n-layers", "1", "--t-max", "2",
-                        "--device", "cpu"])
+                        "--n-calib", "8", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert "unprofiled" in out[0]
-    assert out[1].startswith("device time: not measured")
+    assert "n_calib 8" in out[0]
+    assert out[1].startswith("calibration: 2 batches")
+    assert out[1].endswith("device time: not measured (no card)")
+    assert "unprofiled" in out[2]
+    assert out[3].startswith("device time: not measured")

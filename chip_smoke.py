@@ -24,13 +24,18 @@ and its time:
    ``torch.matmul(x.T, x)`` for fp32; ``library_ms``), and the bound
    (bf16: bytes 2·T·d + 4·d² against T·d·(d+1) operations at the bf16
    tensor-core peak; fp32: 4·(T·d + d²) bytes against the fp32 peak).
-   ``swap_topk`` (k = 8) and ``swap_argmin`` on a Wanda 0.6 mask over a
-   correlated Gram at (R, d) = (14336, 4096) and (4096, 14336), bitwise
-   on feasible entries; ``swap_commit`` on ``swap_topk``'s k = 8
+   ``swap_topk`` (k = 8) on a Wanda 0.6 mask over a correlated Gram at
+   the four (R, d) of the main path's sites — (1024, 4096) wk / wv,
+   (4096, 4096) wq / wo, (14336, 4096) w_gate / w_up and (4096, 14336)
+   w_down — bitwise on feasible entries, with the same +inf positions and
+   in-range indices, each timed with CUDA events (3 calls) beside its
+   plain version, the bound (5 operations per feasible pair at the fp32
+   peak) and the issue floor (6 unfused fp32 instructions per feasible
+   pair on every SM's 128 lanes at the card's maximum SM clock, read from
+   nvidia-smi). ``swap_argmin`` likewise at (14336, 4096) and (4096,
+   14336), timed at w_down; ``swap_commit`` on ``swap_topk``'s k = 8
    candidates at (R, d) = (4096, 14336), bitwise, with at least one
-   accept and one reject. Times with CUDA events at the w_down shape
-   (R = 4096, d = 14336), the plain version's time, and the bound from
-   shapes.
+   accept and one reject.
    ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
    4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
    (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
@@ -55,7 +60,7 @@ and its time:
    passes; then dense vs pruned perplexity on 4 validation batches of
    8 x 128. Asserts that all 7 taps x 2 layers x 4 batches = 56 Gram
    launches took the bf16 tensor-core path (none the fp32 one), that
-   swap_topk ran, exact per-row
+   swap_topk ran once per site and pass (7 x 2 x 4 = 56), exact per-row
    sparsity at every site, monotone row losses, a positive mean error
    reduction over Wanda, finite perplexities.
 5. second path — on layer 0's w_down with its calibration Gram:
@@ -136,6 +141,10 @@ PEAK_FP32 = 67e12        # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 T_MAX = 4                # search passes of the main path (k = 8)
+# swap_argmin's checks; swap_topk runs at all four shapes of
+# repro_torch.launch.profile_swap.SHAPES (w_down last: its times go in the
+# kernels line)
+ARGMIN_SHAPES = [(14336, 4096), (4096, 14336)]
 SERVE_TOL = 0.05         # packed vs masked prefill logits, of max|logits|
 SERVE_GEN = 16           # new tokens per request on the serve path
 
@@ -227,27 +236,10 @@ def by_rows(fn, w, m, c, G, rows: int = 64):
     return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
 
 
-def swap_problem(R: int, d: int, seed: int):
-    """Rows w, a Wanda 0.6 mask, the correlation c and a correlated Gram."""
-    import torch
-    from repro_torch.core import masks, swap_math as sm
-    from repro_torch.core.warmstart import warmstart_mask
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    n = 1024
-    z = torch.randn(n, d, generator=gen, device="cuda")
-    lo = torch.randn(n, 64, generator=gen, device="cuda")
-    mix = torch.randn(64, d, generator=gen, device="cuda")
-    x = z + 0.5 * (lo @ mix)                       # shared low-rank factors
-    G = x.T @ x
-    w = torch.randn(R, d, generator=gen, device="cuda") * d ** -0.5
-    m = warmstart_mask(w, G, masks.PerRow(0.6), "wanda")
-    return w, m, sm.correlation_vector(w, m, G), G
-
-
-def check_swaps(w, m, c, G, k: int, tag: str, *, time_it: bool) -> dict:
-    """swap_topk and swap_argmin against their plain versions on one
-    problem; bitwise on feasible entries. Returns timings when asked."""
+def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
+                clock_mhz: float) -> dict:
+    """The swap searches in ``names`` against their plain versions on one
+    problem; bitwise on feasible entries. Times those in ``timed``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import swap_argmin as argmin_mod
@@ -256,11 +248,13 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, time_it: bool) -> dict:
     out = {}
     R, d = w.shape
     pairs = float(((m > 0.5).sum(1).double() * (m < 0.5).sum(1).double()).sum())
-    for name, kern, plain, kk in (
-            ("swap_topk", lambda: ops.swap_topk(w, m, c, G, k=k),
-             lambda *a: topk_mod.swap_topk_plain(*a, k=k), k),
-            ("swap_argmin", lambda: ops.swap_argmin(w, m, c, G),
-             argmin_mod.swap_argmin_plain, 1)):
+    searches = {
+        "swap_topk": (lambda: ops.swap_topk(w, m, c, G, k=k),
+                      lambda *a: topk_mod.swap_topk_plain(*a, k=k), k),
+        "swap_argmin": (lambda: ops.swap_argmin(w, m, c, G),
+                        argmin_mod.swap_argmin_plain, 1)}
+    for name in names:
+        kern, plain, kk = searches[name]
         got = kern()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -277,7 +271,7 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, time_it: bool) -> dict:
             f"indices-in-range={in_range} max_abs_err={err}")
         require(equal and same_inf and in_range,
                 f"{name} {tag} disagrees with its plain version")
-        if time_it:
+        if name in timed:
             ms = cuda_ms(kern, reps=3)
             out_bytes = R * kk * 12
             b_ms, b_by = bound(5.0 * pairs, 4.0 * (3 * R * d + d * d) + out_bytes)
@@ -285,9 +279,15 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, time_it: bool) -> dict:
                          "plain_ms": 1e3 * plain_s, "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": None,
                          "shape": f"R={R} d={d}" + (f" k={k}" if kk > 1 else "")}
-            log(f"   {name} {tag}: kernel {ms:.2f} ms, plain {1e3*plain_s:.1f} ms, "
-                f"bound {b_ms:.3f} ms ({b_by}; {pairs:.3e} feasible pairs; "
-                f"kernel at {100 * b_ms / ms:.1f}% of the bound)")
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            floor = 1e3 * 6.0 * pairs / (sms * 128 * clock_mhz * 1e6)
+            log(f"   {name} {tag}: kernel {ms:.2f} ms, plain "
+                f"{1e3*plain_s:.1f} ms, bound {b_ms:.3f} ms ({b_by}; "
+                f"{pairs:.3e} feasible pairs; kernel at "
+                f"{100 * b_ms / ms:.1f}% of the bound), issue floor "
+                f"{floor:.3f} ms (6 instructions per feasible pair, {sms} "
+                f"SMs x 128 lanes at {clock_mhz:.0f} MHz; kernel at "
+                f"{100 * floor / ms:.1f}% of it)")
     return out
 
 
@@ -756,6 +756,7 @@ def main() -> int:
     from repro_torch.core import masks, sparseswaps, swap_math as sm
     from repro_torch.core.warmstart import warmstart_mask
     from repro_torch.kernels import build, ops
+    from repro_torch.launch import profile_swap
 
     t_start = time.perf_counter()
     with Phase("1 device"):
@@ -781,14 +782,20 @@ def main() -> int:
     with Phase("3 kernel checks at main-path shapes"):
         check_gram(512, 4096)
         results["gram_xtx"] = check_gram(512, 14336)["bf16"]
-        w, m, c, G = swap_problem(14336, 4096, seed=1)    # w_gate / w_up
-        check_swaps(w, m, c, G, 8, "R=14336 d=4096", time_it=False)
-        del w, m, c, G
-        w, m, c, G = swap_problem(4096, 14336, seed=2)    # w_down
-        results.update(check_swaps(w, m, c, G, 8, "R=4096 d=14336",
-                                   time_it=True))
-        results["swap_commit"] = check_commit(w, m, c, G, 8, "R=4096 d=14336")
-        del w, m, c, G
+        clock = profile_swap.sm_clock_mhz()
+        for R, d, seed in profile_swap.SHAPES:
+            w, m, c, G = profile_swap.problem(R, d, seed)
+            tag = f"R={R} d={d}"
+            w_down = (R, d) == profile_swap.SHAPES[-1][:2]
+            names = (("swap_topk", "swap_argmin") if (R, d) in ARGMIN_SHAPES
+                     else ("swap_topk",))
+            res = check_swaps(w, m, c, G, 8, tag, names=names,
+                              timed=names if w_down else ("swap_topk",),
+                              clock_mhz=clock)
+            if w_down:
+                results.update(res)
+                results["swap_commit"] = check_commit(w, m, c, G, 8, tag)
+            del w, m, c, G
         spmm_res = check_spmm(14336, 4096, "silu", "w_gate")
         spmm_res.update({(T, f"{fmt} w_down"): r for (T, fmt), r in
                          check_spmm(4096, 14336, None, "w_down").items()})
@@ -833,8 +840,10 @@ def main() -> int:
                 and main_launches["gram_xtx"] == 0,
                 f"the main path's Gram launches were not all {n_gram} on "
                 "the bf16 path")
-        require(main_launches["swap_topk"] > 0,
-                "the main path did not launch swap_topk")
+        n_topk = 7 * cfg.n_layers * T_MAX
+        require(main_launches["swap_topk"] == n_topk,
+                f"the main path launched swap_topk "
+                f"{main_launches['swap_topk']} times, want {n_topk}")
         for s in report.sites:
             node = report.masks
             for k in s.name.split("."):

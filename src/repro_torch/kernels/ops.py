@@ -13,7 +13,9 @@ a run can show which kernels its main path went through: one per wrapper
 call that launched. The Gram counts its two input paths apart:
 ``gram_xtx`` (fp32, CUDA cores) and ``gram_xtx_bf16`` (tensor cores). An
 spmm call that splits d_in runs two CUDA kernels
-(the product and the ordered sum of its fp32 partials) and counts one.
+(the product and the ordered sum of its fp32 partials) and counts one;
+so does a swap_topk call (the p-tiles' search and the merge of their
+lists).
 """
 from __future__ import annotations
 

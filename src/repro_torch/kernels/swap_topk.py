@@ -31,22 +31,31 @@ def swap_topk_plain(w, m, c, G, *, k: int, chunk: int = 512):
     return vals, u.clamp_max(d - 1), p.clamp_max(d - 1)
 
 
-def _fn():
-    fn = build.load("swap_topk").swap_topk_search
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def _fns():
+    lib = build.load("swap_topk")
+    fn = lib.swap_topk_search
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.swap_topk_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    size.restype = ctypes.c_size_t
+    return fn, size
 
 
 def launch(a, b, w, G, vals, u, p, *, k: int) -> None:
     """Run the kernel on contiguous fp32 CUDA tensors a, b, w (R, d) and
-    G (d, d) into vals (R, k) fp32 and u, p (R, k) int32."""
+    G (d, d) into vals (R, k) fp32 and u, p (R, k) int32. The search runs
+    in p-tiles whose partial lists a second kernel of the same call merges;
+    their scratch is allocated here."""
     R, d = a.shape
+    fn, size = _fns()
+    scratch = torch.empty(size(R, d, k, G.data_ptr()), dtype=torch.uint8,
+                          device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _fn()(a.data_ptr(), b.data_ptr(), w.data_ptr(), G.data_ptr(),
-                    vals.data_ptr(), u.data_ptr(), p.data_ptr(), R, d, k,
-                    stream)
+        err = fn(a.data_ptr(), b.data_ptr(), w.data_ptr(), G.data_ptr(),
+                 vals.data_ptr(), u.data_ptr(), p.data_ptr(),
+                 scratch.data_ptr(), R, d, k, stream)
     if err != 0:
         raise RuntimeError(f"swap_topk kernel launch failed: CUDA error {err}")
 

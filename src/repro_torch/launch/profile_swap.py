@@ -1,0 +1,246 @@
+"""Time of the k-best swap search (``ops.swap_topk``) at the main path's
+shapes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_swap [--variants a,b]
+
+For each (R, d) of llama31-8b's pruning sites — (1024, 4096) wk / wv,
+(4096, 4096) wq / wo, (14336, 4096) w_gate / w_up, (4096, 14336) w_down —
+it builds the problem ``chip_smoke.py`` phase 3 checks (rows ~ N(0, 1/d),
+a Wanda PerRow(0.6) mask over a correlated Gram, the same seeds) and
+prints, at k = 8: the feasible pairs (kept u x pruned p, summed over
+rows); the time of one ``ops.swap_topk`` call by CUDA events over 3 calls
+(the wrapper's host work included, as phase 3 times it); the device time
+of each CUDA kernel the calls launched, by torch.profiler, per call; the
+bound (5 operations per feasible pair at the 67 TFLOP/s fp32 peak) and
+the issue floor (6 unfused fp32 instructions per feasible pair on every
+SM's 128 lanes at the card's maximum SM clock, from nvidia-smi). It runs
+as it is inside a ``git archive`` of an earlier commit's tree, so two
+kernels can be timed in one call, in turns.
+
+``--variants a,b+c`` also builds copies of ``csrc/swap_topk.cu`` with the
+edits of ``VARIANTS`` (``+`` joins several in one copy) and, at each
+shape, checks each copy's output against the shipped kernel's bit for
+bit and prints its kernels' device time.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import time
+
+import torch
+
+from repro_torch.device import disable_tf32, resolve_device
+
+# (R, d, seed) of the problems; chip_smoke.py phase 3 checks the same
+SHAPES = [(1024, 4096, 3), (4096, 4096, 4), (14336, 4096, 1),
+          (4096, 14336, 2)]
+PEAK_FP32 = 67e12
+K = 8            # candidates a row, as on the main path
+REPS = 3         # calls timed, as chip_smoke.py phase 3
+# copies of csrc/swap_topk.cu: name -> [(text, replacement)]
+VARIANTS = {
+    # every u of a chunk in the row's list, kept or not: the dense u walk
+    "dense_u": [("const bool keep = na[j][h] < INFINITY;",
+                 "const bool keep = true;")],
+    # the exact path throughout: ΔL's five operations on the Gram as it is
+    "nofold": [("const bool fold = (*flags & UNSAFE) == 0;",
+                "const bool fold = false;")],
+    # the list walk not unrolled
+    "unroll1": [("#pragma unroll 2\n      for (int i = 0;",
+                 "      for (int i = 0;")],
+    # 8 consumer warps of 4 rows (the same 32 rows a block)
+    "warps8": [("constexpr int CW = 16;", "constexpr int CW = 8;"),
+               ("constexpr int RPW = 2;", "constexpr int RPW = 4;")],
+    # chunks of 32 u in a ring of four stages
+    "uc32": [("constexpr int UC = 64;", "constexpr int UC = 32;"),
+             ("constexpr int STAGES = 2;", "constexpr int STAGES = 4;")],
+    # 24 consumer warps of 2 rows: 48 rows a block
+    "warps24": [("constexpr int CW = 16;", "constexpr int CW = 24;")],
+    # a ring of three stages
+    "stages3": [("constexpr int STAGES = 2;", "constexpr int STAGES = 3;")],
+}
+
+
+def problem(R: int, d: int, seed: int):
+    """Rows w, a Wanda 0.6 mask, the correlation c and a correlated Gram
+    (``chip_smoke.swap_problem``)."""
+    from repro_torch.core import masks, swap_math as sm
+    from repro_torch.core.warmstart import warmstart_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn(1024, d, generator=gen, device="cuda")
+    lo = torch.randn(1024, 64, generator=gen, device="cuda")
+    mix = torch.randn(64, d, generator=gen, device="cuda")
+    x = z + 0.5 * (lo @ mix)
+    G = x.T @ x
+    w = torch.randn(R, d, generator=gen, device="cuda") * d ** -0.5
+    m = warmstart_mask(w, G, masks.PerRow(0.6), "wanda")
+    return w, m, sm.correlation_vector(w, m, G), G
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out)
+
+
+def kernel_device_ms(fn, reps: int) -> dict[str, float]:
+    """Per call, the device ms of each CUDA kernel ``fn()`` launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_spmm import profiler_preroll
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_preroll()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "swap_topk" in e.name:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
+    return {name: us / 1e3 / reps for name, us in per.items()}
+
+
+def variant_libs(names) -> dict[str, ctypes.CDLL]:
+    """The edited copies of csrc/swap_topk.cu in ``names``, built in
+    parallel into build/repro_torch/profile_swap/."""
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "swap_topk.cu").read_text()
+    out = build.BUILD_DIR / "profile_swap"
+    out.mkdir(parents=True, exist_ok=True)
+    texts = {}
+    for name in names:
+        text = src
+        for old, new in (e for part in name.split("+")
+                         for e in VARIANTS[part]):
+            if old not in text:
+                raise RuntimeError(f"{name}: {old!r} is not in csrc/swap_topk.cu")
+            text = text.replace(old, new)
+        texts[name] = text
+    procs = {}
+    for name, text in texts.items():
+        cu = out / f"swap_topk_{name}.cu"
+        cu.write_text(text)
+        cmd = [build.nvcc_path(), *build.nvcc_flags("swap_topk"), "-I",
+               str(build.CSRC), "-o", str(cu.with_suffix(".so")), str(cu)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
+        regs = [ln.strip() for ln in log.splitlines()
+                if "Used" in ln or "spill" in ln]
+        print(f"variant {name}: " + " | ".join(regs[-2:]), flush=True)
+        lib = ctypes.CDLL(str(out / f"swap_topk_{name}.so"))
+        lib.swap_topk_search.argtypes = ([ctypes.c_void_p] * 8
+                                         + [ctypes.c_int] * 3
+                                         + [ctypes.c_void_p])
+        lib.swap_topk_search.restype = ctypes.c_int
+        lib.swap_topk_scratch_bytes.argtypes = ([ctypes.c_int] * 3
+                                                + [ctypes.c_void_p])
+        lib.swap_topk_scratch_bytes.restype = ctypes.c_size_t
+        libs[name] = lib
+    return libs
+
+
+def variant_runner(lib, w, m, c, G, k: int):
+    """(run, outputs): ``run()`` launches ``lib``'s search on the
+    problem's operands into ``outputs`` (vals, u, p)."""
+    from repro_torch.kernels import ops
+
+    a, b, w32, G32 = ops._swap_inputs(w, m, c, G)
+    R, d = w.shape
+    outs = (torch.empty((R, k), device="cuda"),
+            torch.empty((R, k), dtype=torch.int32, device="cuda"),
+            torch.empty((R, k), dtype=torch.int32, device="cuda"))
+    scratch = torch.empty(lib.swap_topk_scratch_bytes(R, d, k,
+                                                      G32.data_ptr()),
+                          dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.swap_topk_search(
+            a.data_ptr(), b.data_ptr(), w32.data_ptr(), G32.data_ptr(),
+            *(t.data_ptr() for t in outs), scratch.data_ptr(), R, d, k,
+            stream)
+        if err:
+            raise RuntimeError(f"swap_topk launch failed: CUDA error {err}")
+    return run, outs
+
+
+def profile_swap(variants=()):
+    """Yields the lines to print, one shape at a time."""
+    from repro_torch.kernels import ops
+
+    resolve_device("cuda")
+    disable_tf32()
+    libs = variant_libs(variants)
+    clock = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    yield (f"{torch.cuda.get_device_name(0)}, {sms} SMs, max SM clock "
+           f"{clock:.0f} MHz; k = {K}, CUDA events over {REPS} calls")
+    for R, d, seed in SHAPES:
+        w, m, c, G = problem(R, d, seed)
+        pairs = float(((m > 0.5).sum(1).double()
+                       * (m < 0.5).sum(1).double()).sum())
+        run = lambda: ops.swap_topk(w, m, c, G, k=K)
+        run()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(REPS):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / REPS
+        ms = start.elapsed_time(end) / REPS
+        dev = kernel_device_ms(run, REPS)
+        bound = 1e3 * 5.0 * pairs / PEAK_FP32
+        floor = 1e3 * 6.0 * pairs / (sms * 128 * clock * 1e6)
+        yield (
+            f"R={R} d={d}: feasible pairs {pairs:.4e}; swap_topk {ms:.3f} ms "
+            f"(events; host {1e3 * wall:.3f} ms), device ms per call: "
+            f"{_kernels(dev)}; bound {bound:.3f} ms, issue floor "
+            f"{floor:.3f} ms")
+        vals, u, p = run()
+        want = (vals, u.int(), p.int())
+        for name, lib in libs.items():
+            vrun, outs = variant_runner(lib, w, m, c, G, K)
+            vrun()
+            same = all(torch.equal(g, t) for g, t in zip(outs, want))
+            yield (f"  variant {name}: equal to the shipped kernel {same}; "
+                   f"device ms per call: "
+                   f"{_kernels(kernel_device_ms(vrun, REPS))}")
+        del w, m, c, G
+        torch.cuda.empty_cache()
+
+
+def _kernels(dev: dict[str, float]) -> str:
+    parts = [f"{n} {v:.3f}" for n, v in sorted(dev.items())]
+    return ", ".join(parts) + f" (sum {sum(dev.values()):.3f})"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default="",
+                    help=f"comma-separated, of {sorted(VARIANTS)}")
+    args = ap.parse_args(argv)
+    names = [v for v in args.variants.split(",") if v]
+    for line in profile_swap(names):
+        print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -239,6 +239,45 @@ def test_swap_topk_chunk_invariance(chunk):
         assert torch.equal(b, g)
 
 
+def test_swap_topk_merge_of_disjoint_p_ranges():
+    """The premise of the kernel's p-split: top-k lists of disjoint
+    p-ranges, merged in any order by (ΔL, p), equal the top-k over every
+    column, +inf tail included (rows with fewer than k pruned columns)."""
+    w, m, c, G = _port_problem(5, 6, 40, "cpu")
+    m[0] = 1.0
+    m[0, 3:6] = 0.0                                  # 3 pruned columns
+    m[1] = 1.0                                       # none pruned
+    c = sm.correlation_vector(w, m, G)
+    k = 8
+    want = sm.topk_swaps_dense(w, m, c, G, k=k)
+    dl = sm.delta_matrix(w, m, c, G)
+    vals_p, u_p = dl.min(dim=1).values, torch.argmin(dl, dim=1)
+    R = w.shape[0]
+    v = torch.full((R, k), sm.INVALID)
+    p = torch.full((R, k), sm.BIG_INDEX, dtype=torch.int64)
+    u = torch.zeros((R, k), dtype=torch.int64)
+    edges = [0, 3, 13, 29, 40]                       # one range narrower than k
+    for lo, hi in reversed(list(zip(edges[:-1], edges[1:]))):
+        idx = sm._k_smallest(vals_p[:, lo:hi], min(k, hi - lo))
+        v, p, u = sm._merge_topk(v, p, u, vals_p[:, lo:hi].gather(1, idx),
+                                 idx + lo, u_p[:, lo:hi].gather(1, idx), k)
+    assert torch.isinf(want[0][0, 3:]).all() and torch.isinf(want[0][1]).all()
+    for got, ref_ in zip((v, u, p), want):
+        assert torch.equal(got, ref_)
+
+
+def test_profile_swap_variants_edit_the_kernel_source():
+    """Every edit of ``profile_swap.VARIANTS`` finds its text in
+    csrc/swap_topk.cu, so the variants build from the shipped source."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import profile_swap
+
+    src = (build.CSRC / "swap_topk.cu").read_text()
+    for name, edits in profile_swap.VARIANTS.items():
+        for old, new in edits:
+            assert old in src and old != new, name
+
+
 @needs_reference
 def test_kernel_wrappers_reject_bad_input():
     w, m, c, G = map(_t, _swap_problem(1, 4, 64))
@@ -299,6 +338,106 @@ def test_cuda_kernels_match_plain(cuda, d_out, d_in):
         torch.testing.assert_close(Gk, Gp, rtol=1e-5, atol=1e-4)
     assert ops.LAUNCHES == {"gram_xtx": 1, "gram_xtx_bf16": 1, "swap_topk": 2,
                             "swap_argmin": 1, "swap_commit": 0, "spmm": 0}
+
+
+# (id, R, d, k, mask): ragged R and d, a small R that only the p-split
+# fills the card with, k at both ends, PerRow at 0.1 / 0.5 / 0.9, a
+# Bernoulli mask (unequal per-row counts; d = 301 takes the padded-G path,
+# and G differs from Gᵀ in one entry's last bit),
+# rows with fewer than k pruned columns, exact ties across u and p, and a
+# Gram entry or a weight too large for the doubled Gram (the exact path)
+TOPK_CASES = [
+    ("ragged-33x300-k8", 33, 300, 8, "perrow0.6"),
+    ("ragged-37x1000-k32", 37, 1000, 32, "perrow0.6"),
+    ("split-8x4096-k8", 8, 4096, 8, "perrow0.6"),
+    ("k1-64x512", 64, 512, 1, "perrow0.6"),
+    ("perrow0.1-64x512-k8", 64, 512, 8, "perrow0.1"),
+    ("perrow0.5-64x512-k32", 64, 512, 32, "perrow0.5"),
+    ("perrow0.9-64x512-k8", 64, 512, 8, "perrow0.9"),
+    ("bernoulli-29x301-k8", 29, 301, 8, "bernoulli"),
+    ("short-rows-40x256-k8", 40, 256, 8, "short"),
+    ("ties-48x384-k8", 48, 384, 8, "ties"),
+    ("huge-g-40x256-k8", 40, 256, 8, "huge_g"),
+    ("huge-w-40x256-k8", 40, 256, 8, "huge_w"),
+]
+
+
+def _topk_problem(R, d, mask, device):
+    """(w, m, c, G) for one TOPK_CASES entry, from numpy seeds."""
+    rng = np.random.default_rng(R * 7919 + d)
+    X = rng.normal(size=(d, 96)).astype(np.float32)
+    G = X @ X.T + np.float32(0.1) * np.eye(d, dtype=np.float32)
+    w = rng.normal(size=(R, d)).astype(np.float32)
+    d1, d2 = np.array([10, 50, 100, 200, 350]), np.array([11, 51, 101, 201, 20])
+    if mask == "ties":
+        # duplicated columns tie ΔL across u (both kept) and across p (both
+        # pruned); exact zeros of both signs (a whole zero row included),
+        # with some negative diagonal entries, give ΔL = ±0
+        G[d2, :] = G[d1, :]
+        G[:, d2] = G[:, d1]
+        neg = np.arange(0, d, 7)
+        G[neg, neg] = -G[neg, neg]
+        w[:, d2] = w[:, d1]
+        zero = rng.random((R, d)) < 0.1
+        zero[0] = True
+        w[zero] = np.where(rng.random(int(zero.sum())) < 0.5, 0.0, -0.0)
+        w[0, 0], w[0, neg[1:]] = -0.0, 0.0   # ΔL(0, p) = -0 where G[0, p] < 0
+        w[:, d2] = w[:, d1]
+    if mask == "huge_g":                    # 2 g overflows; w small enough
+        G[5, 9] = G[9, 5] = np.float32(1.5 * 2.0**127)   # that no a or b does
+        w *= np.float32(2.0**-20)
+    if mask == "huge_w":
+        w[3, 7] = np.float32(2.0**64)                     # so may 2 w_u w_p
+    if mask == "bernoulli":
+        G[3, 4] = np.nextafter(G[3, 4], np.float32(np.inf))
+    wt, Gt = torch.from_numpy(w).to(device), torch.from_numpy(G).to(device)
+    if mask.startswith("perrow"):
+        m = warmstart_mask(wt, Gt, tmasks.PerRow(float(mask[6:])), "wanda")
+    elif mask == "short":
+        m = warmstart_mask(wt, Gt, tmasks.PerRow(0.6), "wanda")
+        m[0] = 1.0
+        m[0, 17:22] = 0.0                             # 5 pruned columns
+        m[1] = 1.0                                    # none pruned
+        m[2] = 0.0                                    # none kept
+    else:                                   # bernoulli, ties, huge_*
+        keep = 0.45 if mask == "bernoulli" else 0.5
+        m = torch.from_numpy((rng.random((R, d)) < keep).astype(np.float32))
+        m = m.to(device)
+        if mask == "ties":
+            m[0, 0], m[0, neg[1:]] = 1.0, 0.0     # u = 0 kept, those p pruned
+            m[:, d2] = m[:, d1]
+    c = sm.correlation_vector(wt, m, Gt)
+    if mask == "ties":
+        c[:, d2] = c[:, d1]
+        c[0] = 0.0
+    return wt, m, c, Gt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES, ids=[c[0] for c in TOPK_CASES])
+def test_cuda_swap_topk_edges(cuda, case):
+    """swap_topk on the card against swap_topk_plain: bitwise on feasible
+    entries, the same +inf positions, indices in [0, d), one launch; each
+    finite value is ΔL at its own (u, p) to the bit (a zero's sign too)."""
+    _, R, d, k, mask = case
+    w, m, c, G = _topk_problem(R, d, mask, cuda)
+    ops.reset_launches()
+    got = ops.swap_topk(w, m, c, G, k=k)
+    assert ops.LAUNCHES["swap_topk"] == 1
+    want = topk_mod.swap_topk_plain(w, m, c, G, k=k)
+    fin = torch.isfinite(want[0])
+    assert torch.equal(torch.isfinite(got[0]), fin)
+    for g, t in zip(got, want):
+        assert torch.equal(g[fin], t[fin])                   # bitwise
+    for idx in got[1:]:
+        assert bool(((idx >= 0) & (idx < d)).all())
+    a, b = sm.swap_scores(w, m, c, torch.diagonal(G))
+    u, p = got[1], got[2]
+    at = sm._delta(a.gather(1, u), b.gather(1, p), w.gather(1, u),
+                   w.gather(1, p), G[u, p])
+    assert torch.equal(got[0][fin].view(torch.int32), at[fin].view(torch.int32))
+    if mask == "short":
+        assert int(fin[0].sum()) == 5 and not fin[1].any() and not fin[2].any()
 
 
 @pytest.mark.gpu

@@ -39,10 +39,11 @@ and its time:
    ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
    4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
    (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
-   and gathered on a PerRow(0.6) mask — in fp32 (within 1e-5 of max|y|:
-   fp32 sums in another order) and bf16 (within one bf16 ulp of the
-   plain element, or 1e-5 of max|y|: the two fp32 sums round to
-   neighbouring bf16 values). Times, at w_gate and w_down, in bf16 with
+   and gathered on a PerRow(0.6) mask and on the same 2:4 mask — in fp32
+   (within 1e-5 of max|y|: fp32 sums in another order) and bf16 (within
+   one bf16 ulp of the plain element, or 1e-5 of max|y|: the two fp32
+   sums round to neighbouring bf16 values), nm24 and gathered bitwise
+   equal on the 2:4 mask. Times, at w_gate and w_down, in bf16 with
    a cold L2 (a 128 MB rewrite before each call), by device time alone:
    torch.profiler sums the kernels of each call (spmm: the product kernel
    and its split reduction; the library call: every kernel it launched;
@@ -90,7 +91,9 @@ and its time:
    the masked path rounds each linear's pre-activation to bf16 before
    the bias and activation and the kernel keeps it in fp32; nm24 holds
    fewer weight bytes than masked. Prints per format the prefill ms, decode tok/s,
-   weight bytes and ``kernel_used`` (best of 3 warm runs).
+   weight bytes and ``kernel_used`` (best of 3 warm runs), and per packed
+   engine the device time of its spmm kernels in one more warm
+   ``generate`` (torch.profiler; the trace must hold every launch).
 7. recipe path — ``repro_torch.launch.prune.prune`` on the same model
    (its own params from seed 0) with a recipe of every rule kind: 2:4
    sparseswaps on wq/wo, sparsegpt PerRow(0.6) on wk, skip on wv, dsnot
@@ -105,7 +108,10 @@ and its time:
    goes (checkpoint hashing and reads, the data fingerprint, calibration
    restore, evaluation, the out dir's writes); ``plan_only`` prints the
    plan and allocates no CUDA memory.
-8. the kernels line, the card line, and last {"ok": true, "device": ...}.
+8. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
+   launches the nm24 engine's; ``spmm_gather``: the gathered kernel at
+   w_gate T = 4 on PerRow(0.6), its launches the two gathered engines'),
+   the card line, and last {"ok": true, "device": ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -136,6 +142,8 @@ KERNELS = {
                     "src/repro/kernels/swap_topk.py:200"),
     "spmm": ("spmm", "src/repro_torch/csrc/spmm.cu",
              "src/repro/kernels/spmm.py:220"),
+    "spmm_gather": ("spmm", "src/repro_torch/csrc/spmm.cu",
+                    "src/repro/kernels/spmm.py:220"),
 }
 PEAK_FP32 = 67e12        # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
@@ -415,8 +423,9 @@ def spmm_tol(want):
 def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                time_it: bool = True) -> dict:
     """spmm against its plain version at one weight shape, T = 4 and 128,
-    nm24 (2:4) and gathered (PerRow 0.6), fp32 and bf16; bf16 times when
-    asked. Returns {(T, fmt): timings}."""
+    nm24 (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16, with
+    nm24 == gathered bitwise on the 2:4 mask; bf16 times when asked.
+    Returns {(T, "nm24" | "gathered" | "gathered 2:4"): timings}."""
     import torch
     from repro_torch.core import masks, packed
     from repro_torch.kernels import ops
@@ -426,16 +435,20 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
     gen = torch.Generator(device="cuda").manual_seed(d_out + d_in)
     w = torch.randn(d_out, d_in, generator=gen, device="cuda") * d_in ** -0.5
     scores = torch.rand(d_out, d_in, generator=gen, device="cuda")
-    mask = {"nm24": masks.make_mask(scores, masks.NM(2, 4)),
-            "gathered": masks.make_mask(scores, masks.PerRow(0.6))}
+    m24 = masks.make_mask(scores, masks.NM(2, 4))
+    runs = {"nm24": ("nm24", m24),
+            "gathered": ("gathered", masks.make_mask(scores,
+                                                     masks.PerRow(0.6))),
+            "gathered 2:4": ("gathered", m24)}
     del scores
     out = {}
     for T in (4, 128):
         x32 = torch.randn(T, d_in, generator=gen, device="cuda")
-        for fmt in ("nm24", "gathered"):
+        y24 = {}
+        for name, (fmt, mask) in runs.items():
             errs = {}
             for dt in (torch.float32, torch.bfloat16):
-                pw = packed.pack(w.to(dt), mask[fmt], fmt)
+                pw = packed.pack(w.to(dt), mask, fmt)
                 x = x32.to(dt)
                 got = ops.spmm(x, pw, act=act)
                 want = spmm_mod.spmm_plain(x, pw, None, act)
@@ -443,13 +456,15 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                 ok = bool((diff <= spmm_tol(want)).all())
                 errs[str(dt).split(".")[1]] = float(diff.max())
                 require(ok and got.dtype == dt,
-                        f"spmm {tag} T={T} {fmt} {dt} out of tolerance")
+                        f"spmm {tag} T={T} {name} {dt} out of tolerance")
+                if mask is m24:
+                    y24.setdefault(dt, []).append(got)
             if not time_it:
-                log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {fmt} "
+                log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {name} "
                     f"K={pw.k}: max_abs_err fp32 {errs['float32']:.3e} "
                     f"bf16 {errs['bfloat16']:.3e}")
                 continue
-            wm = (w * mask[fmt]).to(torch.bfloat16)
+            wm = (w * mask).to(torch.bfloat16)
             ms, ms_lo, ms_hi = cold_device_ms(lambda: ops.spmm(x, pw, act=act))
             plain_ms, _, _ = cold_device_ms(
                 lambda: spmm_mod.spmm_plain(x, pw, None, act))
@@ -459,11 +474,11 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
             K = pw.k
             nbytes = (2 * T * d_in + pw.nbytes + 2 * T * d_out)
             b_ms, b_by = bound(2.0 * T * d_out * K, nbytes, PEAK_BF16)
-            out[(T, fmt)] = {"max_abs_err": errs["bfloat16"], "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "library_ms": lib_ms,
-                             "shape": f"{tag} T={T} {fmt} bf16"}
-            log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {fmt} "
+            out[(T, name)] = {"max_abs_err": errs["bfloat16"], "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": lib_ms,
+                              "shape": f"{tag} T={T} {name} bf16"}
+            log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {name} "
                 f"K={K}: max_abs_err fp32 {errs['float32']:.3e} bf16 "
                 f"{errs['bfloat16']:.3e}; bf16 device time, median [min-max] "
                 f"of 20 cold calls: kernel {ms:.4f} [{ms_lo:.4f}-{ms_hi:.4f}] "
@@ -471,6 +486,10 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                 f"{lib_ms:.4f} [{lib_lo:.4f}-{lib_hi:.4f}] ms, bound "
                 f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB; kernel at "
                 f"{100 * b_ms / ms:.1f}% of the bound)")
+        for dt, (y_nm, y_ga) in y24.items():
+            require(torch.equal(y_nm, y_ga),
+                    f"spmm {tag} T={T} {dt}: nm24 and gathered differ on "
+                    "the 2:4 mask")
     return out
 
 
@@ -496,8 +515,40 @@ def forced_logits(eng, prompt: dict, tokens):
     return torch.stack(out)
 
 
+def spmm_device_ms(eng, prompt: dict, launches: int,
+                   tries: int = 3) -> tuple[float, float]:
+    """Device time in ms of the spmm kernels (product and split reduction)
+    of one warm ``generate`` by torch.profiler, and the generate's wall
+    ms. The profiler must see all ``launches`` product kernels: a trace
+    that lost records is taken again, up to ``tries`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_spmm import profiler_preroll
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_preroll()
+            t0 = time.perf_counter()
+            eng.generate(prompt, SERVE_GEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ms, n = 0.0, 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "spmm_" in e.name or "splitk_reduce" in e.name:
+                ms += e.time_range.elapsed_us() / 1e3
+                n += "spmm_" in e.name
+        if n == launches:
+            return ms, 1e3 * wall
+    raise AssertionError(f"the profiler saw {n} spmm product kernels of a "
+                         f"generate, want {launches} ({tries} tries)")
+
+
 def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
-    """Phase 6. Returns the spmm launches of one packed generate each."""
+    """Phase 6. Returns the spmm launches of each engine's first
+    generate."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
@@ -512,15 +563,14 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
         log(f"   {name}: packed in {eng.pack_s:.2f} s, "
             f"{eng.weight_bytes() / 2**30:.3f} GiB of weights")
     ops.reset_launches()
-    cold = {}
+    cold, serve_launches = {}, {}
     for name, eng in engines.items():
         before = ops.LAUNCHES["spmm"]
         cold[name] = eng.generate(prompt, SERVE_GEN)
-        n = ops.LAUNCHES["spmm"] - before
+        n = serve_launches[name] = ops.LAUNCHES["spmm"] - before
         packed = specs[name][1] in ("nm24", "gathered")
         want = 7 * api.cfg.n_layers * SERVE_GEN if packed else 0
         require(n == want, f"{name}: {n} spmm launches, want {want}")
-    serve_launches = ops.LAUNCHES["spmm"]
     warm = {name: [] for name in engines}
     for _ in range(3):
         for name, eng in engines.items():
@@ -533,6 +583,12 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
             f"({B * S / pre:9.1f} tok/s)  decode {dec:8.1f} tok/s "
             f"({1e3 / (dec / B):7.3f} ms/step)  weights "
             f"{eng.weight_bytes():>11d} B  kernel_used {eng.kernel_used}")
+    for name, eng in engines.items():
+        if serve_launches[name]:
+            ms, wall = spmm_device_ms(eng, prompt, serve_launches[name])
+            log(f"   {name:13s} one warm generate: spmm device time "
+                f"{ms:.4f} ms (all {serve_launches[name]} product kernels "
+                f"and their split reductions), generate {wall:.3f} ms wall")
     traces = {name: eng.logits_trace(prompt, SERVE_GEN)
               for name, eng in engines.items()}
     toks = {name: [r.tokens for r in warm[name]] + [cold[name].tokens]
@@ -772,9 +828,10 @@ def main() -> int:
         log("   TF32 off for matmuls and cuDNN")
 
     with Phase("2 build"):
-        build.build([v[0] for v in KERNELS.values()])
-        for name, (lib, _, _) in KERNELS.items():
-            log(f"   {name} ({build.lib_path(lib).name}):")
+        libs = sorted({v[0] for v in KERNELS.values()})
+        build.build(libs)
+        for lib in libs:
+            log(f"   {lib} ({build.lib_path(lib).name}):")
             for line in build.ptxas_report(lib).splitlines():
                 log(f"     {line}")
 
@@ -802,6 +859,7 @@ def main() -> int:
         check_spmm(4096, 4096, None, "wq/wo", time_it=False)
         check_spmm(1024, 4096, None, "wk/wv", time_it=False)
         results["spmm"] = spmm_res[(128, "nm24")]
+        results["spmm_gather"] = spmm_res[(4, "gathered")]
         torch.cuda.empty_cache()
 
     dev = torch.device("cuda")
@@ -953,7 +1011,10 @@ def main() -> int:
                 + main_launches["gram_xtx"],
                 "swap_topk": main_launches["swap_topk"],
                 "swap_argmin": argmin_launches,
-                "swap_commit": commit_launches, "spmm": serve_launches}
+                "swap_commit": commit_launches,
+                "spmm": serve_launches["nm24_2:4"],
+                "spmm_gather": serve_launches["gathered_0.6"]
+                + serve_launches["gathered_2:4"]}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]

@@ -1,7 +1,7 @@
 // Hopper building blocks of the kernels that stage tiles by TMA (spmm.cu,
-// gram.cu): shared-memory addresses, mbarriers, 2-D TMA loads, wgmma and,
-// on the host, the tensor-map encoder. Header-only, one copy per
-// translation unit (anonymous namespace).
+// gram.cu): shared-memory addresses, mbarriers, 2-D TMA loads, bulk
+// copies, wgmma and, on the host, the tensor-map encoder. Header-only,
+// one copy per translation unit (anonymous namespace).
 
 #pragma once
 
@@ -56,6 +56,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(bar) : "memory");
+}
+
+// one contiguous bulk copy (no tensor map) of `bytes` from device memory to
+// shared memory, completing on mbarrier bar; src, dst and bytes are
+// multiples of 16
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar) : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses before the async
+// proxy's (TMA) later writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A wgmma shared-memory descriptor in 128-byte swizzle mode: start address,

@@ -36,12 +36,42 @@
 // warp owns 16 rows: decode 16 x 8 tokens, prefill 16 x 128 tokens (each
 // A fragment built once per block).
 //
-// bf16 gathered (d_in % 8 == 0): spmm_gather_kernel, 64 x 64-column
-// tiles densified in shared memory: it zeroes a dense (64, 64) bf16
-// tile, scatters the tile's slots into it from a per-row cursor that a
-// warp advances 32 slots at a time with a ballot (64 slots prefetched in
-// registers; needs the format's ascending columns, below), stages x, and
-// runs the same m16n8k16 MMAs over the tile.
+// bf16 gathered (d_in % 8 == 0), PerRow masks: spmm_gather_kernel. A
+// block owns 128 output rows and BN tokens (8 / 128) and walks its split's
+// 128-column tiles, as nm24 does. A row's slots are contiguous but fall
+// into the tiles in varying counts, so no fixed box fetches a tile's
+// slots. Each row has two rings in shared memory (its values, its
+// columns; decode 184 slots, prefill 112), streamed along the row by bulk
+// copies of whole aligned 16-byte chunks: a row's copies never go past
+// its split's slots or come back to them, so each slot is read from
+// device memory once, and rows need no 16-byte alignment (an odd K gives
+// 2-byte aligned value rows), since the chunks are aligned in memory, not
+// in the row. 8 scatter warps own 16 rows each, two lanes a row: per tile
+// each row walks its slots in rounds of 16 (8 a lane, read without
+// wrapping, since each ring is followed by a copy of its start), takes
+// them in order while they have landed and stay below the tile's end,
+// checks each column against the one before, and writes each value into
+// its column of the row of a dense A tile (rows of 256 B with 16-byte
+// chunks swizzled by row, so ldmatrix reads hit distinct banks; zeroed
+// first). 8 multiplying warps run the same chain of mma.sync m16n8k16
+// over 16-column steps as nm24 (A by ldmatrix from the dense tile, B from
+// x, which a producer warp streams by TMA through a ring of stages; decode
+// 4, prefill 2) on each tile once every scatter warp has filled it (full
+// and empty mbarriers over 2 A tiles). Each multiplying warp also copies
+// for one scatter warp, which hands over its rows' cursors after each
+// tile (the copier refills their rings to capacity, 3 refills in flight;
+// a tile reads what the older ones brought): the multiplying warps wait
+// most of the time, and a bulk copy is issued one lane at a time. A row
+// that owes slots it does not have waits for the later refills, or hands
+// over again for an urgent one (a fully kept row has 128 slots a tile),
+// so no mask can deadlock it. A split's slot range is [first slot >= its
+// first column, first slot >= its end), found from 128 slots read around
+// the expected slot (and a 32-ary search where that misses), so every
+// slot belongs to exactly one split and is checked there.
+// launch/profile_spmm.py times the kernel beside copies of it without the
+// scatter's stores, without the MMAs, with nothing but the copies, and
+// with nothing but the MMAs; PERF.md has the numbers and the designs
+// tried before this one.
 //
 // Split d_in: when the row blocks are too few for one block per SM,
 // d_in is split over blockIdx.z and a second kernel (counted with the
@@ -73,15 +103,22 @@
 // flagged as its slots are read and comes out NaN, whatever the
 // epilogue; nothing reads x out of order.
 //
-// What bounds it on an H100: the packed weight (1.5 bytes per dense
-// element at 2:4) is read once per launch, against 2·T·d_out·K FLOP, so
-// every serving shape is bytes-bound on paper. With one block per SM,
-// per-thread cp.async could not keep enough of it in flight; the TMA
-// ring can (PERF.md has the numbers, from launch/profile_spmm.py). At
-// prefill the kernel is held back by work the bound does not count:
-// every block re-reads x (1 MB at w_gate) from L2, each A fragment takes
-// ~30 integer instructions to build, and mma.sync multiplies the dense
-// fragment, zeros included (2x the useful FLOP).
+// What bounds it on an H100: the packed weight is read once per launch,
+// against 2·T·d_out·K FLOP, so every serving shape is bytes-bound on
+// paper: nm24 1.5 bytes per dense element at 2:4 (88 MB at w_gate, 0.026
+// ms at 3.35 TB/s); gathered 6 bytes a kept slot (a bf16 value and an
+// int32 column), 141 MB at PerRow(0.6), 1.2x dense bf16 (0.042 ms), and
+// 176 MB on a 2:4 mask. nm24's TMA ring streams its boxes at 64-67% of
+// the bound. gathered is held back by work the bound does not count: the
+// scatter warps' walk (a tile's slots found and placed row by row, a
+// column check each; 65-71% of a scatter warp's clocks on an H100 by
+// clock counters) and the refills' per-lane bulk copies, which its
+// streaming alone needs 0.08 ms for at w_gate T = 4 (PERF.md has the
+// numbers, from launch/profile_spmm.py). At prefill both kernels also re-read x (1 MB
+// at w_gate) from L2 in every block, nm24's A fragments take ~30 integer
+// instructions to build, gathered's A tiles are written and read through
+// shared memory, and mma.sync multiplies the dense fragment, zeros
+// included (2x the useful FLOP at 2:4, 2.5x at PerRow(0.6)).
 // 2:4 sparse MMA (mma.sp, the positions as metadata) would halve the
 // multiply and drop the build, but it groups its products otherwise than
 // two dense k16 steps, so nm24 would no longer equal gathered bit for
@@ -104,10 +141,6 @@ namespace {
 
 constexpr int NT = 256;               // CUDA-core kernel: threads per block
 constexpr int NW = NT / 32;
-constexpr int BK = 64;                // gathered tensor-core kernel: d_in
-                                      // tile
-constexpr int PADK = BK + 8;          // its shared row stride (bf16): the
-                                      // fragment loads hit 32 banks
 
 enum Act { ACT_NONE = 0, ACT_SILU, ACT_GELU, ACT_RELU, ACT_RELU2,
            ACT_SIGMOID };
@@ -314,9 +347,6 @@ int launch_fma(const void* x, const void* vals, const void* idx,
 // tensor-core kernels (bf16)
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_WARPS = 8;             // warps of a tensor-core block
-constexpr int MMA_NTH = MMA_WARPS * 32;
-
 __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
                                          const uint32_t* b) {
   asm(
@@ -328,37 +358,6 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// fp32 sums of one (rows x tokens) warp tile to y (epilogue) or, when
-// d_in is split, to this split's slice of the scratch; a flagged row
-// comes out NaN.
-template <int MT, int NTL>
-__device__ __forceinline__ void store_tile(const float (&acc)[MT][NTL][4],
-                                           const int* bad, int rl0, int tl0,
-                                           int r0, int t0, int lane,
-                                           const float* bias,
-                                           __nv_bfloat16* y, float* ws,
-                                           int n_tok, int d_out, int act) {
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTL; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int rl = rl0 + mt * 16 + g + 8 * (c >> 1);
-        const int row = r0 + rl;
-        const int tok = t0 + tl0 + nt * 8 + 2 * tq + (c & 1);
-        if (row >= d_out || tok >= n_tok) continue;
-        float v = bad[rl] ? __int_as_float(0x7fc00000) : acc[mt][nt][c];
-        if (ws != nullptr) {
-          ws[((size_t)blockIdx.z * n_tok + tok) * d_out + row] = v;
-        } else {
-          if (bias != nullptr) v += bias[row];
-          y[(size_t)tok * d_out + row] = __float2bfloat16_rn(epilogue(v, act));
-        }
-      }
 }
 
 // ---- nm24: a ring of packed tiles filled by TMA, A fragments built in
@@ -657,122 +656,330 @@ spmm_nm24_kernel(const __grid_constant__ CUtensorMap tm_v,
   }
 }
 
-// ---- gathered: 64-column tiles densified in shared memory
+// ---- gathered: two lanes per row walk its slots through rings in
+// shared memory into dense A tiles, which other warps multiply
 
-constexpr int G_BM = 64;                 // rows of a block
+constexpr int G_SW = 8;                  // warps that scatter, 16 rows each
+constexpr int G_MW = 8;                  // warps that multiply
+constexpr int G_RUN = 8;                 // slots a lane reads at once
+constexpr int G_NA = 2;                  // dense A tiles in a ring
+constexpr int G_D = 3;                   // refills in flight a scatter warp
+constexpr int G_THREADS = 32 * (G_SW + G_MW + 1);   // + the x producer
 
-// a row's next 64 slots from its cursor, two per lane (slots cur + lane
-// and cur + 32 + lane), kept as loaded (INT_MAX past K): no arithmetic on
-// them until the next tile places them, so the loads stay in flight
-// while the current tile multiplies.
-template <int RPW>
-struct ChunkG {
-  int col[RPW][2];
-  uint16_t val[RPW][2];
+// bytes rounded up to an odd number of 16-byte chunks
+constexpr int odd_chunks(int b) {
+  return (b + 15) / 16 % 2 ? (b + 15) / 16 * 16 : (b + 15) / 16 * 16 + 16;
+}
+
+// The shared memory of a gathered block: S stages of x (two TMA boxes of
+// BN tokens x 64 columns, 128-byte swizzle, as nm24 stages them), G_NA
+// dense A tiles (128 rows x 128 bf16 columns; rows of 256 B whose 16-byte
+// chunks are XOR-swizzled by row % 8), then each row's two slot rings:
+// RS values (2 B) and RS columns (4 B), each followed by a copy of its
+// first G_RUN slots (so a lane reads a run of them without wrapping), rows
+// of rings an odd number of 16-byte chunks apart (so equal positions of 8
+// rows hit distinct banks).
+template <int BN, int S, int RS>
+struct GSmem {
+  static constexpr int XH = BN * 128;
+  static constexpr int XS = 2 * XH;                 // one x stage
+  static constexpr int A = S * XS;                  // the A tiles
+  static constexpr int AB = NM_BM * 256;            // one A tile (32 KB)
+  static constexpr int VR = 2 * RS, IR = 4 * RS;    // ring bytes of a row
+  static constexpr int VM = 2 * G_RUN, IM = 4 * G_RUN;   // the copies
+  static constexpr int VS = odd_chunks(VR + VM);           // row strides
+  static constexpr int IS = odd_chunks(IR + IM);
+  static constexpr int V = A + G_NA * AB;
+  static constexpr int I = V + NM_BM * VS;
+  static constexpr int BYTES = I + NM_BM * IS;
+  static_assert(RS % 8 == 0 && RS >= 4 * G_RUN && G_RUN % 8 == 0,
+                "rings and their copied starts of whole 16-byte chunks, "
+                "each ring longer than a round");
 };
 
-template <int RPW>
-__device__ __forceinline__ void load_gather(ChunkG<RPW>& ch,
-                                            const uint16_t* vbits,
-                                            const int32_t* idx,
-                                            const int* cur, int rw, int lane,
-                                            int d_out, int K) {
+// The first slot with column >= key of row rw + lane % 16 (key: kstart
+// for lanes 0-15, kend for 16-31), for every lane with `active` (others
+// answer 0). First each search reads the 128 slots around the key's
+// expected slot (K key / d_in; eight searches a round, four rounds),
+// which settles a sorted row whose kept columns spread evenly,
+// and those slots are read again from L2 as the split starts; what is
+// left (crowded or skewed rows) narrows by a 32-ary search, one probe a
+// lane a round. The answer lies in [a, b] and is b if no slot of [a, b)
+// reaches key.
+__device__ __forceinline__ int g_bound(const int32_t* __restrict__ idx,
+                                       int rw, int K, int d_in, int kstart,
+                                       int kend, bool active, int lane) {
+  int a = 0, b = active ? K : 0;
+#pragma unroll 1
+  for (int q0 = 0; q0 < 32; q0 += 8) {
+    int w0[8], col[8][4];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = rw + i;
+    for (int t = 0; t < 8; ++t) {
+      const int q = q0 + t;
+      const int B = __shfl_sync(0xffffffffu, b, q);
+      const int kq = q < 16 ? kstart : kend;
+      w0[t] = max(0, min(static_cast<int>((long long)B * kq / d_in) - 64,
+                         B - 128));
+      const int32_t* ir = idx + (size_t)(rw + q % 16) * K;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int s = cur[i] + 32 * h + lane;
-      ch.col[i][h] = INT_MAX;
-      if (row < d_out && s < K) {
-        ch.col[i][h] = idx[(size_t)row * K + s];
-        ch.val[i][h] = vbits[(size_t)row * K + s];
+      for (int m = 0; m < 4; ++m) {
+        const int p = w0[t] + 32 * m + lane;
+        col[t][m] = p < B ? ir[p] : INT_MAX;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int q = q0 + t;
+      const int B = __shfl_sync(0xffffffffu, b, q);
+      const int kq = q < 16 ? kstart : kend;
+      int below = 0;
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        below += __popc(__ballot_sync(0xffffffffu, col[t][m] < kq));
+      const int n = min(128, B - w0[t]);
+      if (lane == q && a < b) {
+        if (below == 0) b = w0[t];                 // at or before it
+        else if (below >= n) a = w0[t] + n;        // past it
+        else a = b = w0[t] + below;                // inside it
       }
     }
   }
-}
-
-// Scatter one 32-slot chunk of a row into its dense tile row and advance
-// the row's cursor past the slots in [k0, k0 + BK). Returns true when all
-// 32 fell in the tile (more may follow).
-__device__ __forceinline__ bool place_gather(int c, uint16_t v,
-                                             uint16_t* wrow, int* bad_row,
-                                             int& cur, int& last, int lane,
-                                             int k0, int d_in) {
-  const bool in = c < k0 + BK;
-  const unsigned msk = __ballot_sync(0xffffffffu, in);
-  const int cnt = __popc(msk);
-  int prev = __shfl_up_sync(0xffffffffu, c, 1);
-  if (lane == 0) prev = last;
-  if (in) {
-    if (c >= k0 && c > prev && c < d_in) wrow[c - k0] = v;
-    else *bad_row = 1;
+  for (;;) {
+    if (!__any_sync(0xffffffffu, a < b)) break;
+    int col[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int A = __shfl_sync(0xffffffffu, a, q);
+      const int B = __shfl_sync(0xffffffffu, b, q);
+      const int step = (B - A + 31) >> 5;
+      const int p = A + (lane + 1) * step - 1;
+      col[q] = INT_MIN;
+      if (A < B && p < B) col[q] = idx[(size_t)(rw + q % 16) * K + p];
+    }
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const int A = __shfl_sync(0xffffffffu, a, q);
+      const int B = __shfl_sync(0xffffffffu, b, q);
+      const unsigned m = __ballot_sync(0xffffffffu,
+                                       col[q] >= (q < 16 ? kstart : kend));
+      const int step = (B - A + 31) >> 5;
+      if (lane == q && A < B) {
+        if (m) {                            // answer in (p_{f-1}, p_f]
+          a = A + (__ffs(m) - 1) * step;
+          b = a + step - 1;
+        } else {                            // answer in (p_last, B]
+          a = A + (B - A) / step * step;
+        }
+      }
+    }
   }
-  if (msk != (cnt == 32 ? 0xffffffffu : (1u << cnt) - 1u) && lane == 0)
-    *bad_row = 1;                         // columns out of ascending order
-  const int lst = __shfl_sync(0xffffffffu, c, cnt > 0 ? cnt - 1 : 0);
-  if (cnt > 0) last = lst;
-  cur += cnt;
-  return cnt == 32;
+  return a;
 }
 
-template <int BN, int WM, int WN>
-__global__ void __launch_bounds__(MMA_NTH)
-spmm_gather_kernel(const __nv_bfloat16* __restrict__ x,
+// x mod R for x in [0, 2R)
+template <int R>
+__device__ __forceinline__ int ring_wrap(int x) {
+  return x >= R ? x - R : x;
+}
+
+// One stream of a row (its values or its columns) and its ring.
+struct GStream {
+  const uint8_t* base;   // slot 0 of the row in this stream (null: none)
+  uintptr_t src;         // next byte to copy (16-byte aligned)
+  uintptr_t lim;         // end of the split's slots, rounded up to 16
+  uint32_t ring;         // shared address of the ring
+  int fpos;              // ring position of src
+};
+
+// Bytes that refill a stream's ring of RB bytes up to RB past the 16-byte
+// chunk that holds the cursor, or to the end of the split's slots.
+template <int RB, int LG>
+__device__ __forceinline__ uint32_t g_len(const GStream& s, int cur) {
+  if (s.base == nullptr) return 0;
+  const uintptr_t keep =
+      (reinterpret_cast<uintptr_t>(s.base) + ((uintptr_t)cur << LG)) &
+      ~uintptr_t(15);
+  const uintptr_t to = keep + RB < s.lim ? keep + RB : s.lim;
+  return to > s.src ? static_cast<uint32_t>(to - s.src) : 0;
+}
+
+// Bytes of a refill of len that land in the first MB bytes of the ring,
+// which go to its copy past the end as well.
+template <int RB, int MB>
+__device__ __forceinline__ uint32_t g_mirror(const GStream& s,
+                                             uint32_t len) {
+  const uint32_t p1 = min(len, static_cast<uint32_t>(RB - s.fpos));
+  uint32_t m = 0;
+  if (s.fpos < MB) m += min(static_cast<uint32_t>(MB - s.fpos), p1);
+  if (len > p1) m += min(static_cast<uint32_t>(MB), len - p1);
+  return m;
+}
+
+template <int RB, int MB>
+__device__ __forceinline__ void g_copy(GStream& s, uint32_t len,
+                                       uint32_t bar) {
+  if (!len) return;
+  const uint32_t p1 = min(len, static_cast<uint32_t>(RB - s.fpos));
+  const void* a = reinterpret_cast<const void*>(s.src);
+  bulk_load(s.ring + s.fpos, a, p1, bar);
+  if (s.fpos < MB)
+    bulk_load(s.ring + RB + s.fpos, a,
+              min(static_cast<uint32_t>(MB - s.fpos), p1), bar);
+  if (len > p1) {
+    const void* b = reinterpret_cast<const void*>(s.src + p1);
+    bulk_load(s.ring, b, len - p1, bar);
+    bulk_load(s.ring + RB, b, min(static_cast<uint32_t>(MB), len - p1), bar);
+  }
+  s.src += len;
+  s.fpos = ring_wrap<RB>(s.fpos + static_cast<int>(len));
+}
+
+// Refill one row stream's ring (lane (i, h) of a copying warp: row i of
+// its scatter warp, h = 0 values, 1 columns) from the row's cursor cur up
+// to RB bytes past the 16-byte chunk that holds it, or to the end of the
+// split's slots, by bulk copies of whole aligned 16-byte chunks (an
+// allocation starts and ends on such a boundary, so none reads outside
+// it), completing on mbarrier bar, whose one arrival (lane 0) announces
+// their bytes; first lim_row[i] gets the row's slots landed by then (hi,
+// its split's end, if it has none).
+template <int RS>
+__device__ __forceinline__ void g_refill(GStream& s, int cur, uint32_t bar,
+                                         int lane, int* lim_row, int hi) {
+  constexpr int VM = 2 * G_RUN, IM = 4 * G_RUN;
+  const bool h = lane >= 16;
+  const uint32_t len = h ? g_len<4 * RS, 2>(s, cur) : g_len<2 * RS, 1>(s, cur);
+  const uint32_t m =
+      h ? g_mirror<4 * RS, IM>(s, len) : g_mirror<2 * RS, VM>(s, len);
+  const int n = s.base == nullptr ? hi : static_cast<int>(
+      static_cast<long long>(s.src + len -
+                             reinterpret_cast<uintptr_t>(s.base)) >>
+      (h ? 2 : 1));
+  const int land = min(hi, min(n, __shfl_xor_sync(0xffffffffu, n, 16)));
+  if (!h) lim_row[lane] = land;
+  const uint32_t total = __reduce_add_sync(0xffffffffu, len + m);
+  fence_proxy_async();
+  __syncwarp();                          // lim_row before the arrival
+  if (lane == 0) mbar_expect(bar, total);
+  __syncwarp();
+  if (h) g_copy<4 * RS, IM>(s, len, bar);
+  else g_copy<2 * RS, VM>(s, len, bar);
+}
+
+// A scatter warp hands its rows' cursors (c) to its copying warp, once
+// the copier has taken the previous handoff; kind says what the copier
+// does after the refill (0: multiply the next tile, 1: wait for another
+// handoff, 2: nothing, no refill).
+__device__ __forceinline__ void g_handoff(int kind, int c, int& nref,
+                                          uint32_t req, uint32_t ack,
+                                          int* cur_row, int* kind_w, int hf,
+                                          int lane) {
+  if (nref > 0) mbar_wait(ack, (nref - 1) & 1);
+  if (!hf) *cur_row = c;
+  if (lane == 0) *kind_w = kind;
+  __syncwarp();
+  if (lane == 0) mbar_arrive(req);
+  ++nref;
+}
+
+// bf16 gathered, d_in % 8 == 0. A block owns 128 rows and BN tokens and
+// walks its split's 128-column tiles. G_SW warps scatter: lanes l and
+// l + 16 of warp w serve row 16w + l, each walking half of each round of
+// 2 G_RUN slots, each slot into its tile's row of a dense A tile (G_NA of
+// them in a ring), checking each column against the one before. G_MW
+// warps multiply (WM x WN warp tiles) each A tile once all scatter warps
+// have filled it, and free it for tile j + G_NA; multiplying warp w also
+// copies for scatter warp w: at each handoff (after each tile, and when a
+// row owes slots it does not have) it refills the rows' rings from their
+// cursors, G_D refills in flight (refill n completes on rbar[w][n % G_D]
+// in phase n / G_D; a tile reads what the refills older than the G_D - 1
+// latest brought, and waits for the later ones only when a row owes
+// slots). A producer warp streams x by TMA through S stages.
+template <int BN, int WM, int WN, int S, int RS>
+__global__ void __launch_bounds__(G_THREADS, 1)
+spmm_gather_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const __nv_bfloat16* __restrict__ vals,
-                   const int32_t* __restrict__ idx32,
+                   const int32_t* __restrict__ idx,
                    const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
                    int n_tok, int d_in, int d_out, int K, int act,
                    int tiles_per_split) {
-  constexpr int BM = G_BM;
-  constexpr int MW = (BM / WM) * (BN / WN);   // warps that multiply
-  static_assert(MW <= MMA_WARPS, "warp tile too small for the block");
-  constexpr int RPW = BM / MMA_WARPS;    // rows each warp scatters
   constexpr int MT = WM / 16;
   constexpr int NTL = WN / 8;
-  __shared__ __align__(16) __nv_bfloat16 Ws[BM][PADK];
-  __shared__ __align__(16) __nv_bfloat16 Xs[BN][PADK];
-  __shared__ int bad[BM];
+  constexpr int URGENT = 1, DONE = 2;    // handoff kinds (else: tile end)
+  static_assert((NM_BM / WM) * (BN / WN) == G_MW, "one warp tile a warp");
+  static_assert(G_SW * 16 == NM_BM && G_SW == G_MW,
+                "two scattering lanes a row; a copying warp a scatter warp");
+  using Sm = GSmem<BN, S, RS>;
+  static_assert(BN * (NM_BM + 4) * 4 <= Sm::V,
+                "the epilogue's (token, row) sums fit before the rings");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  __shared__ int bad[NM_BM];
+  __shared__ int gcur[NM_BM];            // a row's cursor at a handoff,
+  __shared__ int ghi[NM_BM];             // its split's end slot,
+  __shared__ int glim[G_D][NM_BM];       // its landed slots after refill n
+  __shared__ int gkind[G_SW];            // a handoff's kind
+  __shared__ __align__(8) uint64_t full[S];    // x stage has landed
+  __shared__ __align__(8) uint64_t empty[S];   // ...and has been multiplied
+  __shared__ __align__(8) uint64_t afull[G_NA];   // A tile has been scattered
+  __shared__ __align__(8) uint64_t aempty[G_NA]; // ...and has been multiplied
+  __shared__ __align__(8) uint64_t rbar[G_SW][G_D];  // refill n has landed
+  __shared__ __align__(8) uint64_t req[G_SW];  // a scatter warp hands off
+  __shared__ __align__(8) uint64_t ack[G_SW];  // ...its copier took it
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;               // mma group
-  const int tq = lane & 3;               // thread in group
-  const int warp_m = warp % (BM / WM);
-  const int warp_n = warp / (BM / WM);
-  const int r0 = blockIdx.x * BM;
+  const int r0 = blockIdx.x * NM_BM;
   const int t0 = blockIdx.y * BN;
-  const int n_kt = (d_in + BK - 1) / BK;
-  constexpr int PER = NM_BK / BK;        // a split is whole 128-column tiles
-  const int kt0 = blockIdx.z * tiles_per_split * PER;
-  const int kt1 = min(kt0 + tiles_per_split * PER, n_kt);
-  const int rw = r0 + warp * RPW;        // first row this warp scatters
-  const uint16_t* vbits = reinterpret_cast<const uint16_t*>(vals);
+  const int n_kt = (d_in + NM_BK - 1) / NM_BK;
+  const int kt0 = blockIdx.z * tiles_per_split;
+  const int nt = min(tiles_per_split, n_kt - kt0);
+  const int kstart = kt0 * NM_BK;
+  const int kend = (kt0 + nt) * NM_BK;   // the split's end column
+  // lane (i, h) of scatter warp w and of copying warp w serve row 16w + i:
+  // h picks the stream it copies (0 values, 1 columns) and the half of
+  // each round of slots it walks
+  const int li = lane & 15, hf = lane >> 4;
 
-  for (int i = tid; i < BM; i += MMA_NTH) bad[i] = 0;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), G_MW);
+    }
+#pragma unroll
+    for (int b = 0; b < G_NA; ++b) {
+      mbar_init(smem_addr(&afull[b]), G_SW);
+      mbar_init(smem_addr(&aempty[b]), G_MW);
+    }
+    for (int w = 0; w < G_SW; ++w) {
+      for (int b = 0; b < G_D; ++b) mbar_init(smem_addr(&rbar[w][b]), 1);
+      mbar_init(smem_addr(&req[w]), 1);
+      mbar_init(smem_addr(&ack[w]), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  int cur[RPW], last[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    // first slot with column >= this split's first column (the first
-    // split starts at slot 0, so it meets a negative column and flags it)
-    const int row = rw + i;
-    int lo = 0, hi = row < d_out && kt0 > 0 ? K : 0;
-    const int kstart = kt0 * BK;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (idx32[(size_t)row * K + mid] < kstart) lo = mid + 1;
-      else hi = mid;
+  if (warp == G_SW + G_MW) {
+    // the producer: x tiles, S - 1 ahead of the slowest multiplying warp
+    if (lane == 0) {
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % S;
+        if (i >= S) mbar_wait(smem_addr(&empty[s]), (i / S - 1) & 1);
+        const uint32_t st = smem_addr(sm + s * Sm::XS);
+        const uint32_t bar = smem_addr(&full[s]);
+        const int k0 = (kt0 + i) * NM_BK;
+        mbar_expect(bar, Sm::XS);
+        tma_load(st, &tm_x, k0, t0, bar);
+        tma_load(st + Sm::XH, &tm_x, k0 + NM_BK / 2, t0, bar);
+      }
     }
-    cur[i] = lo;
-    last[i] = -1;
+    return;
   }
-  ChunkG<RPW> ch;
-  load_gather(ch, vbits, idx32, cur, rw, lane, d_out, K);
 
+  const int g = lane >> 2, tq = lane & 3;
   float acc[MT][NTL][4];
 #pragma unroll
   for (int a = 0; a < MT; ++a)
@@ -780,91 +987,257 @@ spmm_gather_kernel(const __nv_bfloat16* __restrict__ x,
     for (int b = 0; b < NTL; ++b)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.0f;
+  const int mw = warp - G_SW;            // multiplying warp index
+  const int warp_m = mw % (NM_BM / WM);
+  const int warp_n = mw / (NM_BM / WM);
 
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                      // the last tile's MMAs are done
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int e = tid; e < BM * BK / 8; e += MMA_NTH) {
-      const int r = e / (BK / 8);
-      const int c8 = e - r * (BK / 8);
-      *reinterpret_cast<uint4*>(&Ws[r][c8 * 8]) = zero;
-    }
-    for (int e = tid; e < BN * BK / 8; e += MMA_NTH) {
-      const int t = e / (BK / 8);
-      const int c8 = e - t * (BK / 8);
-      const int tok = t0 + t;
-      const int col = k0 + c8 * 8;
-      uint4 v = zero;
-      if (tok < n_tok && col < d_in)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)tok * d_in + col);
-      *reinterpret_cast<uint4*>(&Xs[t][c8 * 8]) = v;
-    }
-    __syncthreads();
-    // scatter this tile's slots into the dense tile, then fetch the next
+  if (warp < G_SW) {
+    // ---- scatter: the row's split slot range, then per tile its slots
+    const int rl = warp * 16 + li;       // block-local row
+    const int row = r0 + rl;
+    const bool valid = row < d_out;
+    const int lohi = g_bound(idx, r0 + warp * 16, K, d_in, kstart, kend,
+                             valid && (hf ? kt0 + nt < n_kt : kt0 > 0),
+                             lane);
+    int lo = kt0 > 0 ? __shfl_sync(0xffffffffu, lohi, li) : 0;
+    int hi = kt0 + nt < n_kt ? __shfl_sync(0xffffffffu, lohi, li + 16) : K;
+    if (!valid) lo = hi = 0;
+    // ring positions of slot lo, as the copier lays the rings out
+    const int pv0 = static_cast<int>(
+        reinterpret_cast<uintptr_t>(vals + (size_t)row * K + lo) & 15);
+    const int pi0 = static_cast<int>(
+        reinterpret_cast<uintptr_t>(idx + (size_t)row * K + lo) & 15);
+    int pv = lo < hi ? pv0 : 0, pi = lo < hi ? pi0 : 0;
+    // a handoff to the copier: the rows' cursors, then req; the copier
+    // acknowledges on ack once it has issued the refill
+    const uint32_t qb = smem_addr(&req[warp]), kb = smem_addr(&ack[warp]);
+    const uint32_t rbs = smem_addr(&rbar[warp][0]);   // rbar[warp][b]: + 8 b
+    int nref = 0;                        // handoffs made (refill n: n-th)
+    if (!hf) ghi[rl] = hi;
+    g_handoff(0, lo, nref, qb, kb, &gcur[rl], &gkind[warp], hf, lane);
+    int waited = -1;                     // refills waited for
+    int cur = lo, last = kstart - 1, lim = lo;
+    bool fault = false;
+    const uint8_t* vr = sm + Sm::V + rl * Sm::VS;
+    const uint8_t* ir = sm + Sm::I + rl * Sm::IS;
+    const int rsw = (rl & 7) << 4;
+
+    for (int j = 0; j < nt; ++j) {
+      const int k0 = (kt0 + j) * NM_BK;
+      const int kcut = min(k0 + NM_BK, d_in);   // the tile's columns end
+      const int b = j % G_NA;
+      // all but the G_D - 1 latest refills
+      const int want = nref - G_D > 0 ? nref - G_D : 0;
+      for (; waited < want;) {
+        ++waited;
+        mbar_wait(rbs + 8 * (waited % G_D), (waited / G_D) & 1);
+      }
+      lim = max(lim, glim[want % G_D][rl]);
+      // the tile's buffer, once tile j - G_NA's MMAs are done with it
+      if (j >= G_NA) mbar_wait(smem_addr(&aempty[b]), (j / G_NA - 1) & 1);
+      uint8_t* arow = sm + Sm::A + b * Sm::AB + rl * 256;
+      {                                  // zero the row, half a lane:
+        const uint4 z = make_uint4(0, 0, 0, 0);   // chunk q ^ (row % 8),
+#pragma unroll                                     // no bank conflict
+        for (int q = 8 * hf; q < 8 * hf + 8; ++q)
+          *reinterpret_cast<uint4*>(arow + ((q ^ (rl & 7)) << 4)) = z;
+      }
+      // the row's slots below kcut, 2 G_RUN a round: lane h loads slots
+      // G_RUN h .. G_RUN h + G_RUN - 1 of it (unconditionally: the ring is
+      // followed by a copy of its start) and takes them in order while
+      // they have landed and stay below kcut, the second half only after
+      // a full first half
+#pragma unroll 1
+      for (;;) {
+        const uint8_t* ic = ir + ring_wrap<Sm::IR>(pi + 4 * G_RUN * hf);
+        const uint8_t* vc = vr + ring_wrap<Sm::VR>(pv + 2 * G_RUN * hf);
+        int c[G_RUN];
+        uint16_t v[G_RUN];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int wr = warp * RPW + i;
-      uint16_t* wrow = reinterpret_cast<uint16_t*>(&Ws[wr][0]);
-      if (rw + i < d_out) {               // uniform across the warp
-        bool more = place_gather(ch.col[i][0], ch.val[i][0], wrow, &bad[wr],
-                                 cur[i], last[i], lane, k0, d_in);
-        if (more)
-          more = place_gather(ch.col[i][1], ch.val[i][1], wrow, &bad[wr],
-                              cur[i], last[i], lane, k0, d_in);
-        while (more) {                    // > 64 slots in this tile
-          const int s = cur[i] + lane;
-          int c = INT_MAX;
-          uint16_t v = 0;
-          if (s < K) {
-            c = idx32[(size_t)(rw + i) * K + s];
-            v = vbits[(size_t)(rw + i) * K + s];
-          }
-          more = place_gather(c, v, wrow, &bad[wr], cur[i], last[i], lane,
-                              k0, d_in);
+        for (int u = 0; u < G_RUN; ++u) {
+          c[u] = reinterpret_cast<const int*>(ic)[u];
+          v[u] = reinterpret_cast<const uint16_t*>(vc)[u];
         }
+        const int av = lim - cur - G_RUN * hf;   // mine that have landed
+        int n = 0, ml = INT_MIN;         // my slots taken, the last one
+#pragma unroll
+        for (int u = 0; u < G_RUN; ++u) {
+          const bool t = n == u && u < av && c[u] < kcut;
+          n = t ? u + 1 : n;
+          ml = t ? c[u] : ml;
+        }
+        const int n0 = __shfl_sync(0xffffffffu, n, li);
+        const int n1 = __shfl_sync(0xffffffffu, n, li + 16);
+        const int cz = __shfl_sync(0xffffffffu, c[G_RUN - 1], li);
+        const int m0 = __shfl_sync(0xffffffffu, ml, li);
+        const int m1 = __shfl_sync(0xffffffffu, ml, li + 16);
+        const int nr = n0 + (n0 == G_RUN ? n1 : 0);  // the row's slots taken
+        const int nm = hf && n0 < G_RUN ? 0 : n;     // mine among them
+        const int p0 = hf ? cz : last;
+#pragma unroll
+        for (int u = 0; u < G_RUN; ++u)
+          if (u < nm) {
+            fault |= c[u] <= (u ? c[u - 1] : p0);
+            // the tile starts at a multiple of 128: (c << 1) & 255 is c's
+            // byte in the tile's row
+            *reinterpret_cast<uint16_t*>(
+                arow + (((c[u] << 1) & 255) ^ rsw)) = v[u];
+          }
+        last = nr > G_RUN ? m1 : nr > 0 ? m0 : last;
+        cur += nr;
+        pi = ring_wrap<Sm::IR>(pi + 4 * nr);
+        pv = ring_wrap<Sm::VR>(pv + 2 * nr);
+        if (__any_sync(0xffffffffu, nr == 2 * G_RUN)) continue;
+        // done, unless a row still owes slots to this tile and has none
+        // landed: then the later refills, else an urgent one
+        const bool owe = cur >= lim && cur < hi && last < kcut - 1;
+        if (!__any_sync(0xffffffffu, owe)) break;
+        if (waited + 1 >= nref)
+          g_handoff(URGENT, cur, nref, qb, kb, &gcur[rl], &gkind[warp], hf,
+                    lane);
+        for (; waited + 1 < nref;) {
+          ++waited;
+          mbar_wait(rbs + 8 * (waited % G_D), (waited / G_D) & 1);
+        }
+        lim = max(lim, glim[waited % G_D][rl]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&afull[b]));
+      // refill for the next tiles (none after the last)
+      g_handoff(j + 1 < nt ? 0 : DONE, cur, nref, qb, kb, &gcur[rl],
+                &gkind[warp], hf, lane);
+    }
+    // refills still in flight must land before the epilogue reuses memory
+    for (; waited + 2 < nref;) {         // (the last handoff refills none)
+      ++waited;
+      mbar_wait(rbs + 8 * (waited % G_D), (waited / G_D) & 1);
+    }
+    // a row whose split's slots were not all taken held a column out of
+    // order or past d_in
+    fault |= __shfl_xor_sync(0xffffffffu, fault, 16);
+    if (!hf) bad[rl] = fault || cur != hi;
+  } else {
+    // ---- copy for scatter warp mw, and multiply: before tile j's MMAs,
+    // every refill its scatter warp asks for up to the end of tile j
+    const int rl = mw * 16 + li;
+    const int row = r0 + rl;
+    const uint32_t qb = smem_addr(&req[mw]), kb = smem_addr(&ack[mw]);
+    const uint32_t rbs = smem_addr(&rbar[mw][0]);
+    GStream gs;
+    gs.base = nullptr;
+    gs.src = gs.lim = 0;
+    gs.fpos = 0;
+    gs.ring = smem_addr(sm + (hf ? Sm::I + rl * Sm::IS : Sm::V + rl * Sm::VS));
+    int hi = 0, served = 0;
+    // j = -1: the first fill; then before tile j's MMAs every handoff up
+    // to its scatter warp's end of tile j
+    for (int j = -1; j < nt; ++j) {
+      for (;;) {
+        mbar_wait(qb, served & 1);
+        const int kind = gkind[mw];
+        const int c = gcur[rl];
+        if (served == 0) {               // the first: lay out the streams
+          hi = ghi[rl];
+          if (c < hi) {
+            gs.base = hf
+                ? reinterpret_cast<const uint8_t*>(idx + (size_t)row * K)
+                : reinterpret_cast<const uint8_t*>(vals + (size_t)row * K);
+            gs.src = (reinterpret_cast<uintptr_t>(gs.base) +
+                      ((uintptr_t)c << (1 + hf))) & ~uintptr_t(15);
+            gs.lim = (reinterpret_cast<uintptr_t>(gs.base) +
+                      ((uintptr_t)hi << (1 + hf)) + 15) & ~uintptr_t(15);
+          }
+        }
+        if (kind != DONE)                // refill n = served
+          g_refill<RS>(gs, c, rbs + 8 * (served % G_D), lane,
+                       glim[served % G_D] + mw * 16, hi);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kb);
+        ++served;
+        if (j < 0 || kind != URGENT) break;
+      }
+      if (j < 0) continue;
+      const int k0 = (kt0 + j) * NM_BK;
+      const int b = j % G_NA, s = j % S;
+      mbar_wait(smem_addr(&afull[b]), (j / G_NA) & 1);
+      mbar_wait(smem_addr(&full[s]), (j / S) & 1);
+      const uint8_t* at = sm + Sm::A + b * Sm::AB;
+      const uint8_t* xs = sm + s * Sm::XS;
+      const int jn = (min(k0 + NM_BK, d_in) - k0 + 15) / 16;
+      const int q = lane >> 3;
+      const uint8_t* xb = NTL % 2 == 0
+          ? xs + (warp_n * WN + (q >> 1) * 8 + (lane & 7)) * 128
+          : xs + (warp_n * WN + g) * 128 + 4 * tq;
+#pragma unroll 2
+      for (int kk = 0; kk < jn; ++kk) {
+        uint32_t a[MT][4], bfr[NTL][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int ar = warp_m * WM + mt * 16 + (q & 1) * 8 + (lane & 7);
+          ldsm_x4(smem_addr(at + ar * 256 +
+                            (((2 * kk + (q >> 1)) ^ (ar & 7)) << 4)),
+                  a[mt][0], a[mt][1], a[mt][2], a[mt][3]);
+        }
+        const uint8_t* xh = xb + (kk >> 2) * Sm::XH;
+        if constexpr (NTL % 2 == 0) {
+          const int xo = ((2 * (kk & 3) + (q & 1)) ^ (lane & 7)) << 4;
+#pragma unroll
+          for (int n8 = 0; n8 < NTL; n8 += 2)
+            ldsm_x4(smem_addr(xh + n8 * 8 * 128 + xo), bfr[n8][0],
+                    bfr[n8][1], bfr[n8 + 1][0], bfr[n8 + 1][1]);
+        } else {
+          const int xo0 = ((2 * (kk & 3)) ^ g) << 4;
+          const int xo1 = ((2 * (kk & 3) + 1) ^ g) << 4;
+#pragma unroll
+          for (int n8 = 0; n8 < NTL; ++n8) {
+            bfr[n8][0] = ld32(xh + n8 * 8 * 128 + xo0);
+            bfr[n8][1] = ld32(xh + n8 * 8 * 128 + xo1);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n8 = 0; n8 < NTL; ++n8)
+            mma16816(acc[mt][n8], a[mt], bfr[n8]);
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(smem_addr(&aempty[b]));
+        mbar_arrive(smem_addr(&empty[s]));
       }
     }
-    if (kt + 1 < kt1)
-      load_gather(ch, vbits, idx32, cur, rw, lane, d_out, K);
-    __syncthreads();
-    if (warp >= MW) continue;             // decode: 4 of the 8 warps multiply
+  }
+  // the epilogue, through shared memory as nm24's: sums land (token, row),
+  // then rows of y (or the split's scratch) are written contiguously
+  constexpr int NTH = 32 * (G_SW + G_MW);
+  asm volatile("bar.sync 15, %0;\n" :: "n"(NTH) : "memory");
+  constexpr int YS = NM_BM + 4;
+  float* ys = reinterpret_cast<float*>(sm);
+  if (warp >= G_SW)
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      if (k0 + kk >= d_in) break;         // the steps past d_in
-      uint32_t a[MT][4], b[NTL][2];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int rr = warp_m * WM + mt * 16 + g;
-        a[mt][0] = ld32(&Ws[rr][kk + 2 * tq]);
-        a[mt][1] = ld32(&Ws[rr + 8][kk + 2 * tq]);
-        a[mt][2] = ld32(&Ws[rr][kk + 2 * tq + 8]);
-        a[mt][3] = ld32(&Ws[rr + 8][kk + 2 * tq + 8]);
-      }
+      for (int n8 = 0; n8 < NTL; ++n8)
 #pragma unroll
-      for (int nt = 0; nt < NTL; ++nt) {
-        const int tt = warp_n * WN + nt * 8 + g;
-        b[nt][0] = ld32(&Xs[tt][kk + 2 * tq]);
-        b[nt][1] = ld32(&Xs[tt][kk + 2 * tq + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NTL; ++nt) mma16816(acc[mt][nt], a[mt], b[nt]);
+        for (int c = 0; c < 4; ++c)
+          ys[(warp_n * WN + n8 * 8 + 2 * tq + (c & 1)) * YS + warp_m * WM +
+             mt * 16 + g + 8 * (c >> 1)] = acc[mt][n8][c];
+  asm volatile("bar.sync 15, %0;\n" :: "n"(NTH) : "memory");
+  const int rows = min(NM_BM, d_out - r0);
+  const int toks = min(BN, n_tok - t0);
+#pragma unroll 1
+  for (int e = tid; e < toks * NM_BM; e += NTH) {
+    const int tl = e / NM_BM, r = e % NM_BM;
+    if (r >= rows) continue;
+    float v = bad[r] ? __int_as_float(0x7fc00000) : ys[tl * YS + r];
+    const size_t o = (size_t)(t0 + tl) * d_out + r0 + r;
+    if (ws != nullptr) {
+      ws[(size_t)blockIdx.z * n_tok * d_out + o] = v;
+    } else {
+      if (bias != nullptr) v += bias[r0 + r];
+      y[o] = __float2bfloat16_rn(epilogue(v, act));
     }
   }
-  // a slot left after the last column, or one the cursor stopped at
-  // because its column is past d_in, is corrupt
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    if (rw + i >= d_out || cur[i] >= K || lane != 0) continue;
-    const int c = idx32[(size_t)(rw + i) * K + cur[i]];
-    if (kt1 == n_kt || c < 0 || c >= d_in) bad[warp * RPW + i] = 1;
-  }
-  __syncthreads();
-  if (warp >= MW) return;
-  store_tile<MT, NTL>(acc, bad, warp_m * WM, warp_n * WN, r0, t0, lane, bias,
-                      y, ws, n_tok, d_out, act);
 }
 
 // y = epilogue(sum of the splits' fp32 partials, in split order).
@@ -985,16 +1358,26 @@ int launch_nm24(const Plan& p, const void* x, const void* vals,
                        static_cast<__nv_bfloat16*>(y), n_tok, d_out, act, s);
 }
 
-template <int BN, int WM, int WN>
+template <int BN, int WM, int WN, int S, int RS>
 int launch_gather(const Plan& p, const void* x, const void* vals,
                   const void* idx, const void* bias, void* y, void* ws,
                   int n_tok, int d_in, int d_out, int K, int act,
                   cudaStream_t s) {
-  dim3 grid((d_out + G_BM - 1) / G_BM, (n_tok + BN - 1) / BN, p.splits);
+  constexpr int SMEM = GSmem<BN, S, RS>::BYTES + 1024;   // + alignment
+  static bool done[64] = {false};
+  auto* kern = spmm_gather_kernel<BN, WM, WN, S, RS>;
+  if (!allow_smem(kern, SMEM, done)) {
+    const int err = static_cast<int>(cudaGetLastError());
+    return err != 0 ? err : static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tm_x;
+  if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, d_in, n_tok,
+                  2ull * d_in, BN, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((d_out + NM_BM - 1) / NM_BM, (n_tok + BN - 1) / BN, p.splits);
   float* wsf = p.splits > 1 ? static_cast<float*>(ws) : nullptr;
-  spmm_gather_kernel<BN, WM, WN><<<grid, MMA_NTH, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(vals),
+  kern<<<grid, G_THREADS, SMEM, s>>>(
+      tm_x, static_cast<const __nv_bfloat16*>(vals),
       static_cast<const int32_t*>(idx), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(y), wsf, n_tok, d_in, d_out, K, act,
       p.tiles_per_split);
@@ -1039,10 +1422,10 @@ int spmm_run(const void* x, const void* vals, const void* idx,
                                          d_in, d_out, K, act, s);
     }
     if (p.decode)
-      return launch_gather<8, 16, 8>(p, x, vals, idx, bias, y, ws, n_tok,
-                                     d_in, d_out, K, act, s);
-    return launch_gather<128, 32, 32>(p, x, vals, idx, bias, y, ws, n_tok,
-                                      d_in, d_out, K, act, s);
+      return launch_gather<8, 16, 8, 4, 184>(p, x, vals, idx, bias, y, ws,
+                                             n_tok, d_in, d_out, K, act, s);
+    return launch_gather<128, 32, 64, 2, 112>(p, x, vals, idx, bias, y, ws,
+                                              n_tok, d_in, d_out, K, act, s);
   }
   if (bf16) {
     if (kind == 0)

@@ -8,8 +8,11 @@ gives the design and what bounds it. In short, for bf16: in nm24 (2:4)
 a producer warp streams 128-row x 128-column tiles of packed values,
 positions and x by TMA through a ring of 4 shared-memory stages, and 8
 warps build their ``mma.sync`` A fragments in registers from the
-(value, position) pairs — no dense tile in shared memory; gathered
-densifies 64 x 64 tiles in shared memory.
+(value, position) pairs — no dense tile in shared memory; in gathered
+each row's (value, column) slots stream into rings in shared memory by
+bulk copies, each slot read once; 8 scatter warps, two lanes a row, walk
+them into dense A tiles there, which 8 other warps (also the rings'
+copiers) multiply, while a producer warp streams x by TMA.
 Both split d_in by one plan, a function of the shapes (whole 128-column
 tiles; one block per SM; scratch no larger than the nm24 weight), and
 run the same MMA chain per output element, so the two packings of one

@@ -278,6 +278,21 @@ def test_profile_swap_variants_edit_the_kernel_source():
             assert old in src and old != new, name
 
 
+@pytest.mark.parametrize("cuts", ["CUTS", "GATHER_CUTS", "PHASES"])
+def test_profile_spmm_cuts_edit_the_kernel_source(cuts):
+    """Every edit of ``profile_spmm``'s cut-down copies (nm24's and the
+    gathered kernel's) and of its counted copy finds its text in
+    csrc/spmm.cu exactly once, so the copies build from the shipped source
+    and cut or count what they say."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import profile_spmm
+
+    src = (build.CSRC / "spmm.cu").read_text()
+    for name, edits in getattr(profile_spmm, cuts).items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, (name, old)
+
+
 @needs_reference
 def test_kernel_wrappers_reject_bad_input():
     w, m, c, G = map(_t, _swap_problem(1, 4, 64))
@@ -555,6 +570,77 @@ def test_cuda_spmm_matches_plain(cuda, dtype, T, d_out, d_in):
     assert _spmm_ok(got, spmm_mod.spmm_plain(x2, g60))
     torch.cuda.synchronize()
     assert ops.LAUNCHES["spmm"] == 3 * len(spmm_mod.EPILOGUES) + 3 + 1
+
+
+# (id, T, d_out, d_in, mask, offset): the bf16 gathered kernel's edges.
+# "crowded": half the rows keep their first K columns, half their last K
+# (K odd, so value rows are 2-byte aligned; tiles of 128 kept slots
+# overflow the slot rings); "offset": values and columns viewed off a
+# 16-byte boundary (3 bf16 / 1 int32 elements in); d_out not a multiple
+# of 128 everywhere but one case; 32 tiles, more than the x ring's stages
+# and the slot rings' refill depth, at decode and at 128 tokens; split
+# d_in in all but the last case (one split: 133 row blocks at T = 4).
+GATHER_CASES = [
+    ("crowded-oddk-decode", 4, 200, 2048, "crowded", 0),
+    ("crowded-oddk-prefill", 128, 200, 2048, "crowded", 0),
+    ("perrow-oddk-offset", 6, 70, 1208, "perrow", 3),
+    ("full-rows-prefill", 100, 130, 1024, "full", 0),
+    ("many-tiles-offset-decode", 4, 300, 4096, "perrow", 3),
+    ("many-tiles-prefill", 128, 300, 4096, "perrow", 0),
+    ("one-split-decode", 4, 17000, 512, "perrow", 0),
+]
+
+
+def _offset_view(t: torch.Tensor, off: int) -> torch.Tensor:
+    """A contiguous copy of t that starts ``off`` elements into its buffer."""
+    if not off:
+        return t
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    buf[off:].copy_(t.reshape(-1))
+    return buf[off:].view(t.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GATHER_CASES, ids=[c[0] for c in GATHER_CASES])
+def test_cuda_spmm_gather_edges(cuda, case):
+    """The bf16 gathered kernel against spmm_plain (one bf16 ulp or 1e-5
+    of max|y|), one launch a call, on masks and layouts that stress its
+    slot rings; and, where d_in % 16 == 0, the nm24 and gathered packings
+    of one 2:4 mask bitwise equal (the gathered one offset as the case
+    says)."""
+    _, T, d_out, d_in, kind, off = case
+    gen = torch.Generator(device=cuda).manual_seed(T * 7 + d_out + d_in)
+    w = torch.randn(d_out, d_in, generator=gen, device=cuda).to(torch.bfloat16)
+    x = torch.randn(T, d_in, generator=gen, device=cuda).to(torch.bfloat16)
+    bias = torch.randn(d_out, generator=gen, device=cuda)
+    scores = torch.rand(d_out, d_in, generator=gen, device=cuda)
+    if kind == "crowded":
+        k = int(0.4 * d_in) | 1
+        mask = torch.zeros(d_out, d_in, device=cuda)
+        mask[0::2, :k] = 1.0
+        mask[1::2, d_in - k:] = 1.0
+    elif kind == "full":
+        mask = torch.ones(d_out, d_in, device=cuda)
+    else:
+        mask = tmasks.make_mask(scores, tmasks.PerRow(0.6))
+    pw = tpacked.pack(w, mask, "gathered")
+    if "oddk" in case[0]:
+        assert pw.k % 2 == 1
+    pw = tpacked.PackedWeight(_offset_view(pw.values, off),
+                              _offset_view(pw.idx, off), "gathered", d_in)
+    ops.reset_launches()
+    for b, act in ((None, None), (bias, "silu")):
+        got = ops.spmm(x, pw, bias=b, act=act)
+        assert _spmm_ok(got, spmm_mod.spmm_plain(x, pw, b, act)), act
+    assert ops.LAUNCHES["spmm"] == 2
+    if d_in % 16 == 0:
+        m24 = tmasks.make_mask(scores, tmasks.NM(2, 4))
+        ga = tpacked.pack(w, m24, "gathered")
+        ga = tpacked.PackedWeight(_offset_view(ga.values, off),
+                                  _offset_view(ga.idx, off), "gathered", d_in)
+        y_nm = ops.spmm(x, tpacked.pack(w, m24, "nm24"), bias=bias, act="silu")
+        assert torch.equal(y_nm, ops.spmm(x, ga, bias=bias, act="silu"))
+        assert _spmm_ok(y_nm, spmm_mod.spmm_plain(x, ga, bias, "silu"))
 
 
 @pytest.mark.gpu

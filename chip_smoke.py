@@ -32,10 +32,11 @@ and its time:
    plain version, the bound (5 operations per feasible pair at the fp32
    peak) and the issue floor (6 unfused fp32 instructions per feasible
    pair on every SM's 128 lanes at the card's maximum SM clock, read from
-   nvidia-smi). ``swap_argmin`` likewise at (14336, 4096) and (4096,
-   14336), timed at w_down; ``swap_commit`` on ``swap_topk``'s k = 8
-   candidates at (R, d) = (4096, 14336), bitwise, with at least one
-   accept and one reject.
+   nvidia-smi). ``swap_argmin`` likewise at the four shapes, bitwise on
+   every row (value bits, u and p, the (+inf, 0, 0) of rows with no
+   feasible pair included), timed at each beside ``swap_topk``;
+   ``swap_commit`` on ``swap_topk``'s k = 8 candidates at (R, d) = (4096,
+   14336), bitwise, with at least one accept and one reject.
    ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
    4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
    (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
@@ -63,9 +64,11 @@ and its time:
    launches took the bf16 tensor-core path (none the fp32 one), that
    swap_topk ran once per site and pass (7 x 2 x 4 = 56), exact per-row
    sparsity at every site, monotone row losses, a positive mean error
-   reduction over Wanda, finite perplexities.
+   reduction over Wanda, finite perplexities; prints a digest of the
+   masks (to compare runs and commits bit for bit).
 5. second path — on layer 0's w_down with its calibration Gram:
-   ``refine(k_swaps=1, t_max=2)``, so ``swap_argmin`` runs; then
+   ``refine(k_swaps=1, t_max=2)``, so ``swap_argmin`` runs (its wall
+   time and a digest of its masks, swaps and losses printed); then
    ``refine(k_swaps=8, commit_mode="candidates", t_max=4)`` without and
    with ``compact_every=2``, so ``swap_commit`` runs, and the same at an
    ``eps`` that leaves ~70% of the rows without an accepted swap in the
@@ -136,7 +139,7 @@ KERNELS = {
                  "src/repro/kernels/gram.py:22"),
     "swap_topk": ("swap_topk", "src/repro_torch/csrc/swap_topk.cu",
                   "src/repro/kernels/swap_topk.py:78"),
-    "swap_argmin": ("swap_argmin", "src/repro_torch/csrc/swap_argmin.cu",
+    "swap_argmin": ("swap_topk", "src/repro_torch/csrc/swap_topk.cu",
                     "src/repro/kernels/swap_argmin.py:33"),
     "swap_commit": ("swap_commit", "src/repro_torch/csrc/swap_commit.cu",
                     "src/repro/kernels/swap_topk.py:200"),
@@ -149,10 +152,6 @@ PEAK_FP32 = 67e12        # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 T_MAX = 4                # search passes of the main path (k = 8)
-# swap_argmin's checks; swap_topk runs at all four shapes of
-# repro_torch.launch.profile_swap.SHAPES (w_down last: its times go in the
-# kernels line)
-ARGMIN_SHAPES = [(14336, 4096), (4096, 14336)]
 SERVE_TOL = 0.05         # packed vs masked prefill logits, of max|logits|
 SERVE_GEN = 16           # new tokens per request on the serve path
 
@@ -234,6 +233,24 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def digest(tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes, in
+    order: masks, swaps and losses compared bit for bit across runs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mask_leaves(tree):
+    """A mask tree's leaves in key order, as bool tensors."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in mask_leaves(tree[k])]
+    return [tree > 0.5]
+
+
 def by_rows(fn, w, m, c, G, rows: int = 64):
     """A plain swap search over row blocks, so its (rows, d, chunk)
     intermediates fit in device memory."""
@@ -247,7 +264,8 @@ def by_rows(fn, w, m, c, G, rows: int = 64):
 def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
                 clock_mhz: float) -> dict:
     """The swap searches in ``names`` against their plain versions on one
-    problem; bitwise on feasible entries. Times those in ``timed``."""
+    problem: swap_topk bitwise on feasible entries, swap_argmin on every
+    row. Times those in ``timed``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import swap_argmin as argmin_mod
@@ -271,7 +289,14 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
         plain_s = time.perf_counter() - t0
         fin = torch.isfinite(want[0])
         same_inf = torch.equal(torch.isfinite(got[0]), fin)
-        equal = all(torch.equal(g[fin], t[fin]) for g, t in zip(got, want))
+        if name == "swap_argmin":        # every row, the value's bits too
+            equal = (torch.equal(got[0].view(torch.int32),
+                                 want[0].view(torch.int32))
+                     and all(torch.equal(g, t)
+                             for g, t in zip(got[1:], want[1:])))
+        else:
+            equal = all(torch.equal(g[fin], t[fin])
+                        for g, t in zip(got, want))
         in_range = all(bool(((g >= 0) & (g < d)).all()) for g in got[1:])
         err = float((got[0][fin] - want[0][fin]).abs().max()) if fin.any() else 0.0
         log(f"   {name} {tag}: feasible {int(fin.sum())}/{fin.numel()} "
@@ -844,11 +869,11 @@ def main() -> int:
             w, m, c, G = profile_swap.problem(R, d, seed)
             tag = f"R={R} d={d}"
             w_down = (R, d) == profile_swap.SHAPES[-1][:2]
-            names = (("swap_topk", "swap_argmin") if (R, d) in ARGMIN_SHAPES
-                     else ("swap_topk",))
-            res = check_swaps(w, m, c, G, 8, tag, names=names,
-                              timed=names if w_down else ("swap_topk",),
+            names = ("swap_topk", "swap_argmin")
+            res = check_swaps(w, m, c, G, 8, tag, names=names, timed=names,
                               clock_mhz=clock)
+            ratio = res["swap_argmin"]["ms"] / res["swap_topk"]["ms"]
+            log(f"   swap_argmin {tag}: {ratio:.3f}x swap_topk's time")
             if w_down:
                 results.update(res)
                 results["swap_commit"] = check_commit(w, m, c, G, 8, tag)
@@ -893,6 +918,7 @@ def main() -> int:
         log(f"   dense  ppl {dense['perplexity']:.4f} acc {dense['accuracy']:.4f}")
         log(f"   pruned ppl {pruned['perplexity']:.4f} acc {pruned['accuracy']:.4f}")
         log(f"   launches {main_launches}")
+        log(f"   masks digest {digest(mask_leaves(report.masks))}")
         n_gram = 7 * cfg.n_layers * len(batches)
         require(main_launches["gram_xtx_bf16"] == n_gram
                 and main_launches["gram_xtx"] == 0,
@@ -922,13 +948,19 @@ def main() -> int:
         W = params["layers"]["mlp"]["w_down"][0]
         m0 = warmstart_mask(W.float(), G, pattern, "wanda")
         ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with sparseswaps.count_search_passes() as cnt:
             res = sparseswaps.refine(W, G, m0, pattern, k_swaps=1, t_max=2)
+        torch.cuda.synchronize()
+        t_k1 = time.perf_counter() - t0
         argmin_launches = ops.LAUNCHES["swap_argmin"]
         check_refined(W, G, res, pattern, "k=1")
         log(f"   k=1: passes {cnt.passes}, swaps {int(res.swaps.sum())}, "
             f"error reduction {100*float(res.error_reduction.mean()):.3f}%, "
-            f"swap_argmin launches {argmin_launches}")
+            f"swap_argmin launches {argmin_launches}, {t_k1:.3f} s; "
+            f"digest of masks, swaps, losses "
+            f"{digest([res.mask > 0.5, res.swaps, res.loss_final])}")
         require(argmin_launches > 0, "the k=1 path did not launch swap_argmin")
 
         # eps = 0 keeps every row searching through t_max = 4 passes at

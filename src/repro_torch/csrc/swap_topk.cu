@@ -1,13 +1,17 @@
-// Fused k-best swap search: per row, the k best pruned columns p by
-// min_u ΔL[u, p] (each with its argmin u, ties to the lowest u), sorted by
-// (ΔL, p).
+// Fused swap searches over the (u kept, p pruned) pairs of each row, without
+// materializing the (R, d, d) ΔL tensor:
+//   swap_topk_search: the k best pruned columns p by min_u ΔL[u, p] (each
+//     with its argmin u, ties to the lowest u), sorted by (ΔL, p);
+//   swap_argmin_search: the jointly-best (ΔL*, u*, p*), ties to the
+//     smallest (u, p).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/swap_topk.py::_topk_kernel
-// (swap_topk_padded). On the TPU the sequential grid carries per-p running
-// minima in VMEM scratch across u-tiles and folds each finished p-tile into
-// top-k lists held in the output refs. Here the (u, p) space is cut into
-// blocks that run in parallel, and further launches of the same call
-// prepare the Gram and merge the blocks' lists:
+// Replaces the Pallas TPU kernels src/repro/kernels/swap_topk.py::
+// _topk_kernel (swap_topk_padded) and src/repro/kernels/swap_argmin.py::
+// _kernel (swap_argmin_padded). On the TPU the sequential grid carries
+// per-p running minima (top-k) or a running (min, flat index) (argmin) in
+// VMEM across tiles. Here the (u, p) space is cut into blocks that run in
+// parallel; both searches run the same preparation and partial walk, and a
+// last kernel of the same call turns the blocks' lists into the answer:
 //
 // 0. swap_topk_prep_kernel writes 2 G into scratch and flags the call
 //    unsafe if some |g| >= 2^127 or |w| >= 2^63. Where it is safe the walk
@@ -34,9 +38,10 @@
 //    entry, two conflict-free float4 loads of its G row, and per column
 //    four (unsafe: five) rounded operations and one fminf. The running
 //    minimum holds the min value; which u reached it is found later, only
-//    for the k winners. At the end each warp extracts, per row, the k
+//    for the winners. At the end each warp extracts, per row, the k
 //    smallest (min, p) of the tile (a shuffle reduction per rank) into
-//    the scratch list of (row, p-tile), sorted.
+//    the scratch list of (row, p-tile), sorted. swap_argmin's lists hold
+//    ARGMIN_K entries.
 // 2. swap_topk_merge_kernel: one warp per row takes the k smallest
 //    (value, p) of all p-tiles' lists, rank by rank. Top-k under the strict
 //    total order (ΔL, p) with distinct p does not depend on how the
@@ -48,21 +53,45 @@
 //    minimum: the lowest-u argmin, as a strict `<` walk in ascending u
 //    finds it. Its ΔL, recomputed there, is the value written, so a
 //    zero's sign is that of the first u (fminf may keep either zero).
+// 3. swap_argmin_select_kernel (instead of the merge): one warp per row.
+//    v* = the smallest value of all its lists: the row's smallest column
+//    minimum. The columns whose minimum equals v* (`==`, so +0 and -0
+//    tie) are the tied set S. A tile's list is its K smallest (min, p),
+//    so it holds every tied column of the tile unless its last entry is
+//    v* too; then S may be incomplete (overflow). Every pair with
+//    ΔL == v* lies in a column of S, so the smallest such (u, p) is found
+//    by walking the kept u upwards, lanes over u, ΔL at each column of S,
+//    and stopping at the first u with a hit (its smallest hit p). On
+//    overflow (or more than TIE_CAP tied columns) the walk is exact
+//    without S: at each kept u, upwards, lanes scan every p, and the first
+//    hit wins; a fully tied row (w = 0) stops at its first kept u. The
+//    value written is ΔL recomputed at (u*, p*), so a zero's sign is that
+//    pair's. A row whose v* is +inf (no feasible pair) gets (+inf, 0, 0),
+//    as ref.swap_argmin_ref. (u, p) are compared as a pair, never as the
+//    flat index u·d + p of the TPU kernel, which overflows int32 once
+//    d >= 46341 and meets its 2^30 sentinel from d = 32768.
 //
-// Output: vals (R, k) fp32, u and p (R, k) int32, ascending by (ΔL, p).
-// Rows with fewer than k feasible pairs end in +inf entries whose indices
-// are clamped into [0, d-1] like the reference wrapper (ops.py:103). On
-// feasible entries the result equals swap_math.topk_swaps_chunked bit for
-// bit: the rounded operations keep the plain version's order and values,
-// and the library is built with -fmad=false. k <= 32 (one lane per list
-// slot).
+// NaN: a NaN ΔL never wins. fminf keeps the running minimum over a NaN,
+// and the selection's `==` never matches one. (The plain chunked version
+// lets a NaN take its chunk's argmin and then drops the chunk; rows with a
+// NaN ΔL are the only ones where the two may differ.)
+//
+// Outputs. swap_topk: vals (R, k) fp32, u and p (R, k) int32, ascending
+// by (ΔL, p); rows with fewer than k feasible pairs end in +inf entries
+// whose indices are clamped into [0, d-1] like the reference wrapper
+// (ops.py:103). swap_argmin: best (R,) fp32, u and p (R,) int32. On
+// feasible entries both equal the plain versions (swap_math.
+// topk_swaps_chunked, best_swap_chunked) bit for bit: the rounded
+// operations keep the plain version's order and values, and the library
+// is built with -fmad=false. k <= 32 (one lane per list slot).
 //
 // What bounds it on an H100: the ΔL evaluations, issued on 128 fp32 lanes
 // per SM. Of the R·d² pairs only those with u kept and p pruned are
-// feasible (R·0.24·d² at PerRow(0.6)); this kernel evaluates the kept-u
+// feasible (R·0.24·d² at PerRow(0.6)); the walk evaluates the kept-u
 // share (R·0.4·d²) at about 6 instructions a pair (four operations and a
 // min, and an entry and G row load shared by 8 columns). G moves from L2
-// d²·4·R/RB bytes in all; from device memory about once.
+// d²·4·R/RB bytes in all; from device memory about once. The selection
+// evaluates ΔL at the tied columns only until the first hit.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -71,15 +100,11 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "swap_common.cuh"
 
 namespace {
 
-using swapk::BIG;
-using swapk::delta_l;
-using swapk::lex2;
-
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int BIG = 1 << 30;              // index sentinel that loses every tie
 constexpr int UC = 64;                    // u per chunk
 constexpr int UH = UC / 32;               // ...a lane's share
 constexpr int CW = 16;                    // consumer warps
@@ -96,12 +121,28 @@ constexpr int THREADS = (CW + 1) * 32;    // and a producer warp
 constexpr int SMEM = STAGES * STAGE_BYTES + CW * RPW * LIST * 16 + 1024;
 constexpr int MERGE_WARPS = 8;
 constexpr int MERGE_SPAN = 256;           // u compacted at a time
+constexpr int ARGMIN_K = 4;               // swap_argmin's list length
+constexpr int TIE_CAP = 64;               // tied columns a row holds
+constexpr int SEL_U = 4;                  // 32 u each, walked at once
 constexpr float W_SAFE = 0x1p63f;         // |w| below: |w_u w_p| < 2^126
 constexpr float G_SAFE = 0x1p127f;        // |g| below: 2 g is finite
 // flags: what the preparation found
 constexpr int UNSAFE = 1;                 // walk G itself, not 2 G
 constexpr int ASYM = 2;                   // G != Gᵀ somewhere, to the bit
 static_assert(CPL == 8, "lane columns: two float4 groups 128 apart");
+
+// ΔL in the fixed order of swap_math._delta, one rounding per operation:
+// (a_u + b_p) - (2 (w_u w_p)) g
+__device__ __forceinline__ float delta_l(float au, float bp, float wu,
+                                         float wp, float g) {
+  const float inter = __fmul_rn(__fmul_rn(2.0f, __fmul_rn(wu, wp)), g);
+  return __fsub_rn(__fadd_rn(au, bp), inter);
+}
+
+// (v1, i1) < (v2, i2) lexicographically
+__device__ __forceinline__ bool lex2(float v1, int i1, float v2, int i2) {
+  return v1 < v2 || (v1 == v2 && i1 < i2);
+}
 
 // column q of lane `lane` in a tile: 4 lane + q for q < 4, 128 more for the
 // second group
@@ -472,6 +513,147 @@ swap_topk_merge_kernel(const float* __restrict__ part_v,
   }
 }
 
+// swap_argmin's selection (step 3 of the head note): one warp per row of
+// the ARGMIN_K-entry lists of all npt p-tiles.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+swap_argmin_select_kernel(const float* __restrict__ part_v,
+                          const int* __restrict__ part_p,
+                          const float* __restrict__ a,
+                          const float* __restrict__ b,
+                          const float* __restrict__ w,
+                          const float* __restrict__ G, int ldg,
+                          const int* __restrict__ flags,
+                          float* __restrict__ best, int* __restrict__ u_out,
+                          int* __restrict__ p_out, int R, int d, int npt) {
+  __shared__ float4 s_tie[MERGE_WARPS][TIE_CAP];
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
+  if (row >= R) return;  // warp-uniform
+  const int n = npt * ARGMIN_K;
+  const float* pv = part_v + (size_t)row * n;
+  const int* pp = part_p + (size_t)row * n;
+  const size_t rd = (size_t)row * d;
+
+  float vs = INFINITY;  // v*: the lists hold no NaN (fminf drops it)
+  for (int t = lane; t < n; t += 32) vs = fminf(vs, pv[t]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    vs = fminf(vs, __shfl_xor_sync(FULL, vs, off));
+  float bv = INFINITY;  // (+inf, 0, 0) where no pair is feasible
+  int bu = 0, bp = 0;
+
+  if (vs < INFINITY) {  // warp-uniform
+    // S: the tied columns with their b and w; overflow where a tile's
+    // list ends in v* or S outgrows its buffer
+    float4* tie = s_tie[threadIdx.x >> 5];
+    const unsigned below = (1u << lane) - 1u;
+    int ns = 0;
+    bool over = false;
+    for (int t0 = 0; t0 < n; t0 += 32) {
+      const int t = t0 + lane;
+      const bool tied = t < n && pv[t] == vs;
+      over |= tied && t % ARGMIN_K == ARGMIN_K - 1;
+      const unsigned bal = __ballot_sync(FULL, tied);
+      const int at = ns + __popc(bal & below);
+      if (tied && at < TIE_CAP) {
+        const int p = pp[t];
+        tie[at] = make_float4(__int_as_float(p), b[rd + p], w[rd + p], 0.f);
+      }
+      ns += __popc(bal);
+    }
+    over = __any_sync(FULL, over) || ns > TIE_CAP;
+    __syncwarp();
+
+    // the kept u upwards, SEL_U at a time (their loads in flight at
+    // once); at each, ΔL at S's columns (lanes over u) or at every column
+    // (lanes over p, on overflow); the first u with a hit wins with its
+    // smallest hit p
+    const bool sym = (*flags & ASYM) == 0;
+    bool found = false;
+    for (int u0 = 0; u0 < d && !found; u0 += 32 * SEL_U) {
+      float al[SEL_U];
+#pragma unroll
+      for (int h = 0; h < SEL_U; ++h) {
+        const int ul = u0 + 32 * h + lane;
+        al[h] = ul < d ? a[rd + ul] : INFINITY;
+      }
+      if (!over) {
+        float wu[SEL_U], hv[SEL_U];
+        int hp[SEL_U];
+#pragma unroll
+        for (int h = 0; h < SEL_U; ++h) {
+          wu[h] = al[h] < INFINITY ? w[rd + u0 + 32 * h + lane] : 0.f;
+          hp[h] = BIG;
+          hv[h] = 0.f;
+        }
+        for (int j = 0; j < ns; ++j) {
+          const float4 e = tie[j];
+          const int pj = __float_as_int(e.x);
+          float g[SEL_U];
+#pragma unroll
+          for (int h = 0; h < SEL_U; ++h) {
+            const size_t ul = u0 + 32 * h + lane;
+            g[h] = al[h] < INFINITY
+                       ? G[sym ? pj * (size_t)ldg + ul : ul * ldg + pj]
+                       : 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < SEL_U; ++h) {
+            const float dl = delta_l(al[h], e.y, wu[h], e.z, g[h]);
+            if (dl == vs && pj < hp[h]) {
+              hp[h] = pj;
+              hv[h] = dl;
+            }
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < SEL_U; ++h) {
+          const unsigned hit = __ballot_sync(FULL, hp[h] < BIG);
+          if (hit != 0 && !found) {
+            const int f = __ffs(hit) - 1;
+            bu = u0 + 32 * h + f;
+            bp = __shfl_sync(FULL, hp[h], f);
+            bv = __shfl_sync(FULL, hv[h], f);
+            found = true;
+          }
+        }
+        continue;
+      }
+      for (int h = 0; h < SEL_U && !found; ++h) {
+        unsigned keep = __ballot_sync(FULL, al[h] < INFINITY);
+        while (keep != 0 && !found) {
+          const int f = __ffs(keep) - 1;
+          keep &= keep - 1u;
+          const int u = u0 + 32 * h + f;
+          const float au = __shfl_sync(FULL, al[h], f);
+          const float wu = w[rd + u];
+          const float* gu = G + (size_t)u * ldg;
+          for (int p0 = 0; p0 < d; p0 += 32) {
+            const int p = p0 + lane;
+            const float dl = p < d ? delta_l(au, b[rd + p], wu, w[rd + p],
+                                             gu[p])
+                                   : INFINITY;
+            const unsigned hit = __ballot_sync(FULL, dl == vs);
+            if (hit != 0) {
+              const int hl = __ffs(hit) - 1;
+              bu = u;
+              bp = p0 + hl;
+              bv = __shfl_sync(FULL, dl, hl);
+              found = true;
+              break;
+            }
+          }
+        }
+      }
+    }
+  }
+  if (lane == 0) {
+    best[row] = bv;
+    u_out[row] = bu;
+    p_out[row] = bp;
+  }
+}
+
 constexpr int PT = 32;                    // preparation tile edge
 constexpr int PREP_ROWS = 8;              // ...rows of it at a time
 constexpr int PREP_THREADS = 32 * PREP_ROWS;
@@ -583,6 +765,62 @@ int fail_code() {
   return err != 0 ? err : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Where a call's pieces of scratch lie, and the Gram the last kernel reads
+struct Parts {
+  float* part_v;
+  int* part_p;
+  int* flags;
+  const float* g;  // G, or its padded copy
+  int ldg;
+  int npt;
+};
+
+// The preparation and the partial search with lists of k, shared by both
+// searches; returns cudaGetLastError().
+int prep_and_partial(const void* a, const void* b, const void* w,
+                     const void* G, void* scratch, int R, int d, int k,
+                     cudaStream_t st, Parts* out) {
+  static bool ready = false;
+  if (!ready) {
+    if (cudaFuncSetAttribute(swap_topk_partial_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM) != cudaSuccess)
+      return fail_code();
+    ready = true;
+  }
+  const int npt = (d + TP - 1) / TP;
+  const int ld = static_cast<int>(round_up(d, 4));
+  const Scratch lay = layout(R, d, k, G);
+  uint8_t* sc = static_cast<uint8_t*>(scratch);
+  float* g2 = reinterpret_cast<float*>(sc + lay.g2);
+  float* graw = lay.graw ? reinterpret_cast<float*>(sc + lay.graw) : nullptr;
+  Parts q;
+  q.part_v = reinterpret_cast<float*>(sc);
+  q.part_p = reinterpret_cast<int*>(sc + lay.part);
+  q.flags = reinterpret_cast<int*>(sc + lay.flag);
+  q.g = graw ? graw : static_cast<const float*>(G);
+  q.ldg = graw ? ld : d;
+  q.npt = npt;
+  *out = q;
+  if (cudaMemsetAsync(q.flags, 0, sizeof(int), st) != cudaSuccess)
+    return fail_code();
+  swap_topk_prep_kernel<<<PREP_BLOCKS, PREP_THREADS, 0, st>>>(
+      static_cast<const float*>(G), static_cast<const float*>(w), g2, graw,
+      q.flags, R, d, ld);
+  CUtensorMap tm_fold, tm_raw;
+  if (!tensor_map(&tm_fold, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, g2, d, d,
+                  4ull * ld, UC, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&tm_raw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, q.g, d, d,
+                  4ull * q.ldg, UC, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((R + RB - 1) / RB, npt);
+  swap_topk_partial_kernel<<<grid, THREADS, SMEM, st>>>(
+      tm_fold, tm_raw, q.flags, static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(w), q.part_v,
+      q.part_p, R, d, k, npt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -605,48 +843,45 @@ int swap_topk_search(const void* a, const void* b, const void* w,
                      void* scratch, int R, int d, int k, void* stream) {
   if (k < 1 || k > 32 || R < 1 || d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool ready = false;
-  if (!ready) {
-    if (cudaFuncSetAttribute(swap_topk_partial_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM) != cudaSuccess)
-      return fail_code();
-    ready = true;
-  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int npt = (d + TP - 1) / TP;
-  const int ld = static_cast<int>(round_up(d, 4));
-  const Scratch lay = layout(R, d, k, G);
-  uint8_t* sc = static_cast<uint8_t*>(scratch);
-  float* part_v = reinterpret_cast<float*>(sc);
-  int* part_p = reinterpret_cast<int*>(sc + lay.part);
-  int* flags = reinterpret_cast<int*>(sc + lay.flag);
-  float* g2 = reinterpret_cast<float*>(sc + lay.g2);
-  float* graw = lay.graw ? reinterpret_cast<float*>(sc + lay.graw) : nullptr;
-  const float* g = graw ? graw : static_cast<const float*>(G);
-  const int ldg = graw ? ld : d;
-  if (cudaMemsetAsync(flags, 0, sizeof(int), st) != cudaSuccess)
-    return fail_code();
-  swap_topk_prep_kernel<<<PREP_BLOCKS, PREP_THREADS, 0, st>>>(
-      static_cast<const float*>(G), static_cast<const float*>(w), g2, graw,
-      flags, R, d, ld);
-  CUtensorMap tm_fold, tm_raw;
-  if (!tensor_map(&tm_fold, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, g2, d, d,
-                  4ull * ld, UC, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&tm_raw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, g, d, d,
-                  4ull * ldg, UC, CU_TENSOR_MAP_SWIZZLE_NONE))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((R + RB - 1) / RB, npt);
-  swap_topk_partial_kernel<<<grid, THREADS, SMEM, st>>>(
-      tm_fold, tm_raw, flags, static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const float*>(w), part_v,
-      part_p, R, d, k, npt);
+  Parts q;
+  const int err = prep_and_partial(a, b, w, G, scratch, R, d, k, st, &q);
+  if (err != 0) return err;
   swap_topk_merge_kernel<<<(R + MERGE_WARPS - 1) / MERGE_WARPS,
                            MERGE_WARPS * 32, 0, st>>>(
-      part_v, part_p, static_cast<const float*>(a),
-      static_cast<const float*>(b), static_cast<const float*>(w), g, ldg,
-      flags, static_cast<float*>(vals), static_cast<int*>(u), static_cast<int*>(p),
-      R, d, k, npt);
+      q.part_v, q.part_p, static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(w), q.g, q.ldg,
+      q.flags, static_cast<float*>(vals), static_cast<int*>(u),
+      static_cast<int*>(p), R, d, k, q.npt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of device scratch swap_argmin_search needs: as swap_topk's with
+// lists of ARGMIN_K.
+size_t swap_argmin_scratch_bytes(int R, int d, const void* G) {
+  if (R < 1 || d < 1) return 0;
+  return layout(R, d, ARGMIN_K, G).total;
+}
+
+// a, b, w, G as swap_topk_search. best: (R,) fp32; u, p: (R,) int32;
+// scratch: swap_argmin_scratch_bytes(R, d, G) bytes, 256-byte aligned.
+// Launches the preparation, the partial search and the selection on the
+// stream; returns cudaGetLastError().
+int swap_argmin_search(const void* a, const void* b, const void* w,
+                       const void* G, void* best, void* u, void* p,
+                       void* scratch, int R, int d, void* stream) {
+  if (R < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Parts q;
+  const int err = prep_and_partial(a, b, w, G, scratch, R, d, ARGMIN_K, st,
+                                   &q);
+  if (err != 0) return err;
+  swap_argmin_select_kernel<<<(R + MERGE_WARPS - 1) / MERGE_WARPS,
+                              MERGE_WARPS * 32, 0, st>>>(
+      q.part_v, q.part_p, static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(w), q.g, q.ldg,
+      q.flags, static_cast<float*>(best), static_cast<int*>(u),
+      static_cast<int*>(p), R, d, q.npt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,7 +32,7 @@ _REPORT = ("-Xptxas", "-v")
 # versions do (the Gram has always been built alongside them with it).
 # spmm allows contraction.
 _EXTRA = {"gram": ("-fmad=false",), "swap_topk": ("-fmad=false",),
-          "swap_argmin": ("-fmad=false",), "swap_commit": ("-fmad=false",)}
+          "swap_commit": ("-fmad=false",)}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

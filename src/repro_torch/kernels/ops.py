@@ -14,8 +14,9 @@ call that launched. The Gram counts its two input paths apart:
 ``gram_xtx`` (fp32, CUDA cores) and ``gram_xtx_bf16`` (tensor cores). An
 spmm call that splits d_in runs two CUDA kernels
 (the product and the ordered sum of its fp32 partials) and counts one;
-so does a swap_topk call (the p-tiles' search and the merge of their
-lists).
+so does a swap_topk call (the Gram's preparation, the p-tiles' search and
+the merge of their lists) and a swap_argmin call (the same preparation and
+search, then the selection of the best pair).
 """
 from __future__ import annotations
 
@@ -73,7 +74,9 @@ def _swap_inputs(w, m, c, G):
 def swap_argmin(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
                 G: torch.Tensor):
     """Jointly-best 1-swap per row: (ΔL*, u*, p*) each (R,); ties to the
-    smallest flat index u·d + p. Indices are int64."""
+    smallest flat index u·d + p; (+inf, 0, 0) where no pair is feasible.
+    On the card bitwise equal to the plain version, except that a NaN ΔL
+    never wins there (``csrc/swap_topk.cu``). Indices are int64."""
     _check_swap_shapes(w, m, c, G)
     if not _on_cuda(w, m, c, G):
         return argmin_mod.swap_argmin_plain(w, m, c, G)

@@ -1,5 +1,5 @@
-"""Time of the k-best swap search (``ops.swap_topk``) at the main path's
-shapes, on the card.
+"""Time of the swap searches (``ops.swap_topk`` and ``ops.swap_argmin``)
+at the main path's shapes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_swap [--variants a,b]
 
@@ -7,20 +7,21 @@ For each (R, d) of llama31-8b's pruning sites — (1024, 4096) wk / wv,
 (4096, 4096) wq / wo, (14336, 4096) w_gate / w_up, (4096, 14336) w_down —
 it builds the problem ``chip_smoke.py`` phase 3 checks (rows ~ N(0, 1/d),
 a Wanda PerRow(0.6) mask over a correlated Gram, the same seeds) and
-prints, at k = 8: the feasible pairs (kept u x pruned p, summed over
-rows); the time of one ``ops.swap_topk`` call by CUDA events over 3 calls
-(the wrapper's host work included, as phase 3 times it); the device time
-of each CUDA kernel the calls launched, by torch.profiler, per call; the
+prints the feasible pairs (kept u x pruned p, summed over rows), the
 bound (5 operations per feasible pair at the 67 TFLOP/s fp32 peak) and
 the issue floor (6 unfused fp32 instructions per feasible pair on every
-SM's 128 lanes at the card's maximum SM clock, from nvidia-smi). It runs
-as it is inside a ``git archive`` of an earlier commit's tree, so two
-kernels can be timed in one call, in turns.
+SM's 128 lanes at the card's maximum SM clock, from nvidia-smi); then,
+for ``swap_topk`` at k = 8 and for ``swap_argmin``, the time of one call
+by CUDA events over 3 calls (the wrapper's host work included, as phase
+3 times it) and the device time of each CUDA kernel the calls launched,
+by torch.profiler, per call. It runs as it is inside a ``git archive`` of
+an earlier commit's tree, so two versions can be timed in one call, in
+turns.
 
 ``--variants a,b+c`` also builds copies of ``csrc/swap_topk.cu`` with the
 edits of ``VARIANTS`` (``+`` joins several in one copy) and, at each
-shape, checks each copy's output against the shipped kernel's bit for
-bit and prints its kernels' device time.
+shape, checks each copy's ``swap_topk`` output against the shipped
+kernel's bit for bit and prints its kernels' device time.
 """
 from __future__ import annotations
 
@@ -102,7 +103,7 @@ def kernel_device_ms(fn, reps: int) -> dict[str, float]:
         torch.cuda.synchronize()
     per: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "swap_topk" in e.name:
+        if e.device_type == DeviceType.CUDA and "swap_" in e.name:
             name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
             per[name] = per.get(name, 0.0) + e.time_range.elapsed_us()
     return {name: us / 1e3 / reps for name, us in per.items()}
@@ -193,27 +194,18 @@ def profile_swap(variants=()):
         w, m, c, G = problem(R, d, seed)
         pairs = float(((m > 0.5).sum(1).double()
                        * (m < 0.5).sum(1).double()).sum())
-        run = lambda: ops.swap_topk(w, m, c, G, k=K)
-        run()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(REPS):
-            run()
-        end.record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / REPS
-        ms = start.elapsed_time(end) / REPS
-        dev = kernel_device_ms(run, REPS)
         bound = 1e3 * 5.0 * pairs / PEAK_FP32
         floor = 1e3 * 6.0 * pairs / (sms * 128 * clock * 1e6)
-        yield (
-            f"R={R} d={d}: feasible pairs {pairs:.4e}; swap_topk {ms:.3f} ms "
-            f"(events; host {1e3 * wall:.3f} ms), device ms per call: "
-            f"{_kernels(dev)}; bound {bound:.3f} ms, issue floor "
-            f"{floor:.3f} ms")
+        yield (f"R={R} d={d}: feasible pairs {pairs:.4e}; bound "
+               f"{bound:.3f} ms, issue floor {floor:.3f} ms")
+        run = lambda: ops.swap_topk(w, m, c, G, k=K)
+        times = {}
+        for name, fn in (("swap_topk", run),
+                         ("swap_argmin", lambda: ops.swap_argmin(w, m, c, G))):
+            ms, wall = times[name] = _events_ms(fn)
+            yield (f"  {name}: {ms:.3f} ms (events; host {wall:.3f} ms; "
+                   f"{ms / times['swap_topk'][0]:.3f}x swap_topk's), device "
+                   f"ms per call: {_kernels(kernel_device_ms(fn, REPS))}")
         vals, u, p = run()
         want = (vals, u.int(), p.int())
         for name, lib in libs.items():
@@ -225,6 +217,23 @@ def profile_swap(variants=()):
                    f"{_kernels(kernel_device_ms(vrun, REPS))}")
         del w, m, c, G
         torch.cuda.empty_cache()
+
+
+def _events_ms(fn) -> tuple[float, float]:
+    """ms per call of ``fn()`` over REPS calls after one: by CUDA events,
+    and by the host's clock to the end of the last."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / REPS,
+            1e3 * (time.perf_counter() - t0) / REPS)
 
 
 def _kernels(dev: dict[str, float]) -> str:

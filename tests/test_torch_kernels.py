@@ -266,6 +266,135 @@ def test_swap_topk_merge_of_disjoint_p_ranges():
         assert torch.equal(got, ref_)
 
 
+def _argmin_consts():
+    """(list length, p-tile width) of swap_argmin's partial search, read
+    from csrc/swap_topk.cu so the model below follows the kernel."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "swap_topk.cu").read_text()
+    k = re.search(r"constexpr int ARGMIN_K = (\d+);", src)
+    tp = re.search(r"constexpr int TP = (\d+);", src)
+    return int(k.group(1)), int(tp.group(1))
+
+
+# (id, R, d, k, kind): swap_argmin's own edges beside TOPK_CASES. Rows of
+# zero weights (every feasible ΔL is ±0), 8 identical columns of one late
+# p-tile that win every row (more tied columns than a tile's list holds;
+# odd rows keep no u below 300), rows with no feasible pair, and d below
+# the list length. k is unused.
+ARGMIN_CASES = [
+    ("all-tied-8x600", 8, 600, None, "all_tied"),
+    ("many-tied-late-8x600", 8, 600, None, "many_tied"),
+    ("infeasible-8x600", 8, 600, None, "infeasible"),
+    ("small-d-6x3", 6, 3, None, "small_d"),
+]
+
+
+def _argmin_problem(R, d, kind, device):
+    """(w, m, c, G) for one ARGMIN_CASES entry, from numpy seeds."""
+    rng = np.random.default_rng(R * 7919 + d + 1)
+    X = rng.normal(size=(d, 96)).astype(np.float32)
+    group = np.arange(520, 528) if kind == "many_tied" else []
+    if kind == "many_tied":
+        X[group] = X[group[0]]                 # identical features
+    G = X @ X.T + np.float32(0.1) * np.eye(d, dtype=np.float32)
+    w = rng.normal(size=(R, d)).astype(np.float32)
+    m = (rng.random((R, d)) < 0.5).astype(np.float32)
+    if kind == "all_tied":
+        w[0] = 0.0
+        w[5] = np.where(rng.random(d) < 0.5, 0.0, -0.0)
+    if kind == "many_tied":
+        w[:, group] = np.float32(4.0) * np.sign(w[:, group[:1]])
+        m[:, group] = 0.0
+        m[1::2, :300] = 0.0
+    if kind == "infeasible":
+        m[1] = 1.0                             # nothing pruned
+        m[4] = 0.0                             # nothing kept
+    wt, Gt = torch.from_numpy(w).to(device), torch.from_numpy(G).to(device)
+    mt = torch.from_numpy(m).to(device)
+    return wt, mt, sm.correlation_vector(wt, mt, Gt), Gt
+
+
+def _argmin_select_model(w, m, c, G, *, k, tile):
+    """swap_argmin's selection in plain torch, on the dense ΔL with NaN as
+    +inf (a NaN never wins): per p-tile the k smallest (column minimum, p);
+    v* the smallest of them; then each tied column's lowest u and the
+    smallest (u, p) of those, or, where a tile's list ends in v* (it may
+    hold fewer tied columns than the tile has), the scan of every column
+    at each kept u upwards. Returns (best, u, p, paths), paths[r] one of
+    "none" (no feasible pair: (+inf, 0, 0)), ("ties", |S|) or "scan"."""
+    R, d = w.shape
+    dl = sm.delta_matrix(w, m, c, G)
+    dl = torch.where(torch.isnan(dl), torch.inf, dl)
+    colmin = dl.min(dim=1).values
+    best = torch.full((R,), torch.inf)
+    us = torch.zeros(R, dtype=torch.int64)
+    ps = torch.zeros(R, dtype=torch.int64)
+    paths = []
+    for r in range(R):
+        lists = []
+        for lo in range(0, d, tile):
+            v = colmin[r, lo:lo + tile]
+            idx = sm._k_smallest(v[None], min(k, v.numel()))[0]
+            lists.append((v[idx], idx + lo))
+        vs = min(float(v.min()) for v, _ in lists)
+        if not vs < float("inf"):
+            paths.append("none")
+            continue
+        if any(len(v) == k and float(v[-1]) == vs for v, _ in lists):
+            u = next(u for u in (m[r] > 0.5).nonzero().flatten().tolist()
+                     if bool((dl[r, u] == vs).any()))
+            p = int((dl[r, u] == vs).nonzero()[0, 0])
+            paths.append("scan")
+        else:
+            tied = torch.cat([p[v == vs] for v, p in lists]).tolist()
+            u, p = min((int((dl[r, :, q] == vs).nonzero()[0, 0]), q)
+                       for q in tied)
+            paths.append(("ties", len(tied)))
+        best[r], us[r], ps[r] = dl[r, u, p], u, p
+    return best, us, ps, paths
+
+
+@needs_reference
+@pytest.mark.parametrize("kind", ["ties", "all_tied", "many_tied",
+                                  "infeasible"])
+def test_swap_argmin_selection_from_topk_lists(kind):
+    """The premise of swap_argmin's selection kernel: from top-k lists of
+    256-column p-tiles, the smallest value, the tied columns' lowest u (or
+    the scan where a list may hold too few tied columns) give the
+    smallest-(u, p) argmin, equal to the plain version (value bits too)
+    and to the reference kernel (indices; values to fp32 rounding)."""
+    if kind == "ties":
+        w, m, c, G = _topk_problem(16, 384, "ties", "cpu")
+    else:
+        w, m, c, G = _argmin_problem(8, 600, kind, "cpu")
+    k, tile = _argmin_consts()
+    best, u, p, paths = _argmin_select_model(w, m, c, G, k=k, tile=tile)
+    want = argmin_mod.swap_argmin_plain(w, m, c, G)
+    assert torch.equal(best.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(u, want[1]) and torch.equal(p, want[2])
+    jv, ju, jp = (np.asarray(x) for x in jops.swap_argmin(
+        *(jnp.asarray(x.numpy()) for x in (w, m, c, G)), interpret=True))
+    assert np.array_equal(u.numpy(), ju) and np.array_equal(p.numpy(), jp)
+    np.testing.assert_allclose(best.numpy(), jv, rtol=1e-5,
+                               atol=1e-5 * _scale(jv))
+    # each problem takes the path it is built for
+    ties = [x[1] for x in paths if isinstance(x, tuple)]
+    if kind == "ties":
+        assert paths[0] == "scan" and max(ties) >= 2
+    if kind == "all_tied":
+        assert paths[0] == paths[5] == "scan" and best[0] == 0 == best[5]
+    if kind == "many_tied":
+        assert paths == ["scan"] * 8 and bool((p >= 512).all())
+        assert bool((u[1::2] >= 300).all())
+    if kind == "infeasible":
+        assert paths[1] == paths[4] == "none"
+        assert [best[1].item(), u[1].item(), p[1].item()] == [np.inf, 0, 0]
+    assert ops.LAUNCHES["swap_argmin"] == 0
+
+
 def test_profile_swap_variants_edit_the_kernel_source():
     """Every edit of ``profile_swap.VARIANTS`` finds its text in
     csrc/swap_topk.cu, so the variants build from the shipped source."""
@@ -453,6 +582,46 @@ def test_cuda_swap_topk_edges(cuda, case):
     assert torch.equal(got[0][fin].view(torch.int32), at[fin].view(torch.int32))
     if mask == "short":
         assert int(fin[0].sum()) == 5 and not fin[1].any() and not fin[2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES + ARGMIN_CASES,
+                         ids=[c[0] for c in TOPK_CASES + ARGMIN_CASES])
+def test_cuda_swap_argmin_edges(cuda, case):
+    """swap_argmin on the card against swap_argmin_plain, every row bitwise
+    (value bits, u and p; (+inf, 0, 0) where no pair is feasible), one
+    launch; each finite value is ΔL at its own (u, p) to the bit. Rows
+    with a NaN ΔL (huge-w: a column's b is inf - inf) are held against the
+    dense ΔL with NaN as +inf instead: the plain chunked version lets a NaN
+    take its chunk's argmin and then drops the chunk, while in the kernel a
+    NaN never wins."""
+    _, R, d, _, mask = case
+    make = _argmin_problem if case in ARGMIN_CASES else _topk_problem
+    w, m, c, G = make(R, d, mask, cuda)
+    ops.reset_launches()
+    got = ops.swap_argmin(w, m, c, G)
+    assert ops.LAUNCHES["swap_argmin"] == 1
+    want = argmin_mod.swap_argmin_plain(w, m, c, G)
+    dl = sm.delta_matrix(w, m, c, G)
+    nan = torch.isnan(dl).flatten(1).any(1)
+    if nan.any():
+        flat = torch.where(torch.isnan(dl), torch.inf, dl).flatten(1)
+        idx = flat.argmin(dim=1)
+        dense = (flat.gather(1, idx[:, None])[:, 0], idx // d, idx % d)
+        want = tuple(torch.where(nan, x, y) for x, y in zip(dense, want))
+    del dl
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    fin = torch.isfinite(got[0])
+    assert bool((got[1][~fin] == 0).all() and (got[2][~fin] == 0).all())
+    a, b = sm.swap_scores(w, m, c, torch.diagonal(G))
+    u, p = got[1][:, None], got[2][:, None]
+    at = sm._delta(a.gather(1, u), b.gather(1, p), w.gather(1, u),
+                   w.gather(1, p), G[u, p])[:, 0]
+    assert torch.equal(got[0][fin].view(torch.int32),
+                       at[fin].view(torch.int32))
+    if mask == "infeasible":
+        assert not fin[1] and not fin[4]
 
 
 @pytest.mark.gpu

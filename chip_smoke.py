@@ -35,8 +35,17 @@ and its time:
    nvidia-smi). ``swap_argmin`` likewise at the four shapes, bitwise on
    every row (value bits, u and p, the (+inf, 0, 0) of rows with no
    feasible pair included), timed at each beside ``swap_topk``;
-   ``swap_commit`` on ``swap_topk``'s k = 8 candidates at (R, d) = (4096,
-   14336), bitwise, with at least one accept and one reject.
+   ``swap_commit`` on ``swap_topk``'s k = 8 candidates at the same four
+   shapes: its decisions kernel bitwise against the sub-Gram gather +
+   ``commit_decisions`` and its apply kernel against ``apply_commits``'
+   flips and Eq. 6 update, with accepts and rejects; each kernel's device
+   time beside its bytes bound (the decisions' scattered reads counted as
+   32-byte sectors; the apply's c and m read and written plus two Gram
+   rows per candidate it reads in full), the launches per call, and the
+   device time and launches of the whole step after the search as
+   ``profile_swap --commit`` times it (two commit kernels, no gather);
+   the apply's column reads (an asymmetric G's path) forced on the same
+   G, bitwise equal to its row reads, and their time.
    ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
    4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
    (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
@@ -73,7 +82,8 @@ and its time:
    with ``compact_every=2``, so ``swap_commit`` runs, and the same at an
    ``eps`` that leaves ~70% of the rows without an accepted swap in the
    first pass, without and with ``compact_every=1``, so later passes run
-   on a gathered working set. Asserts the kernels launched
+   on a gathered working set (each run's wall time and a digest of its
+   masks, swaps and losses printed). Asserts the kernels launched
    (``swap_commit`` once per search pass), monotone losses, exact
    sparsity, tracked losses within 1e-3 of loss_init of recomputed ones,
    masks, swaps and losses bitwise equal with and without compaction, no
@@ -324,49 +334,104 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
     return out
 
 
-def check_commit(w, m, c, G, k: int, tag: str) -> dict:
-    """swap_commit against its plain version on swap_topk's candidates,
-    bitwise; times and the bytes bound."""
+def bitwise(a, b) -> bool:
+    """Equal bit for bit (fp32 compared as int32, so NaNs too)."""
     import torch
-    from repro_torch.core import swap_math as sm
+
+    view = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return a.shape == b.shape and torch.equal(view(a), view(b))
+
+
+def check_commit(w, m, c, G, k: int, tag: str) -> dict:
+    """The commit kernels on swap_topk's candidates against their plain
+    versions, bitwise: the decisions (sub-Gram gather + commit_decisions)
+    and the apply (apply_commits' flips and Eq. 6). Each kernel's device
+    time, bytes bound and share of it; the device time and launches of the
+    whole step after the search (``profile_swap.commit_split``, as it
+    times a parent tree), which must hold the two kernels once each and
+    no gather or index kernel."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import swap_topk as topk_mod
+    from repro_torch.launch import profile_swap
 
-    dl, u, p = ops.swap_topk(w, m, c, G, k=k)
-    valid = torch.isfinite(dl).float()
-    stats = sm.gather_candidate_stats(w, c, G, u, p)
-    u32, p32 = u.int(), p.int()       # the search kernel's index dtype
-    run = lambda: ops.swap_commit(*stats, u32, p32, valid, eps=0.0, k=k)
-    plain = lambda: topk_mod.swap_commit_plain(*stats, u, p, valid, eps=0.0,
-                                               k=k)
-    acc, dls = run()
-    want_acc, want_dl = plain()
-    equal = torch.equal(acc, want_acc) and torch.equal(dls, want_dl)
-    err = float((dls - want_dl).abs().max())
+    R, d = w.shape
+    dl, u, p = ops._swap_topk(w, m, c, G, k=k)     # int32, as the step uses
+    gram = ops.gram_facts(G)
+    run = lambda: ops.swap_commit(w, m, c, G, dl, u, p, gram=gram)
+    decide = lambda: topk_mod.swap_commit_decide_plain(w, c, G, dl, u, p,
+                                                       eps=0.0)
+    m2, c2, acc, dls = run()
+    want_acc, want_dls = decide()
+    want_m, want_c = topk_mod.swap_commit_apply_plain(w, m, c, G, acc, u, p)
+    eq_decide = bitwise(acc, want_acc) and bitwise(dls, want_dls)
+    eq_apply = bitwise(m2, want_m) and bitwise(c2, want_c)
+    err = float((c2 - want_c).abs().max())
+    n_valid = int(torch.isfinite(dl).sum())
     n_acc = int(acc.sum())
-    n_rej = int(valid.sum()) - n_acc
-    log(f"   swap_commit {tag} k={k}: bitwise-equal={equal} "
-        f"max_abs_err={err} accepted {n_acc}, rejected {n_rej} of "
-        f"{int(valid.sum())} valid candidates ({acc.numel()} slots)")
-    require(equal, f"swap_commit {tag} disagrees with its plain version")
-    require(n_acc > 0 and n_rej > 0,
+    log(f"   swap_commit {tag} k={k}: decisions bitwise-equal={eq_decide}, "
+        f"apply bitwise-equal={eq_apply}, max_abs_err {err}; accepted "
+        f"{n_acc}, rejected {n_valid - n_acc} of {n_valid} valid "
+        f"candidates ({acc.numel()} slots); G symmetric={gram.symmetric} "
+        f"max|G|={gram.amax:.6g}")
+    require(eq_decide and eq_apply,
+            f"swap_commit {tag} disagrees with its plain versions")
+    require(0 < n_acc < n_valid,
             f"swap_commit {tag}: want accepts and rejects in the batch")
-    ms = kernel_ms(run, "swap_commit_kernel", reps=50)
-    wrapper_ms = cuda_ms(run, reps=50, warmup=3)
-    plain_ms = cuda_ms(plain, reps=10)
-    R = w.shape[0]
-    # three (R, k, k) fp32 cubes and seven (R, k) inputs read, two written
-    nbytes = 4.0 * (3 * R * k * k + 7 * R * k + 2 * R * k)
-    flops = 16.0 * R * k * k              # k steps of k-wide updates
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"   swap_commit {tag}: kernel {ms:.4f} ms (profiler; "
-        f"{wrapper_ms:.4f} ms per ops.swap_commit call by CUDA events), "
-        f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}, "
-        f"{nbytes / 1e6:.2f} MB; kernel at {100 * b_ms / ms:.1f}% of the "
-        f"bound)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"{tag} k={k}"}
+    # the apply reads both Gram rows of every candidate it cannot skip
+    wu, wp = w.gather(1, u.long()), w.gather(1, p.long())
+    n_full = int(((acc != 0)
+                  | ~((wu.abs() + wp.abs()) * gram.amax <= 1e38)).sum())
+    dec_ms = kernel_ms(run, "swap_commit_decide_kernel", reps=20)
+    app_ms = kernel_ms(run, "swap_commit_apply_kernel", reps=20)
+    plain_ms = cuda_ms(lambda: topk_mod.swap_commit_apply_plain(
+        w, m, c, G, decide()[0], u, p), reps=3)
+    # decisions: each scattered read of G, w or c costs its 32-byte sector
+    dec_bytes = 32.0 * (3 * R * k * k + 4 * R * k) + 4.0 * 5 * R * k
+    dec_b, dec_by = bound(16.0 * R * k * k, dec_bytes)
+    # apply: c and m read and written, two Gram rows per full candidate
+    app_bytes = 16.0 * R * d + 8.0 * d * n_full + 4.0 * 3 * R * k
+    app_b, app_by = bound(5.0 * d * n_full, app_bytes)
+    # the column reads an asymmetric G takes, forced on this G: the same
+    # bits as the row reads
+    cols = ops.GramFacts(False, gram.amax)
+    run_cols = lambda: ops.swap_commit(w, m, c, G, dl, u, p, gram=cols)
+    eq_cols = all(bitwise(x, y) for x, y in zip(run_cols(), (m2, c2, acc,
+                                                             dls)))
+    cols_ms = kernel_ms(run_cols, "swap_commit_apply_kernel", reps=3)
+    log(f"   swap_commit {tag}: apply by Gram columns (forced) "
+        f"{cols_ms:.4f} ms (device), bitwise equal to the row reads: "
+        f"{eq_cols}")
+    require(eq_cols, f"swap_commit {tag}: column and row reads disagree")
+    before = ops.LAUNCHES["swap_commit"]
+    run()
+    launches = ops.LAUNCHES["swap_commit"] - before
+    split, _ = profile_swap.commit_split(w, m, c, G)
+    step_ms = sum(ms for _, ms in split.values())
+    step_n = sum(n for n, _ in split.values())
+    kinds = {profile_swap._kind(name) for _, name in split}
+    log(f"   swap_commit {tag}: decisions {dec_ms:.4f} ms (device), bound "
+        f"{dec_b:.5f} ms ({dec_by}, {dec_bytes / 1e6:.2f} MB counted in "
+        f"32-byte sectors; {100 * dec_b / dec_ms:.1f}% of it); apply "
+        f"{app_ms:.4f} ms, bound {app_b:.5f} ms ({app_by}, "
+        f"{app_bytes / 1e6:.1f} MB: {n_full} of {acc.numel()} candidates "
+        f"read in full, {2 * n_full} Gram rows; "
+        f"{100 * app_b / app_ms:.1f}% of it); plain decisions + apply "
+        f"{plain_ms:.3f} ms (events); {launches} swap_commit launch count per "
+        f"call (two CUDA kernels)")
+    log(f"   swap_commit {tag}: the step after the search "
+        f"{step_ms:.4f} ms device, {step_n:g} launches per call: " + ", ".join(
+            f"{ph} {name} {ms:.4f} ms / {n:g}"
+            for (ph, name), (n, ms) in sorted(split.items(),
+                                              key=lambda x: -x[1][1])))
+    require(split.get(("decisions", "swap_commit_decide_kernel"), [0])[0] == 1
+            and split.get(("apply", "swap_commit_apply_kernel"), [0])[0] == 1
+            and "gathers" not in kinds,
+            f"swap_commit {tag}: the step after the search did not run as "
+            f"the two commit kernels without gathers: {sorted(split)}")
+    return {"max_abs_err": err, "ms": dec_ms + app_ms, "plain_ms": plain_ms,
+            "bound_ms": dec_b + app_b, "bound_by": app_by,
+            "library_ms": None, "shape": f"{tag} k={k}"}
 
 
 def check_refined(W, G, res, pattern, tag: str) -> None:
@@ -874,9 +939,10 @@ def main() -> int:
                               clock_mhz=clock)
             ratio = res["swap_argmin"]["ms"] / res["swap_topk"]["ms"]
             log(f"   swap_argmin {tag}: {ratio:.3f}x swap_topk's time")
+            commit = check_commit(w, m, c, G, 8, tag)
             if w_down:
                 results.update(res)
-                results["swap_commit"] = check_commit(w, m, c, G, 8, tag)
+                results["swap_commit"] = commit
             del w, m, c, G
         spmm_res = check_spmm(14336, 4096, "silu", "w_gate")
         spmm_res.update({(T, f"{fmt} w_down"): r for (T, fmt), r in
@@ -974,6 +1040,7 @@ def main() -> int:
         eps_fix = float(-torch.quantile(best, 0.3))
         del c0, best
         require(eps_fix > 0, "the rows' best first-pass swaps do not improve")
+        log(f"   the calibration Gram's {ops.gram_facts(G)}")
         runs = {}
         commit_launches = 0
         for eps, every in ((0.0, 0), (0.0, 2), (eps_fix, 0), (eps_fix, 1)):
@@ -992,8 +1059,9 @@ def main() -> int:
             log(f"   {tag}: passes {cnt.passes}, rows scored "
                 f"{cnt.rows_scored}, swaps {int(r.swaps.sum())}, error "
                 f"reduction {100*float(r.error_reduction.mean()):.3f}%, "
-                f"{runs[eps, every][2]:.2f} s, launches "
-                f"{runs[eps, every][3]}")
+                f"{runs[eps, every][2]:.3f} s, launches "
+                f"{runs[eps, every][3]}; digest of masks, swaps, losses "
+                f"{digest([r.mask > 0.5, r.swaps, r.loss_final])}")
             require(runs[eps, every][3]["swap_commit"] == cnt.passes > 0,
                     "swap_commit did not launch once per search pass")
             commit_launches += runs[eps, every][3]["swap_commit"]

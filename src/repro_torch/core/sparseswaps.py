@@ -20,8 +20,9 @@ best candidates per row and a greedy exact commit applies them:
   columns each re-pair their u against the updated state
   (``swap_math.commit_swaps_columns``);
 * unstructured, ``commit_mode="candidates"`` on the ``kernel`` backend:
-  ``ops.swap_topk_commit``, whose greedy decisions run in the CUDA commit
-  kernel (``csrc/swap_commit.cu``);
+  ``ops.swap_topk_commit``, whose decisions and apply run in the two CUDA
+  commit kernels (``csrc/swap_commit.cu``; what they need to know of G is
+  taken once per refinement);
 * otherwise (N:M, or ``"candidates"`` on dense/chunked): the O(R·k²)
   candidate-space commit ``swap_math.commit_swaps``.
 
@@ -159,14 +160,26 @@ def _topk_swaps(method: str, block: int | None, chunk: int, k: int,
     return sm.topk_swaps_chunked(w, m, c, G, k=k, chunk=chunk)
 
 
+def _commit_gram(G, *, method, block, k_swaps, commit_mode):
+    """G's ``ops.GramFacts`` where the kernel's candidate commit will run
+    (taken once per refinement, not per pass), else None."""
+    if k_swaps == 1 or block is not None or commit_mode != "candidates" \
+            or method != "kernel":
+        return None
+    from repro_torch.kernels import ops
+
+    return ops.gram_facts(G)
+
+
 def _swap_step(w, m, c, loss, swaps, G, *, eps, method, block, chunk,
-               k_swaps, commit_mode: str = "columns"):
+               k_swaps, commit_mode: str = "columns", gram=None):
     """One search pass + commit. Returns (m, c, loss, swaps, row_accepted).
 
     ``k_swaps == 1`` keeps the argmin + ``apply_swap`` path; ``k_swaps > 1``
     runs one top-k search, then the column-rescored commit (unstructured,
     ``"columns"``), the kernel's candidate commit (unstructured,
-    ``"candidates"`` on ``kernel``) or the candidate-space commit.
+    ``"candidates"`` on ``kernel``; ``gram`` from ``_commit_gram``) or the
+    candidate-space commit.
     """
     if k_swaps == 1:
         dl, u, p = _best_swap(method, block, chunk, w, m, c, G)
@@ -179,7 +192,8 @@ def _swap_step(w, m, c, loss, swaps, G, *, eps, method, block, chunk,
     elif method == "kernel" and block is None:
         from repro_torch.kernels import ops
 
-        m, c, dsum, nacc = ops.swap_topk_commit(w, m, c, G, k=k_swaps, eps=eps)
+        m, c, dsum, nacc = ops.swap_topk_commit(w, m, c, G, k=k_swaps, eps=eps,
+                                                gram=gram)
     else:
         dl, u, p = _topk_swaps(method, block, chunk, k_swaps, w, m, c, G)
         m, c, dsum, nacc = sm.commit_swaps(w, m, c, G, dl, u, p, eps=eps)
@@ -195,7 +209,7 @@ def _init_carry(w, m0, G):
 
 def _refine_carry(w, m, c, loss, swaps, G, *, n_iter: int, eps: float,
                   method: str, block: int | None, chunk: int, k_swaps: int,
-                  commit_mode: str = "columns"):
+                  commit_mode: str = "columns", gram=None):
     """Run up to ``n_iter`` passes from a carry; stop once no row accepts.
 
     Returns (m, c, loss, swaps, t, row_alive): ``t`` = passes executed,
@@ -207,7 +221,7 @@ def _refine_carry(w, m, c, loss, swaps, G, *, n_iter: int, eps: float,
     while t < n_iter:
         m, c, loss, swaps, alive = _swap_step(
             w, m, c, loss, swaps, G, eps=eps, method=method, block=block,
-            chunk=chunk, k_swaps=k_swaps, commit_mode=commit_mode)
+            chunk=chunk, k_swaps=k_swaps, commit_mode=commit_mode, gram=gram)
         t += 1
         if not bool(alive.any()):
             break
@@ -216,16 +230,20 @@ def _refine_carry(w, m, c, loss, swaps, G, *, n_iter: int, eps: float,
 
 def _refine_block(w, m0, G, *, t_max: int, eps: float, method: str,
                   block: int | None, chunk: int, track_history: bool,
-                  k_swaps: int = 1, commit_mode: str = "columns"):
+                  k_swaps: int = 1, commit_mode: str = "columns", gram=None):
     """Refine one block of rows. Returns (m, loss0, loss, swaps, t, hist).
 
     Early-exits once no row accepts (one host read per pass); with
     ``track_history`` runs all ``t_max`` passes and records the mean loss.
+    ``gram``: G's ``_commit_gram``, taken here when not given.
     """
     c, loss0 = _init_carry(w, m0, G)
     swaps = torch.zeros(w.shape[0], dtype=torch.int64, device=w.device)
+    if gram is None:
+        gram = _commit_gram(G, method=method, block=block, k_swaps=k_swaps,
+                            commit_mode=commit_mode)
     kw = dict(eps=eps, method=method, block=block, chunk=chunk,
-              k_swaps=k_swaps, commit_mode=commit_mode)
+              k_swaps=k_swaps, commit_mode=commit_mode, gram=gram)
     if not track_history:
         m, _, loss, swaps, t, _ = _refine_carry(w, m0, c, loss0, swaps, G,
                                                 n_iter=t_max, **kw)
@@ -303,6 +321,8 @@ def refine_stacked_compacted(W, M0, G, *, t_max: int, eps: float,
     state = {"m": M0.clone(), "c": torch.stack(Cs), "l": L0.clone(),
              "s": torch.zeros((N, R), dtype=torch.int64, device=W.device)}
 
+    grams = [_commit_gram(G[i], method=method, block=block, k_swaps=k_swaps,
+                          commit_mode=commit_mode) for i in range(N)]
     active = [np.arange(R)] * N
     done, passes = 0, 0
     while done < t_max and any(a.size for a in active):
@@ -325,7 +345,8 @@ def refine_stacked_compacted(W, M0, G, *, t_max: int, eps: float,
         outs = [_refine_carry(
                     wg[i], sub["m"][i], sub["c"][i], sub["l"][i], sub["s"][i],
                     G[i], n_iter=seg, eps=eps, method=method, block=block,
-                    chunk=chunk, k_swaps=k_swaps, commit_mode=commit_mode)
+                    chunk=chunk, k_swaps=k_swaps, commit_mode=commit_mode,
+                    gram=grams[i])
                 for i in range(N)]
         stack = lambda j: torch.stack([o[j] for o in outs])
         _scatter_rows(state, {"m": stack(0), "c": stack(1), "l": stack(2),
@@ -407,11 +428,14 @@ def refine(
             loss_final=l1[0, :d_out], swaps=swaps[0, :d_out], iters=passes)
 
     outs = []
+    gram = _commit_gram(G32, method=meth, block=block, k_swaps=k,
+                        commit_mode=commit_mode)
     for lo in range(0, W32.shape[0], rb):
         out = _refine_block(
             W32[lo:lo + rb], M32[lo:lo + rb], G32, t_max=t_max, eps=eps,
             method=meth, block=block, chunk=chunk,
-            track_history=track_history, k_swaps=k, commit_mode=commit_mode)
+            track_history=track_history, k_swaps=k, commit_mode=commit_mode,
+            gram=gram)
         record_search_passes(out[4], rb)
         outs.append(out)
     cat = lambda i: torch.cat([o[i] for o in outs])[:d_out]

@@ -2,7 +2,8 @@
 
 * ``gram``        — fp32-accumulating Xᵀ X for calibration (paper §2.1.2).
 * ``swap_topk``   — fused k-best swap search (the k-swap hot path), and
-  ``swap_commit``, the greedy candidate-space commit of its candidates.
+  ``swap_commit``, the candidate-space commit of its candidates: the
+  greedy decisions and their Eq. 6 apply, two kernels of one call.
 * ``swap_argmin`` — fused 1-swap search (paper Eq. 5).
 * ``spmm``        — packed sparse matmul (nm24 / gathered) with the bias
   and activation fused, for serving.

@@ -15,10 +15,13 @@ call that launched. The Gram counts its two input paths apart:
 spmm call that splits d_in runs two CUDA kernels
 (the product and the ordered sum of its fp32 partials) and counts one;
 so does a swap_topk call (the Gram's preparation, the p-tiles' search and
-the merge of their lists) and a swap_argmin call (the same preparation and
-search, then the selection of the best pair).
+the merge of their lists), a swap_argmin call (the same preparation and
+search, then the selection of the best pair) and a swap_commit call (the
+decisions, then their apply).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -118,60 +121,85 @@ def _swap_topk(w, m, c, G, *, k: int):
     return vals, u, p
 
 
-def swap_commit(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid, *, eps: float,
-                k: int):
-    """Greedy accept/reject of a gathered candidate batch
-    (``swap_math.commit_decisions``): wu, wp, cu, cp, u, p, valid (R, k);
-    Suu, Sup, Spp (R, k, k) from ``swap_math.gather_candidate_stats``.
-    Returns (acc (R, k) 0/1 fp32, dl (R, k) fp32, 0 where rejected); on
-    the card bitwise equal to the plain version."""
-    R, kk = wu.shape
-    if kk != k or not 1 <= k <= topk_mod.MAX_K:
-        raise ValueError(f"swap_commit takes (R, k) candidates with "
-                         f"1 <= k <= {topk_mod.MAX_K}; got {tuple(wu.shape)} "
-                         f"for k={k}")
-    for name, t in (("wp", wp), ("cu", cu), ("cp", cp), ("u", u), ("p", p),
-                    ("valid", valid)):
+class GramFacts(NamedTuple):
+    """What the candidate commit's apply kernel needs to know of G, taken
+    once per refinement: whether G equals Gᵀ bit for bit (its columns are
+    then read as contiguous rows) and max|G| (NaN or inf where G holds
+    one), which bounds a rejected candidate's update."""
+
+    symmetric: bool
+    amax: float
+
+
+def gram_facts(G: torch.Tensor) -> GramFacts:
+    """``GramFacts`` of G: one compare of G with Gᵀ and one max-reduction
+    pair over G (two host reads)."""
+    G32 = G.float()
+    amax = torch.maximum(G32.amax(), -G32.amin())       # NaN propagates
+    return GramFacts(bool(torch.equal(G32, G32.T)), float(amax))
+
+
+def swap_commit(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
+                G: torch.Tensor, dl: torch.Tensor, u: torch.Tensor,
+                p: torch.Tensor, *, eps: float = 0.0,
+                gram: GramFacts | None = None):
+    """The candidate-space commit of a searched batch (dl, u, p) (R, k),
+    u and p in [0, d): the greedy decisions
+    (``swap_math.gather_candidate_stats`` + ``commit_decisions``, valid
+    where dl is finite) and their apply (``apply_commits``' mask flips and
+    Eq. 6 update). Returns (m', c', acc (R, k) 0/1 fp32, dls (R, k) fp32,
+    0 where rejected). On the card one call of two kernels (the decisions
+    read their sub-Grams from G; the apply streams c and m once), bitwise
+    equal to the plain versions; m must be fp32 there. ``gram``: G's
+    ``GramFacts``, taken here when not given."""
+    _check_swap_shapes(w, m, c, G)
+    R, d = w.shape
+    k = dl.shape[-1]
+    if dl.shape != (R, k) or not 1 <= k <= topk_mod.MAX_K:
+        raise ValueError(f"swap_commit takes (R, k) = ({R}, k) candidates "
+                         f"with 1 <= k <= {topk_mod.MAX_K}; got dl "
+                         f"{tuple(dl.shape)}")
+    for name, t in (("u", u), ("p", p)):
         if t.shape != (R, k):
             raise ValueError(f"{name} must be ({R}, {k}), got {tuple(t.shape)}")
-    for name, t in (("Suu", Suu), ("Sup", Sup), ("Spp", Spp)):
-        if t.shape != (R, k, k):
-            raise ValueError(f"{name} must be ({R}, {k}, {k}), "
-                             f"got {tuple(t.shape)}")
-    if not _on_cuda(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid):
-        return topk_mod.swap_commit_plain(wu, wp, cu, cp, Suu, Sup, Spp, u, p,
-                                          valid, eps=eps, k=k)
-    f32 = [t.float().contiguous() for t in (wu, wp, cu, cp, Suu, Sup, Spp,
-                                            valid)]
+    if not _on_cuda(w, m, c, G, dl, u, p):
+        acc, dls = topk_mod.swap_commit_decide_plain(w, c, G, dl, u, p,
+                                                     eps=eps)
+        m2, c2 = topk_mod.swap_commit_apply_plain(w, m, c, G, acc, u, p)
+        return m2, c2, acc, dls
+    if m.dtype != torch.float32:
+        raise ValueError(f"the commit kernel takes an fp32 mask, got {m.dtype}")
+    w32, c32, G32 = (t.float().contiguous() for t in (w, c, G))
+    m = m.contiguous()
+    dl32 = dl.float().contiguous()
     u32, p32 = u.int().contiguous(), p.int().contiguous()
-    acc = torch.empty((R, k), dtype=torch.float32, device=wu.device)
-    dl = torch.empty((R, k), dtype=torch.float32, device=wu.device)
+    if gram is None:
+        gram = gram_facts(G32)
+    acc = torch.empty((R, k), dtype=torch.float32, device=w.device)
+    dls = torch.empty((R, k), dtype=torch.float32, device=w.device)
+    m2, c2 = torch.empty_like(m), torch.empty_like(c32)
     if R:
-        topk_mod.launch_commit(*f32[:7], u32, p32, f32[7], acc, dl, eps=eps)
+        topk_mod.launch_commit(w32, m, c32, G32, u32, p32, dl32, acc, dls,
+                               m2, c2, eps=eps, g_rows=gram.symmetric,
+                               gmax=gram.amax)
         LAUNCHES["swap_commit"] += 1
-    return acc, dl
+    return m2, c2, acc, dls
 
 
 def swap_topk_commit(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
-                     G: torch.Tensor, *, k: int, eps: float = 0.0):
+                     G: torch.Tensor, *, k: int, eps: float = 0.0,
+                     gram: GramFacts | None = None):
     """One k-swap step with the candidate-space commit: the top-k search
-    (``swap_topk``), the O(R·k²) sub-Gram gather
-    (``swap_math.gather_candidate_stats``), the greedy decisions
-    (``swap_commit``) and the full-width Eq. 6 apply
-    (``swap_math.apply_commits``). Returns (m', c', dl_sum (R,),
-    n_accepted (R,)) like ``swap_math.commit_swaps``, and equal to it given
-    the same candidates. The gather and the apply stay plain tensor ops, as
-    the reference runs them outside its kernels. The search's int32
-    indices go to the commit kernel as they are; only the gather and the
-    apply see them widened."""
-    dl, u_raw, p_raw = _swap_topk(w, m, c, G, k=k)
-    u, p = u_raw.long(), p_raw.long()
-    c32 = c.float()
-    valid = torch.isfinite(dl).float()     # +inf tail: clamped, never accepted
-    wu, wp, cu, cp, Suu, Sup, Spp = sm.gather_candidate_stats(w, c32, G, u, p)
-    acc, dls = swap_commit(wu, wp, cu, cp, Suu, Sup, Spp, u_raw, p_raw, valid,
-                           eps=eps, k=dl.shape[1])
-    return sm.apply_commits(w, m, c32, G, acc, dls, u, p)
+    (``swap_topk``), then ``swap_commit`` on its candidates (on the card
+    the two commit kernels, fed the search's int32 indices as they are).
+    Returns (m', c', dl_sum (R,), n_accepted (R,)) like
+    ``swap_math.commit_swaps``, and equal to it given the same candidates;
+    the row sums are the plain version's torch ops. ``gram``: G's
+    ``GramFacts``, taken once by the caller that refines over many passes
+    (else in every call)."""
+    dl, u, p = _swap_topk(w, m, c, G, k=k)
+    m2, c2, acc, dls = swap_commit(w, m, c, G, dl, u, p, eps=eps, gram=gram)
+    return m2, c2, dls.sum(1), acc.sum(1).to(torch.int64)
 
 
 def gram_xtx(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,16 @@
 """Fused k-best swap search and the candidate-space commit: the CUDA
 kernels' launchers and their plain PyTorch versions.
 
-Two kernels replace the two of the Pallas module
+Two sources replace the two kernels of the Pallas module
 ``src/repro/kernels/swap_topk.py``: ``csrc/swap_topk.cu`` its search
 (``_topk_kernel``) and ``csrc/swap_commit.cu`` its commit
-(``_commit_kernel``, the greedy accept/reject of
-``swap_math.commit_decisions``). ``repro_torch.kernels.ops.swap_topk``,
-``ops.swap_commit`` and ``ops.swap_topk_commit`` are the public wrappers.
+(``_commit_kernel``) together with what the reference runs around that
+kernel: one call of two CUDA kernels, the decisions (the sub-Gram gather
+of ``swap_math.gather_candidate_stats`` read straight from G, then the
+greedy accept/reject of ``commit_decisions``) and the apply (the mask
+flips and full-width Eq. 6 update of ``apply_commits``).
+``repro_torch.kernels.ops.swap_topk``, ``ops.swap_commit`` and
+``ops.swap_topk_commit`` are the public wrappers.
 """
 from __future__ import annotations
 
@@ -68,26 +72,48 @@ def swap_commit_plain(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid, *,
                                eps=eps, k=k)
 
 
+def swap_commit_decide_plain(w, c, G, dl, u, p, *, eps: float):
+    """The decide kernel's function: ``swap_math.gather_candidate_stats``
+    then ``commit_decisions`` on candidates (dl, u, p) (R, k), valid where
+    dl is finite. Returns (acc, dls) as ``swap_commit_plain``."""
+    u, p = u.long(), p.long()
+    valid = torch.isfinite(dl).float()
+    stats = sm.gather_candidate_stats(w, c.float(), G, u, p)
+    return swap_commit_plain(*stats, u, p, valid, eps=eps, k=dl.shape[1])
+
+
+def swap_commit_apply_plain(w, m, c, G, acc, u, p):
+    """The apply kernel's function: the mask flips and full-width Eq. 6
+    update of ``swap_math.apply_commits``, (m', c'); the row sums it also
+    returns are the wrapper's."""
+    m2, c2, _, _ = sm.apply_commits(w, m, c.float(), G, acc,
+                                    torch.zeros_like(acc), u.long(), p.long())
+    return m2, c2
+
+
 def _commit_fn():
-    fn = build.load("swap_commit").swap_commit_decide
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn = build.load("swap_commit").swap_commit
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_commit(wu, wp, cu, cp, Suu, Sup, Spp, u, p, valid, acc, dl, *,
-                  eps: float) -> None:
-    """Run the commit kernel on contiguous CUDA tensors: fp32 (R, k)
-    wu, wp, cu, cp, valid; fp32 (R, k, k) Suu, Sup, Spp; int32 (R, k) u, p;
-    into fp32 (R, k) acc and dl."""
-    R, k = wu.shape
-    with torch.cuda.device(wu.device):
-        stream = torch.cuda.current_stream(wu.device).cuda_stream
+def launch_commit(w, m, c, G, u, p, dl, acc, dls, m_out, c_out, *,
+                  eps: float, g_rows: bool, gmax: float) -> None:
+    """Run the decide and apply kernels on contiguous CUDA tensors: fp32
+    w, m, c (R, d) and G (d, d); int32 u, p and fp32 dl (R, k); into fp32
+    acc, dls (R, k) and m_out, c_out (R, d). ``g_rows``: G equals Gᵀ
+    bitwise; ``gmax``: max|G|."""
+    R, d = w.shape
+    k = u.shape[1]
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
         err = _commit_fn()(
-            wu.data_ptr(), wp.data_ptr(), cu.data_ptr(), cp.data_ptr(),
-            Suu.data_ptr(), Sup.data_ptr(), Spp.data_ptr(), u.data_ptr(),
-            p.data_ptr(), valid.data_ptr(), acc.data_ptr(), dl.data_ptr(),
-            R, k, float(eps), stream)
+            w.data_ptr(), m.data_ptr(), c.data_ptr(), G.data_ptr(),
+            u.data_ptr(), p.data_ptr(), dl.data_ptr(), acc.data_ptr(),
+            dls.data_ptr(), m_out.data_ptr(), c_out.data_ptr(), R, d, k,
+            float(eps), int(g_rows), float(gmax), stream)
     if err != 0:
         raise RuntimeError(f"swap_commit kernel launch failed: CUDA error {err}")

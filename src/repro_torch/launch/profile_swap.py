@@ -2,6 +2,7 @@
 at the main path's shapes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_swap [--variants a,b]
+    PYTHONPATH=src python -m repro_torch.launch.profile_swap --commit [--refine]
 
 For each (R, d) of llama31-8b's pruning sites — (1024, 4096) wk / wv,
 (4096, 4096) wq / wo, (14336, 4096) w_gate / w_up, (4096, 14336) w_down —
@@ -22,11 +23,32 @@ turns.
 edits of ``VARIANTS`` (``+`` joins several in one copy) and, at each
 shape, checks each copy's ``swap_topk`` output against the shipped
 kernel's bit for bit and prints its kernels' device time.
+
+``--commit`` times the candidate commit step instead: at each shape,
+``ops.swap_topk_commit`` at k = 8, each of ``REPS`` calls in its own
+torch.profiler trace; every CUDA kernel (and memset or copy) that starts
+after the search's last kernel (``swap_topk_merge_kernel``) is counted,
+and the script prints per call each kernel's device ms and launches by
+name, their sums by phase (the sub-Gram gather before the first
+``swap_commit*`` kernel, the decisions, the apply after them) and kind
+(gathers and index ops, elementwise, copies, row sums, the commit
+kernels), and the CUDA-event time of the whole call beside the search
+alone. Where the tree has
+``ops.gram_facts``, the facts of G are taken once per shape, as
+``refine`` does, and timed apart.
+
+``--refine`` runs the candidate refinement end to end on the w_down
+problem: ``refine(k_swaps=8, commit_mode="candidates", t_max=4)``
+without and with ``compact_every=2``, printing the wall time of each
+(host clock to a synchronize), its passes and swaps, and a digest of its
+masks, swaps and losses, to compare two trees' runs bit for bit.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
+import re
 import subprocess
 import time
 
@@ -219,6 +241,149 @@ def profile_swap(variants=()):
         torch.cuda.empty_cache()
 
 
+# (kind, name fragments) in order: a kernel takes the first kind it matches
+KINDS = [("gathers", ("gather", "index", "Index")),
+         ("row sums", ("reduce_kernel",)),
+         ("copies", ("copy", "Memcpy", "Memset", "fill")),
+         ("elementwise", ("elementwise",))]
+
+
+def _short(name: str) -> str:
+    """A CUDA kernel's name without its arguments and namespaces; an
+    elementwise kernel's with its innermost functor."""
+    base = name.replace("(anonymous namespace)::", "").split("(")[0]
+    base = base.removeprefix("void ").split("<")[0].split("::")[-1].strip()
+    functor = re.findall(r"(\w*Functor\w*)", name)
+    return f"{base}[{functor[-1]}]" if functor else base
+
+
+def _kind(name: str) -> str:
+    if "swap_commit" in name:
+        return "kernel"
+    for kind, parts in KINDS:
+        if any(part in name for part in parts):
+            return kind
+    return "other"
+
+
+def commit_split(w, m, c, G, *, reps: int = REPS):
+    """Per call of ``ops.swap_topk_commit`` (k = K): {(phase, kernel):
+    [launches, device ms]} of what runs after the search, each call in its
+    own trace, and the keyword arguments the calls took. Phases: "gather"
+    (before the first ``swap_commit*`` kernel), "decisions" (that kernel),
+    "apply" (``swap_commit_apply*`` and everything after the decisions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_spmm import profiler_preroll
+
+    kw = {"gram": ops.gram_facts(G)} if hasattr(ops, "gram_facts") else {}
+    fn = lambda: ops.swap_topk_commit(w, m, c, G, k=K, **kw)
+    fn()
+    torch.cuda.synchronize()
+    per: dict[tuple[str, str], list] = {}
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_preroll()
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        merges = [i for i, e in enumerate(ev) if "swap_topk_merge" in e.name]
+        if not merges:
+            raise RuntimeError("the trace holds no swap_topk_merge_kernel")
+        phase = "gather"
+        for e in ev[merges[-1] + 1:]:
+            if "swap_commit_apply" in e.name:
+                phase = "apply"
+            elif "swap_commit" in e.name:
+                phase = "decisions"
+            acc = per.setdefault((phase, _short(e.name)), [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.elapsed_us() / 1e3
+            if phase == "decisions":
+                phase = "apply"
+    for acc in per.values():
+        acc[0] /= reps
+        acc[1] /= reps
+    return per, kw
+
+
+def profile_commit():
+    """Yields the lines of ``--commit``, one shape at a time."""
+    from repro_torch.kernels import ops
+
+    resolve_device("cuda")
+    disable_tf32()
+    yield (f"{torch.cuda.get_device_name(0)}: ops.swap_topk_commit, k = {K}; "
+           f"device ms and launches per call after the search ({REPS} "
+           f"traces), CUDA events over {REPS} calls")
+    for R, d, seed in SHAPES:
+        w, m, c, G = problem(R, d, seed)
+        split, kw = commit_split(w, m, c, G)
+        total = sum(ms for _, ms in split.values())
+        launches = sum(n for n, _ in split.values())
+        yield (f"R={R} d={d}: after the search {total:.4f} ms device, "
+               f"{launches:g} launches per call")
+        for phase in ("gather", "decisions", "apply"):
+            kinds: dict[str, list] = {}
+            for (ph, name), (n, ms) in split.items():
+                if ph == phase:
+                    acc = kinds.setdefault(_kind(name), [0, 0.0])
+                    acc[0] += n
+                    acc[1] += ms
+            if kinds:
+                yield (f"  {phase} {sum(v[1] for v in kinds.values()):.4f} "
+                       f"ms / {sum(v[0] for v in kinds.values()):g}: "
+                       + ", ".join(f"{kind} {ms:.4f} ms / {n:g}" for kind,
+                                   (n, ms) in sorted(kinds.items(),
+                                                     key=lambda x: -x[1][1])))
+        for (phase, name), (n, ms) in sorted(split.items(),
+                                             key=lambda x: -x[1][1]):
+            yield f"    {phase} {name}: {ms:.4f} ms, {n:g} launches"
+        if kw:
+            facts_ms, _ = _events_ms(lambda: ops.gram_facts(G))
+            yield (f"  gram_facts (once per refine call): {facts_ms:.4f} ms "
+                   f"(events), {kw['gram']}")
+        step, _ = _events_ms(lambda: ops.swap_topk_commit(w, m, c, G, k=K,
+                                                          **kw))
+        search, _ = _events_ms(lambda: ops.swap_topk(w, m, c, G, k=K))
+        yield (f"  events: swap_topk_commit {step:.4f} ms, swap_topk alone "
+               f"{search:.4f} ms, difference {step - search:.4f} ms")
+        del w, m, c, G
+        torch.cuda.empty_cache()
+
+
+def profile_refine():
+    """Yields the lines of ``--refine``."""
+    import hashlib
+
+    from repro_torch.core import masks, sparseswaps
+
+    resolve_device("cuda")
+    disable_tf32()
+    R, d, seed = SHAPES[-1]
+    w, m, _, G = problem(R, d, seed)
+    yield (f"{torch.cuda.get_device_name(0)}: refine(k_swaps={K}, "
+           f"commit_mode='candidates', t_max=4) at R={R} d={d}")
+    for every in (0, 2, 0, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sparseswaps.refine(w, G, m, masks.PerRow(0.6), k_swaps=K,
+                               commit_mode="candidates", t_max=4,
+                               compact_every=every)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = hashlib.sha256()
+        for t in (r.mask > 0.5, r.swaps, r.loss_final):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        yield (f"  compact_every={every}: {wall:.4f} s, passes {r.iters}, "
+               f"swaps {int(r.swaps.sum())}; digest of masks, swaps, losses "
+               f"{h.hexdigest()[:16]}")
+
+
 def _events_ms(fn) -> tuple[float, float]:
     """ms per call of ``fn()`` over REPS calls after one: by CUDA events,
     and by the host's clock to the end of the last."""
@@ -245,9 +410,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default="",
                     help=f"comma-separated, of {sorted(VARIANTS)}")
+    ap.add_argument("--commit", action="store_true",
+                    help="time the candidate commit step after the search")
+    ap.add_argument("--refine", action="store_true",
+                    help="time the candidate refinement of w_down")
     args = ap.parse_args(argv)
     names = [v for v in args.variants.split(",") if v]
-    for line in profile_swap(names):
+    modes = [gen() for flag, gen in ((args.commit, profile_commit),
+                                     (args.refine, profile_refine)) if flag]
+    lines = itertools.chain(*modes) if modes else profile_swap(names)
+    for line in lines:
         print(line, flush=True)
 
 

@@ -433,6 +433,24 @@ def test_kernel_wrappers_reject_bad_input():
         ops.gram_xtx(torch.zeros(4, 4, dtype=torch.float64))
 
 
+def test_gram_facts():
+    """G's facts for the commit's apply kernel: bitwise symmetry (one last
+    bit off makes G asymmetric) and max|G|, NaN and inf carried through."""
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(12, 30)).astype(np.float32)
+    G = X @ X.T
+    G = np.triu(G) + np.triu(G, 1).T
+    G[2, 5] = G[5, 2] = -500.0
+    facts = ops.gram_facts(_t(G))
+    assert facts == ops.GramFacts(True, 500.0)
+    G[3, 4] = np.nextafter(G[3, 4], np.float32(np.inf))
+    assert not ops.gram_facts(_t(G)).symmetric
+    G[1, 1] = np.inf
+    assert ops.gram_facts(_t(G)).amax == float("inf")
+    G[0, 7] = np.nan
+    assert np.isnan(ops.gram_facts(_t(G)).amax)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -659,24 +677,150 @@ def test_cuda_gram_matches_plain(cuda, T, d):
 @pytest.mark.parametrize("d_out,d_in,k", [(33, 300, 8), (64, 1024, 5),
                                           (40, 96, 32)])
 def test_cuda_swap_commit_matches_plain(cuda, d_out, d_in, k):
-    """The commit kernel equals commit_decisions bit for bit on swap_topk's
-    candidates (the +inf tail included), accepts and rejects, and the
-    fused step equals the plain candidate-space commit."""
+    """The commit kernels on swap_topk's candidates (the +inf tail
+    included): the decisions bitwise equal to gather_candidate_stats +
+    commit_decisions, with accepts and rejects, the apply bitwise equal to
+    apply_commits' mask flips and Eq. 6 update, one launch; and the fused
+    step equals the plain candidate-space commit."""
     w, m, c, G = _port_problem(d_in + k, d_out, d_in, cuda)
-    dl, u, p = ops.swap_topk(w, m, c, G, k=k)
-    valid = torch.isfinite(dl).float()
-    stats = sm.gather_candidate_stats(w, c, G, u, p)
+    dl, u, p = ops._swap_topk(w, m, c, G, k=k)     # int32, as the step uses
     ops.reset_launches()
-    acc, dls = ops.swap_commit(*stats, u, p, valid, eps=0.0, k=k)
-    want = topk_mod.swap_commit_plain(*stats, u, p, valid, eps=0.0, k=k)
+    m2, c2, acc, dls = ops.swap_commit(w, m, c, G, dl, u, p)
+    want = topk_mod.swap_commit_decide_plain(w, c, G, dl, u, p, eps=0.0)
     assert torch.equal(acc, want[0]) and torch.equal(dls, want[1])
     assert 0 < int(acc.sum()) < acc.numel()             # accepts and rejects
     assert bool((dls[acc == 0] == 0).all())
+    want_m, want_c = topk_mod.swap_commit_apply_plain(w, m, c, G, acc, u, p)
+    assert torch.equal(m2, want_m) and torch.equal(c2, want_c)
     got = ops.swap_topk_commit(w, m, c, G, k=k)
-    plain = sm.commit_swaps(w, m, c, G, dl, u, p)
+    plain = sm.commit_swaps(w, m, c, G, dl, u.long(), p.long())
     for g, t in zip(got, plain):
         assert torch.equal(g, t)
     assert ops.LAUNCHES["swap_commit"] == 2
+
+
+# (id, R, d, k, kind): G mirrored bit for bit (the apply reads its rows)
+# or asymmetric (it reads columns; "lastbit": one entry's last bit, at an
+# odd d, so scalar loads); k at both ends; R not a multiple of the
+# decisions' 4 rows a block; d = 3; rows with fewer than k pruned columns
+# (the +inf tail, indices clamped to d - 1); and, planted after the
+# search: duplicate u with repeated rows (compaction's pad slots), -0.0
+# and NaN in c and -0.0 in m (a rejected candidate's 0·x turns -0.0 into
+# +0.0 and a NaN into the card's NaN), inf in G, and weights so large that
+# a rejected candidate's update overflows (no skipping it then)
+COMMIT_CASES = [
+    ("sym-33x300-k8", 33, 300, 8, "sym"),
+    ("asym-37x256-k8", 37, 256, 8, "asym"),
+    ("lastbit-29x301-k8", 29, 301, 8, "lastbit"),
+    ("sym-29x301-k8", 29, 301, 8, "sym"),
+    ("k1-64x512", 64, 512, 1, "sym"),
+    ("k32-37x1000", 37, 1000, 32, "sym"),
+    ("k32-asym-21x600", 21, 600, 32, "asym"),
+    ("rows-5x4096-k8", 5, 4096, 8, "sym"),
+    ("d3-64x3-k2", 64, 3, 2, "sym"),
+    ("short-rows-40x256-k8", 40, 256, 8, "short"),
+    ("dup-u-pad-rows-40x256-k8", 40, 256, 8, "dup_pad"),
+    ("neg-zero-nan-40x256-k8", 40, 256, 8, "negzero"),
+    ("inf-g-40x256-k8", 40, 256, 8, "inf_g"),
+    ("huge-w-40x256-k8", 40, 256, 8, "huge_w"),
+]
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _commit_case(R, d, k, kind, device):
+    """(w, m, c, G, dl, u, p) of one COMMIT_CASES entry: the kernel
+    search's int32 candidates on a PerRow(0.6) Wanda mask, then the
+    case's plants."""
+    rng = np.random.default_rng(R * 104729 + d)
+    X = rng.normal(size=(d, 96)).astype(np.float32)
+    G = X @ X.T + np.float32(0.1) * np.eye(d, dtype=np.float32)
+    G = np.triu(G) + np.triu(G, 1).T                  # bitwise symmetric
+    if kind == "asym":
+        G = G + np.float32(0.05 * np.abs(G).max()) * rng.normal(
+            size=(d, d)).astype(np.float32)
+    if kind == "lastbit":
+        G[3, 4] = np.nextafter(G[3, 4], np.float32(np.inf))
+    w = torch.from_numpy(rng.normal(size=(R, d)).astype(np.float32)).to(device)
+    G = torch.from_numpy(G).to(device)
+    m = warmstart_mask(w, G, tmasks.PerRow(0.6), "wanda")
+    if kind == "short":
+        m[0] = 1.0
+        m[0, 17:22] = 0.0                             # 5 pruned columns
+        m[1] = 1.0                                    # none pruned
+    c = sm.correlation_vector(w, m, G)
+    dl, u, p = ops._swap_topk(w, m, c, G, k=k)
+    if kind == "dup_pad":
+        u[::2, 1] = u[::2, 0]
+        idx = torch.cat([torch.arange(R // 2), torch.zeros(R - R // 2,
+                                                           dtype=torch.int64)])
+        idx = idx.to(device)
+        w, m, c, dl, u, p = (t.index_select(0, idx)
+                             for t in (w, m, c, dl, u, p))
+    if kind == "negzero":
+        pick = torch.from_numpy(rng.random((R, d))).to(device)
+        c = torch.where(pick < 0.1, -0.0, c)
+        c = torch.where(pick > 0.95, torch.from_numpy(
+            np.array(np.nan, np.float32)).to(device), c)
+        m = torch.where(m == 0, -0.0, m)
+    if kind == "inf_g":
+        for r, t, sign in ((0, 1, 1.0), (1, 2, -1.0), (2, 0, 1.0)):
+            col = int(u[r, t])
+            G[17, col] = G[col, 17] = sign * float("inf")
+    if kind == "huge_w":      # against 1e38 / max|G| (max|G| ~ 150 here)
+        w[3, int(u[3, 2])] = 2.0**110                 # skippable, x finite
+        w[4, int(p[4, 0])] = 2.0**125                 # x overflows to inf
+    return w, m, c, G, dl, u, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", COMMIT_CASES, ids=[c[0] for c in COMMIT_CASES])
+def test_cuda_swap_commit_edges(cuda, case):
+    """Both commit kernels bitwise against their plain versions (every
+    output's bits, NaNs included) in one launch, G read as rows exactly
+    when it is bitwise symmetric; and ``ops.swap_topk_commit`` equal to the
+    plain ``swap_math.commit_swaps`` on the search's candidates, every
+    output bitwise."""
+    _, R, d, k, kind = case
+    w, m, c, G, dl, u, p = _commit_case(R, d, k, kind, cuda)
+    gram = ops.gram_facts(G)
+    assert gram.symmetric == (kind not in ("asym", "lastbit"))
+    ops.reset_launches()
+    got = ops.swap_commit(w, m, c, G, dl, u, p, gram=gram)
+    assert ops.LAUNCHES["swap_commit"] == 1
+    acc, dls = topk_mod.swap_commit_decide_plain(w, c, G, dl, u, p, eps=0.0)
+    want = (*topk_mod.swap_commit_apply_plain(w, m, c, G, acc, u, p), acc,
+            dls)
+    for g, t in zip(got, want):
+        assert torch.equal(_bits(g), _bits(t))
+    assert int(acc.sum()) > 0
+    if kind == "dup_pad":
+        for t in got:
+            assert torch.equal(_bits(t[R // 2:]), _bits(t[:1].expand(
+                R - R // 2, *t.shape[1:])))
+    if kind == "short":
+        assert not bool(torch.isfinite(dl[1]).any()) and not acc[1].any()
+    if kind in ("negzero", "inf_g", "huge_w"):
+        assert not bool(torch.isfinite(got[1]).all())
+    if kind == "negzero":     # nothing accepted: every candidate skippable
+        none = ops.swap_commit(w, m, c, G, dl, u, p, eps=float("inf"),
+                               gram=gram)
+        acc, dls = topk_mod.swap_commit_decide_plain(w, c, G, dl, u, p,
+                                                     eps=float("inf"))
+        want = (*topk_mod.swap_commit_apply_plain(w, m, c, G, acc, u, p),
+                acc, dls)
+        for g, t in zip(none, want):
+            assert torch.equal(_bits(g), _bits(t))
+        assert not none[2].any()
+        neg0 = _bits(torch.tensor(-0.0, device=cuda))
+        assert bool(((_bits(c) == neg0) & (_bits(none[1]) == 0)).any())
+        assert bool(((_bits(m) == neg0) & (_bits(none[0]) == 0)).any())
+    dl2, u2, p2 = ops.swap_topk(w, m, c, G, k=k)
+    plain = sm.commit_swaps(w, m, c, G, dl2, u2, p2)
+    for g, t in zip(ops.swap_topk_commit(w, m, c, G, k=k, gram=gram), plain):
+        assert torch.equal(_bits(g), _bits(t))
 
 
 def _spmm_tol(want: torch.Tensor) -> torch.Tensor:

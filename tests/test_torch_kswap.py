@@ -6,6 +6,10 @@ and SparseGPT baselines vs the reference's, on shared numpy problems.
   masks and accept counts; ``c`` and the ΔL sums within rtol 1e-5 — not
   bitwise, because XLA's CPU backend contracts multiply-adds into FMAs
   and PyTorch does not;
+* the commit kernels' plain versions (the decisions with their sub-Gram
+  gather, and the apply) against the reference's functions on an
+  asymmetric Gram, duplicate u, the +inf tail, k = 1, 8 and 32: bitwise
+  (the reference's functions run op by op, so nothing is fused);
 * ``refine(commit_mode="candidates")``: masks, swaps and search-pass
   counts equal to the reference's; with ``compact_every`` ∈ {1, 3, 7} the
   port's masks, swaps and losses are bitwise its uncompacted ones;
@@ -37,6 +41,7 @@ from repro_torch.core import sparsegpt as tsgpt  # noqa: E402
 from repro_torch.core import sparseswaps as tss  # noqa: E402
 from repro_torch.core import swap_math as tsm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import swap_topk as topk_mod  # noqa: E402
 
 # the reference's core package re-exports functions under these names
 jdsnot = importlib.import_module("repro.core.dsnot")
@@ -68,20 +73,91 @@ def test_swap_topk_commit_matches_reference():
 
 
 def test_swap_commit_rejects_bad_shapes():
-    R, k = 4, 3
-    vec = torch.zeros(R, k)
-    cube = torch.zeros(R, k, k)
+    R, d, k = 4, 40, 3
+    w, m, c = torch.zeros(R, d), torch.ones(R, d), torch.zeros(R, d)
+    G = torch.eye(d)
+    dl = torch.zeros(R, k)
     idx = torch.zeros(R, k, dtype=torch.int64)
     with pytest.raises(ValueError, match="k <= 32"):
-        ops.swap_commit(*(torch.zeros(R, 33),) * 4, *(torch.zeros(R, 33, 33),)
-                        * 3, *(torch.zeros(R, 33, dtype=torch.int64),) * 2,
-                        torch.zeros(R, 33), eps=0.0, k=33)
-    with pytest.raises(ValueError, match="Sup"):
-        ops.swap_commit(vec, vec, vec, vec, cube, cube[:, :2], cube, idx, idx,
-                        vec, eps=0.0, k=k)
-    with pytest.raises(ValueError, match="valid"):
-        ops.swap_commit(vec, vec, vec, vec, cube, cube, cube, idx, idx,
-                        vec[:2], eps=0.0, k=k)
+        ops.swap_commit(w, m, c, G, torch.zeros(R, 33),
+                        *(torch.zeros(R, 33, dtype=torch.int64),) * 2)
+    with pytest.raises(ValueError, match="u must be"):
+        ops.swap_commit(w, m, c, G, dl, idx[:, :2], idx)
+    with pytest.raises(ValueError, match="dl"):
+        ops.swap_commit(w, m, c, G, dl[:2], idx, idx)
+    with pytest.raises(ValueError, match="G must be"):
+        ops.swap_commit(w, m, c, G[:8, :8], dl, idx, idx)
+
+
+# (id, k, asymmetric G, duplicate u, +inf tail)
+COMMIT_CASES = [("k1", 1, False, False, False),
+                ("k8-asym-dup-inf", 8, True, True, True),
+                ("k32-asym-dup-inf", 32, True, True, True)]
+
+
+def _commit_batch(seed, k, asym, dup_u, inf_tail, R=12, d=80):
+    """A searched candidate batch as numpy: (W, m, c, G, dl, u, p). The
+    candidates are the reference's dense top-k on a symmetric Gram; then G
+    is made plainly asymmetric (the decisions and the apply read it in
+    their own index orders), half the rows repeat candidate 0's u in
+    candidate 1, and the last two candidates of every third row become the
+    +inf tail with indices clamped to d - 1, as the search emits it."""
+    W, G, m = _problem(seed, R, d, d // 2)
+    jW, jG, jm = map(jnp.asarray, (W, G, m))
+    c = np.asarray(jsm.correlation_vector(jW, jm, jG), dtype=np.float32)
+    dl, u, p = (np.array(x) for x in jsm.topk_swaps_dense(
+        jW, jm, jnp.asarray(c), jG, k=k))
+    dl = dl.astype(np.float32)
+    u, p = u.astype(np.int64), p.astype(np.int64)
+    rng = np.random.default_rng(seed + 1)
+    if asym:
+        G = G + np.float32(0.05 * np.abs(G).max()) * rng.normal(
+            size=G.shape).astype(np.float32)
+    if dup_u:
+        u[::2, 1] = u[::2, 0]
+    if inf_tail:
+        dl[::3, -2:] = np.inf
+        u[::3, -2:] = p[::3, -2:] = d - 1
+    return W, m, c, G.astype(np.float32), dl, u, p
+
+
+@pytest.mark.parametrize("case", COMMIT_CASES, ids=[c[0] for c in COMMIT_CASES])
+def test_commit_plain_versions_match_reference(case):
+    """The port's plain decide (gather + decisions) and apply against the
+    reference's gather_candidate_stats + commit_decisions + apply_commits,
+    called op by op (eagerly, so XLA fuses no multiply-add): every output
+    bitwise. ops.swap_commit on CPU tensors equals the plain versions
+    bitwise and launches nothing."""
+    _, k, asym, dup_u, inf_tail = case
+    W, m, c, G, dl, u, p = _commit_batch(7 + k, k, asym, dup_u, inf_tail)
+    jW, jm, jc, jG = map(jnp.asarray, (W, m, c, G))
+    ju, jp = jnp.asarray(u, jnp.int32), jnp.asarray(p, jnp.int32)
+    stats = jsm.gather_candidate_stats(jW, jc, jG, ju, jp)
+    jacc, jdls = jsm.commit_decisions(
+        *stats, ju, jp, jnp.isfinite(jnp.asarray(dl)).astype(jnp.float32),
+        eps=0.0, k=k)
+    want = [np.asarray(x) for x in
+            jsm.apply_commits(jW, jm, jc, jG, jacc, jdls, ju, jp)]
+    tW, tm, tc, tG, tdl = map(_t, (W, m, c, G, dl))
+    tu, tp = torch.from_numpy(u), torch.from_numpy(p)
+    acc, dls = topk_mod.swap_commit_decide_plain(tW, tc, tG, tdl, tu, tp,
+                                                 eps=0.0)
+    m2, c2 = topk_mod.swap_commit_apply_plain(tW, tm, tc, tG, acc, tu, tp)
+    assert np.array_equal(acc.numpy(), np.asarray(jacc))
+    assert int(acc.sum()) > 0
+    assert k == 1 or int(acc.sum()) < acc.numel()     # rejects too
+    assert np.array_equal(m2.numpy(), want[0])
+    assert np.array_equal(dls.numpy(), np.asarray(jdls))
+    assert np.array_equal(c2.numpy(), want[1])
+    if dup_u:        # a u shared by two candidates is flipped at most once
+        assert not (acc[::2, 0] * acc[::2, 1]).any()
+    if inf_tail:
+        assert not acc[::3, -2:].any()
+    ops.reset_launches()
+    got = ops.swap_commit(tW, tm, tc, tG, tdl, tu, tp)
+    for g, t in zip(got, (m2, c2, acc, dls)):
+        assert torch.equal(g, t)
+    assert ops.LAUNCHES["swap_commit"] == 0
 
 
 @pytest.mark.parametrize("seed,R,d,keep", [(61, 5, 12, 6), (37, 24, 32, 16)])
@@ -130,6 +206,30 @@ def test_compaction_scores_fewer_rows_and_truncates_bitwise():
         scored.append((a.rows_scored, b.rows_scored))
     assert scored[0][1] < scored[0][0]           # the full run shrinks
     assert scored[1][1] <= scored[1][0]
+
+
+@pytest.mark.parametrize("compact_every,row_block", [(0, None), (0, 8),
+                                                     (2, None)])
+def test_candidate_kernel_path_takes_gram_facts_once(monkeypatch,
+                                                     compact_every, row_block):
+    """refine(method="kernel", commit_mode="candidates") takes G's facts
+    for the commit's apply once per call, whatever its passes, row blocks
+    and compaction segments, and on CPU tensors gives the chunked path's
+    masks, swaps and losses bitwise."""
+    W, G, m = _problem(47, 13, 32, 16)
+    args = (_t(W), _t(G), _t(m), tmasks.PerRow(0.5))
+    kw = dict(t_max=50, k_swaps=4, commit_mode="candidates",
+              compact_every=compact_every, row_block=row_block)
+    calls = []
+    facts = ops.gram_facts
+    monkeypatch.setattr(ops, "gram_facts",
+                        lambda G: calls.append(1) or facts(G))
+    got = tss.refine(*args, method="kernel", **kw)
+    assert len(calls) == 1 and got.iters > 2
+    want = tss.refine(*args, method="chunked", chunk=8, **kw)
+    assert torch.equal(got.mask, want.mask)
+    assert torch.equal(got.swaps, want.swaps)
+    assert torch.equal(got.loss_final, want.loss_final)
 
 
 def test_compaction_rejects_history_and_unknown_commit_mode():

@@ -71,7 +71,8 @@ and its time:
    passes; then dense vs pruned perplexity on 4 validation batches of
    8 x 128. Asserts that all 7 taps x 2 layers x 4 batches = 56 Gram
    launches took the bf16 tensor-core path (none the fp32 one), that
-   swap_topk ran once per site and pass (7 x 2 x 4 = 56), exact per-row
+   swap_topk ran once per site, layer and pass (7 x 2 x 4 = 56; taps and
+   sites counted by ``pruning.sites``), exact per-row
    sparsity at every site, monotone row losses, a positive mean error
    reduction over Wanda, finite perplexities; prints a digest of the
    masks (to compare runs and commits bit for bit).
@@ -121,10 +122,40 @@ and its time:
    goes (checkpoint hashing and reads, the data fingerprint, calibration
    restore, evaluation, the out dir's writes); ``plan_only`` prints the
    plan and allocates no CUDA memory.
-8. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
-   launches the nm24 engine's; ``spmm_gather``: the gathered kernel at
-   w_gate T = 4 on PerRow(0.6), its launches the two gathered engines'),
-   the card line, and last {"ok": true, "device": ...}.
+3b. the other dense configs' shapes (chatglm3-6b, granite-34b,
+   minitron-4b, internlm2-20b), each kernel held as in phase 3: the Gram
+   (bf16, T = 512) at d = 3072, 6144, 9216, 13696, 16384, 24576, timed at
+   13696 and 24576; swap_topk, swap_argmin and the commit (k = 8) at
+   (6144, 24576) granite w_down (a 2.42 GB G), (4096, 13696) chatglm
+   w_down (a 128-column last p-tile), (256, 4096) chatglm wk / wv, (128,
+   6144) granite's MQA wk / wv, (3072, 9216) and (9216, 3072) minitron
+   w_down / w_up, each on all rows with the searches held bitwise on the
+   first 128 rows and the last 32-row block and the commit on every row,
+   swap_topk and the commit step timed at the first two; spmm at chatglm
+   wq and wk with a bias, granite w_up (gelu), w_down and wk (d_out =
+   128), minitron w_up (relu2) and w_down, the granite pair timed in
+   bf16.
+4b / 6b. for each of those four configs, at full width with the depth
+   cut to 2 layers, bf16, random weights from seed 0 (chatglm3's qkv
+   biases, zero at init, drawn from N(0, 0.02²)): phase 4's prune_model
+   and gates, the Gram and swap_topk launch counts from the config's taps
+   and sites (``pruning.sites``: 7 for a gated MLP, 6 for a plain one),
+   its time, peak memory and mask digest; then phase 6's serving without
+   the dense engine and the timed runs (masked, nm24 and gathered on the
+   PerRow(0.6) masks and on Wanda 2:4 ones), spmm launches = sites x
+   layers x 16 per packed generate, nm24 == gathered bitwise, packed vs
+   masked logits within SERVE_TOL. Each config's state is freed before
+   the next.
+8. full depth, shapes only: every dense config's ``plan_pruning`` on the
+   meta device (nothing allocated), its weight, Gram and calibration
+   bytes, and whether the bf16 model and its calibration state fit the
+   card.
+9. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
+   launches the nm24 engines'; ``spmm_gather``: the gathered kernel at
+   w_gate T = 4 on PerRow(0.6), its launches the gathered engines'; the
+   Gram's, swap_topk's and spmm's launches those of phases 4 and 6 and of
+   every 4b / 6b run), the card line, and last {"ok": true, "device":
+   ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -164,6 +195,28 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 T_MAX = 4                # search passes of the main path (k = 8)
 SERVE_TOL = 0.05         # packed vs masked prefill logits, of max|logits|
 SERVE_GEN = 16           # new tokens per request on the serve path
+# the other dense configs (phases 3b, 4b, 6b) and their shapes new to the
+# kernels
+OTHER_DENSE = ("chatglm3-6b", "granite-34b", "minitron-4b", "internlm2-20b")
+GRAM_DS = (3072, 6144, 9216, 13696, 16384, 24576)
+GRAM_TIMED = (13696, 24576)
+SWAP_SHAPES = [                  # (R, d, site); the first two timed
+    (6144, 24576, "granite-34b w_down"),
+    (4096, 13696, "chatglm3-6b w_down: a 128-column last p-tile"),
+    (256, 4096, "chatglm3-6b wk/wv"),
+    (128, 6144, "granite-34b wk/wv: MQA"),
+    (3072, 9216, "minitron-4b w_down"),
+    (9216, 3072, "minitron-4b w_up"),
+]
+SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
+    (4096, 4096, None, True, "chatglm3-6b wq", False),
+    (256, 4096, None, True, "chatglm3-6b wk", False),
+    (24576, 6144, "gelu", False, "granite-34b w_up", True),
+    (6144, 24576, None, False, "granite-34b w_down", True),
+    (128, 6144, None, False, "granite-34b wk", False),
+    (9216, 3072, "relu2", False, "minitron-4b w_up", False),
+    (3072, 9216, None, False, "minitron-4b w_down", False),
+]
 
 
 def log(msg: str) -> None:
@@ -272,10 +325,12 @@ def by_rows(fn, w, m, c, G, rows: int = 64):
 
 
 def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
-                clock_mhz: float) -> dict:
+                clock_mhz: float, rows=None) -> dict:
     """The swap searches in ``names`` against their plain versions on one
     problem: swap_topk bitwise on feasible entries, swap_argmin on every
-    row. Times those in ``timed``."""
+    row. The kernel runs on all rows; with ``rows`` (an index tensor) the
+    plain version runs on those rows only, and they are compared (a row's
+    result depends on that row and G alone). Times those in ``timed``."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import swap_argmin as argmin_mod
@@ -292,9 +347,13 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
     for name in names:
         kern, plain, kk = searches[name]
         got = kern()
+        sub = (w, m, c)
+        if rows is not None:
+            got = tuple(g[rows] for g in got)
+            sub = tuple(t[rows] for t in sub)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = by_rows(plain, w, m, c, G)
+        want = by_rows(plain, *sub, G)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         fin = torch.isfinite(want[0])
@@ -324,8 +383,10 @@ def check_swaps(w, m, c, G, k: int, tag: str, *, names, timed,
                          "shape": f"R={R} d={d}" + (f" k={k}" if kk > 1 else "")}
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             floor = 1e3 * 6.0 * pairs / (sms * 128 * clock_mhz * 1e6)
+            n_plain = R if rows is None else len(rows)
             log(f"   {name} {tag}: kernel {ms:.2f} ms, plain "
-                f"{1e3*plain_s:.1f} ms, bound {b_ms:.3f} ms ({b_by}; "
+                f"{1e3*plain_s:.1f} ms on {n_plain} rows, bound "
+                f"{b_ms:.3f} ms ({b_by}; "
                 f"{pairs:.3e} feasible pairs; kernel at "
                 f"{100 * b_ms / ms:.1f}% of the bound), issue floor "
                 f"{floor:.3f} ms (6 instructions per feasible pair, {sms} "
@@ -342,7 +403,8 @@ def bitwise(a, b) -> bool:
     return a.shape == b.shape and torch.equal(view(a), view(b))
 
 
-def check_commit(w, m, c, G, k: int, tag: str) -> dict:
+def check_commit(w, m, c, G, k: int, tag: str, *,
+                 time_it: bool = True) -> dict:
     """The commit kernels on swap_topk's candidates against their plain
     versions, bitwise: the decisions (sub-Gram gather + commit_decisions)
     and the apply (apply_commits' flips and Eq. 6). Each kernel's device
@@ -378,6 +440,17 @@ def check_commit(w, m, c, G, k: int, tag: str) -> dict:
             f"swap_commit {tag} disagrees with its plain versions")
     require(0 < n_acc < n_valid,
             f"swap_commit {tag}: want accepts and rejects in the batch")
+    # the column reads an asymmetric G takes, forced on this G: the same
+    # bits as the row reads
+    cols = ops.GramFacts(False, gram.amax)
+    run_cols = lambda: ops.swap_commit(w, m, c, G, dl, u, p, gram=cols)
+    eq_cols = all(bitwise(x, y) for x, y in zip(run_cols(), (m2, c2, acc,
+                                                             dls)))
+    require(eq_cols, f"swap_commit {tag}: column and row reads disagree")
+    if not time_it:
+        log(f"   swap_commit {tag}: apply by Gram columns (forced) bitwise "
+            f"equal to the row reads: {eq_cols}")
+        return {}
     # the apply reads both Gram rows of every candidate it cannot skip
     wu, wp = w.gather(1, u.long()), w.gather(1, p.long())
     n_full = int(((acc != 0)
@@ -392,17 +465,10 @@ def check_commit(w, m, c, G, k: int, tag: str) -> dict:
     # apply: c and m read and written, two Gram rows per full candidate
     app_bytes = 16.0 * R * d + 8.0 * d * n_full + 4.0 * 3 * R * k
     app_b, app_by = bound(5.0 * d * n_full, app_bytes)
-    # the column reads an asymmetric G takes, forced on this G: the same
-    # bits as the row reads
-    cols = ops.GramFacts(False, gram.amax)
-    run_cols = lambda: ops.swap_commit(w, m, c, G, dl, u, p, gram=cols)
-    eq_cols = all(bitwise(x, y) for x, y in zip(run_cols(), (m2, c2, acc,
-                                                             dls)))
     cols_ms = kernel_ms(run_cols, "swap_commit_apply_kernel", reps=3)
     log(f"   swap_commit {tag}: apply by Gram columns (forced) "
         f"{cols_ms:.4f} ms (device), bitwise equal to the row reads: "
         f"{eq_cols}")
-    require(eq_cols, f"swap_commit {tag}: column and row reads disagree")
     before = ops.LAUNCHES["swap_commit"]
     run()
     launches = ops.LAUNCHES["swap_commit"] - before
@@ -450,10 +516,11 @@ def check_refined(W, G, res, pattern, tag: str) -> None:
     require(gap < 1e-3, f"{tag}: tracked losses drift from recomputed ones")
 
 
-def check_gram(T: int, d: int) -> dict:
-    """gram_xtx in bf16 and fp32 against its plain version (within 1e-5
-    of max|G|, exactly symmetric), then device times with a cold L2.
-    Returns {dtype tag: timings}."""
+def check_gram(T: int, d: int, *, dtypes=("bf16", "fp32"),
+               time_it: bool = True) -> dict:
+    """gram_xtx in ``dtypes`` against its plain version (within 1e-5 of
+    max|G|, exactly symmetric), then, if asked, device times with a cold
+    L2. Returns {dtype tag: timings}."""
     import torch
     from repro_torch.kernels import gram as gram_mod
     from repro_torch.kernels import ops
@@ -464,6 +531,8 @@ def check_gram(T: int, d: int) -> dict:
     flops = float(T) * d * (d + 1)           # the symmetric half
     out = {}
     for xx, tag in ((x.to(torch.bfloat16), "bf16"), (x, "fp32")):
+        if tag not in dtypes:
+            continue
         Gk = ops.gram_xtx(xx)
         Gp = gram_mod.gram_xtx_plain(xx)
         err = float((Gk - Gp).abs().max())
@@ -474,6 +543,8 @@ def check_gram(T: int, d: int) -> dict:
         require(err <= 1e-5 * scale and sym,
                 f"gram_xtx T={T} d={d} {tag} out of tolerance")
         del Gk, Gp
+        if not time_it:
+            continue
         if tag == "bf16":
             lib_name = "torch.mm(x.T, x, out_dtype=torch.float32)"
             lib = lambda: torch.mm(xx.T, xx, out_dtype=torch.float32)
@@ -511,11 +582,13 @@ def spmm_tol(want):
 
 
 def check_spmm(d_out: int, d_in: int, act, tag: str, *,
-               time_it: bool = True) -> dict:
+               time_it: bool = True, bias: bool = False) -> dict:
     """spmm against its plain version at one weight shape, T = 4 and 128,
     nm24 (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16, with
     nm24 == gathered bitwise on the 2:4 mask; bf16 times when asked.
-    Returns {(T, "nm24" | "gathered" | "gathered 2:4"): timings}."""
+    With ``bias`` a random (d_out,) bias goes to both, which add it to the
+    fp32 sum before the epilogue. Returns {(T, "nm24" | "gathered" |
+    "gathered 2:4"): timings}."""
     import torch
     from repro_torch.core import masks, packed
     from repro_torch.kernels import ops
@@ -531,6 +604,8 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                                                      masks.PerRow(0.6))),
             "gathered 2:4": ("gathered", m24)}
     del scores
+    b = torch.randn(d_out, generator=gen, device="cuda") if bias else None
+    tag = tag + (" +bias" if bias else "")
     out = {}
     for T in (4, 128):
         x32 = torch.randn(T, d_in, generator=gen, device="cuda")
@@ -540,8 +615,8 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
             for dt in (torch.float32, torch.bfloat16):
                 pw = packed.pack(w.to(dt), mask, fmt)
                 x = x32.to(dt)
-                got = ops.spmm(x, pw, act=act)
-                want = spmm_mod.spmm_plain(x, pw, None, act)
+                got = ops.spmm(x, pw, bias=b, act=act)
+                want = spmm_mod.spmm_plain(x, pw, b, act)
                 diff = (got.float() - want.float()).abs()
                 ok = bool((diff <= spmm_tol(want)).all())
                 errs[str(dt).split(".")[1]] = float(diff.max())
@@ -555,9 +630,10 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                     f"bf16 {errs['bfloat16']:.3e}")
                 continue
             wm = (w * mask).to(torch.bfloat16)
-            ms, ms_lo, ms_hi = cold_device_ms(lambda: ops.spmm(x, pw, act=act))
+            ms, ms_lo, ms_hi = cold_device_ms(
+                lambda: ops.spmm(x, pw, bias=b, act=act))
             plain_ms, _, _ = cold_device_ms(
-                lambda: spmm_mod.spmm_plain(x, pw, None, act))
+                lambda: spmm_mod.spmm_plain(x, pw, b, act))
             lib_ms, lib_lo, lib_hi = cold_device_ms(
                 lambda: torch.matmul(x, wm.T))
             del wm
@@ -636,17 +712,48 @@ def spmm_device_ms(eng, prompt: dict, launches: int,
                          f"generate, want {launches} ({tries} tries)")
 
 
-def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
-    """Phase 6. Returns the spmm launches of each engine's first
+def serve_bench(engines: dict, prompt: dict, launches: dict) -> dict:
+    """Phase 6's timings: 3 warm ``generate``s per engine (prefill ms,
+    decode tok/s, weight bytes; best of 3), then each packed engine's spmm
+    device time in one more. Returns the warm results per engine."""
+    warm = {name: [] for name in engines}
+    for _ in range(3):
+        for name, eng in engines.items():
+            warm[name].append(eng.generate(prompt, SERVE_GEN))
+    B, S = prompt["tokens"].shape
+    for name, eng in engines.items():
+        pre = min(r.prefill_s for r in warm[name])
+        dec = max(r.tok_s for r in warm[name])
+        log(f"   {name:13s} prefill {1e3 * pre:8.3f} ms "
+            f"({B * S / pre:9.1f} tok/s)  decode {dec:8.1f} tok/s "
+            f"({1e3 / (dec / B):7.3f} ms/step)  weights "
+            f"{eng.weight_bytes():>11d} B  kernel_used {eng.kernel_used}")
+    for name, eng in engines.items():
+        if launches[name]:
+            ms, wall = spmm_device_ms(eng, prompt, launches[name])
+            log(f"   {name:13s} one warm generate: spmm device time "
+                f"{ms:.4f} ms (all {launches[name]} product kernels "
+                f"and their split reductions), generate {wall:.3f} ms wall")
+    return warm
+
+
+def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
+               bench: bool = True):
+    """Phase 6 (and 6b with ``bench=False``: no dense engine, no timed
+    runs or profiles). Returns the spmm launches of each engine's first
     generate."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.pruning import sites
     from repro_torch.serve import ServeEngine
 
     specs = {"dense": (None, "dense"), "masked_0.6": (masks60, "masked"),
              "gathered_0.6": (masks60, "gathered"),
              "masked_2:4": (masks24, "masked"), "nm24_2:4": (masks24, "nm24"),
              "gathered_2:4": (masks24, "gathered")}
+    if not bench:
+        del specs["dense"]
+    n_sites = len(sites.site_specs(api.cfg, params))
     engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
                for name, (m, fmt) in specs.items()}
     for name, eng in engines.items():
@@ -659,26 +766,10 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
         cold[name] = eng.generate(prompt, SERVE_GEN)
         n = serve_launches[name] = ops.LAUNCHES["spmm"] - before
         packed = specs[name][1] in ("nm24", "gathered")
-        want = 7 * api.cfg.n_layers * SERVE_GEN if packed else 0
+        want = n_sites * api.cfg.n_layers * SERVE_GEN if packed else 0
         require(n == want, f"{name}: {n} spmm launches, want {want}")
-    warm = {name: [] for name in engines}
-    for _ in range(3):
-        for name, eng in engines.items():
-            warm[name].append(eng.generate(prompt, SERVE_GEN))
-    for name, eng in engines.items():
-        B, S = prompt["tokens"].shape
-        pre = min(r.prefill_s for r in warm[name])
-        dec = max(r.tok_s for r in warm[name])
-        log(f"   {name:13s} prefill {1e3 * pre:8.3f} ms "
-            f"({B * S / pre:9.1f} tok/s)  decode {dec:8.1f} tok/s "
-            f"({1e3 / (dec / B):7.3f} ms/step)  weights "
-            f"{eng.weight_bytes():>11d} B  kernel_used {eng.kernel_used}")
-    for name, eng in engines.items():
-        if serve_launches[name]:
-            ms, wall = spmm_device_ms(eng, prompt, serve_launches[name])
-            log(f"   {name:13s} one warm generate: spmm device time "
-                f"{ms:.4f} ms (all {serve_launches[name]} product kernels "
-                f"and their split reductions), generate {wall:.3f} ms wall")
+    warm = (serve_bench(engines, prompt, serve_launches) if bench
+            else {name: [] for name in engines})
     traces = {name: eng.logits_trace(prompt, SERVE_GEN)
               for name, eng in engines.items()}
     toks = {name: [r.tokens for r in warm[name]] + [cold[name].tokens]
@@ -699,15 +790,16 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
         scale = float(ref.abs().max())
         errs = (forced - ref).abs().amax(dim=(1, 2))      # per position
         err = float(errs.max())
-        prune_gap = float((traces["dense"][0] - ref[0]).abs().max())
+        prune_gap = (f"; dense vs masked prefill "
+                     f"{float((traces['dense'][0] - ref[0]).abs().max()):.4e}"
+                     if bench else "")
         agree = float((toks[packed_name][0] == toks[masked_name][0])
                       .float().mean())
         log(f"   {packed_name} vs {masked_name} (fed the masked tokens): "
             f"logits max_abs_err prefill {float(errs[0]):.4e}, decode steps "
             f"{float(errs[1:].max()):.4e} ({err / scale:.2e} of "
-            f"max|logits| {scale:.3f}; dense vs masked prefill "
-            f"{prune_gap:.4e}); free-running greedy tokens agree "
-            f"{100 * agree:.1f}%")
+            f"max|logits| {scale:.3f}{prune_gap}); free-running greedy "
+            f"tokens agree {100 * agree:.1f}%")
         require(math.isfinite(err) and err <= SERVE_TOL * scale,
                 f"{packed_name} vs {masked_name} beyond {SERVE_TOL} of "
                 "max|logits|")
@@ -715,6 +807,167 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict):
             < engines["masked_2:4"].weight_bytes(),
             "nm24 holds no fewer weight bytes than masked")
     return serve_launches
+
+
+def other_shapes(clock_mhz: float) -> None:
+    """Phase 3b: every kernel at the other dense configs' shapes, held
+    against its plain version as phase 3 holds it. The Gram (bf16, T =
+    512) at each d of GRAM_DS, timed at GRAM_TIMED; the three swap kernels
+    (k = 8) at SWAP_SHAPES, on all rows, swap_topk and swap_argmin held
+    bitwise on the first 128 rows and the last 32-row block, the commit on
+    every row, swap_topk and the commit step timed at the two largest;
+    spmm at SPMM_SHAPES, the granite pair timed in bf16."""
+    import torch
+    from repro_torch.launch import profile_swap
+
+    for d in GRAM_DS:
+        check_gram(512, d, dtypes=("bf16",), time_it=d in GRAM_TIMED)
+    for i, (R, d, site) in enumerate(SWAP_SHAPES):
+        w, m, c, G = profile_swap.problem(R, d, i)
+        tag = f"R={R} d={d} ({site})"
+        last = (R - 1) // 32 * 32
+        rows = torch.unique(torch.cat([torch.arange(min(R, 128)),
+                                       torch.arange(last, R)])).cuda()
+        timed = ("swap_topk",) if i < 2 else ()
+        check_swaps(w, m, c, G, 8, tag, names=("swap_topk", "swap_argmin"),
+                    timed=timed, clock_mhz=clock_mhz, rows=rows)
+        check_commit(w, m, c, G, 8, tag, time_it=i < 2)
+        del w, m, c, G
+        torch.cuda.empty_cache()
+    for d_out, d_in, act, bias, site, timed in SPMM_SHAPES:
+        check_spmm(d_out, d_in, act, site, time_it=timed, bias=bias)
+    torch.cuda.empty_cache()
+
+
+def full_depth_plans() -> None:
+    """Each dense config's ``plan_pruning`` at full depth on the meta
+    device (nothing allocated): weight, Gram and calibration bytes, and
+    whether calibration — the bf16 model and the skip-aware full
+    accumulator — fits this card's memory."""
+    import torch
+    from repro_torch import configs, models
+    from repro_torch.core import masks
+    from repro_torch.pruning import plan as plan_lib, recipe as recipe_lib
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    before = torch.cuda.memory_allocated()
+    for name, cfg in configs.ARCHS.items():
+        api = models.build(cfg)
+        params = api.init(device="meta")
+        plan = plan_lib.plan_pruning(
+            api, params, recipe_lib.PruneRecipe.single(masks.PerRow(0.6)))
+        weights = 2 * cfg.n_params()
+        calib = plan.total_calib_bytes(minimal=False)
+        fits = weights + calib <= card
+        log(f"   {name}: {cfg.n_layers} layers, {cfg.n_params()} params "
+            f"({weights / 1e9:.2f} GB bf16); prunable weights "
+            f"{plan.total_weight_bytes() / 1e9:.2f} GB fp32, Grams "
+            f"{plan.total_gram_bytes() / 1e9:.2f} GB, calibration state "
+            f"{calib / 1e9:.2f} GB ({calib / cfg.n_layers / 1e9:.3f} GB a "
+            f"layer); model + calibration {(weights + calib) / 1e9:.2f} GB "
+            f"{'fits' if fits else 'does NOT fit'} one card "
+            f"({card / 1e9:.2f} GB)")
+    require(torch.cuda.memory_allocated() == before,
+            "the full-depth plans allocated CUDA memory")
+
+
+def other_config(name: str) -> dict:
+    """Phases 4b and 6b for one dense config at full width, 2 layers, bf16,
+    random weights from seed 0 (chatglm3's qkv biases, zero at init, drawn
+    from N(0, 0.02²) so the bias path carries values): prune_model as in
+    phase 4 with its gates, then serving as phase 6 without the dense
+    engine and the timed runs. Returns the launches of both paths."""
+    import torch
+    from repro_torch import configs, models, pruning
+    from repro_torch.core import masks
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    cfg = configs.get(name).replace(n_layers=2)
+    api = models.build(cfg)
+    params = api.init(seed=0, device=dev)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for b in ("bq", "bk", "bv"):
+            t = params["layers"]["attn"][b]
+            t.copy_(0.02 * torch.randn(t.shape, generator=gen, device=dev))
+    pattern = masks.PerRow(0.6)
+    batches = list(pruning.calibration_batches(
+        cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=dev))
+    with Phase(f"4b {name}: prune_model + perplexity"):
+        log(f"   config: {name} full width (d_model {cfg.d_model}, "
+            f"{cfg.n_heads} / {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff} "
+            f"{cfg.mlp} {cfg.act}, vocab {cfg.vocab_size}, qkv_bias "
+            f"{cfg.qkv_bias}, rope_pct {cfg.rope_pct}), n_layers 2 (reduced "
+            f"from {configs.get(name).n_layers}), {cfg.dtype}")
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = pruning.prune_model(api, params, batches, pattern,
+                                     warmstart="wanda", method="sparseswaps",
+                                     t_max=T_MAX)
+        torch.cuda.synchronize()
+        t_prune = time.perf_counter() - t0
+        prune_launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        dense = pruning.evaluate(api, params, seed=0, device=dev)
+        pruned = pruning.evaluate(api, params, masks=report.masks, seed=0,
+                                  device=dev)
+        log(report.summary())
+        log(f"   {name}: prune_model {t_prune:.2f} s, max memory "
+            f"{peak / 2**30:.2f} GiB; dense ppl {dense['perplexity']:.4f}, "
+            f"pruned ppl {pruned['perplexity']:.4f}; mean error reduction "
+            f"{100 * report.mean_error_reduction():.3f}%")
+        log(f"   {name}: launches {prune_launches}")
+        log(f"   {name}: masks digest {digest(mask_leaves(report.masks))}")
+        check_pruned(api, params, report, prune_launches, len(batches),
+                     pattern, dense, pruned)
+    with Phase(f"6b {name}: serve masked / nm24 / gathered"):
+        rep24 = pruning.prune_model(api, params, batches, masks.NM(2, 4),
+                                    warmstart="wanda", method="none")
+        pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                      4, 32, split="val", device=dev)
+        serve_launches = serve_path(api, params, report.masks, rep24.masks,
+                                    pipe.get(0), bench=False)
+        log(f"   {name}: spmm launches {serve_launches}")
+    del params, report, rep24, batches
+    torch.cuda.empty_cache()
+    return {"prune": prune_launches, "serve": serve_launches}
+
+
+def check_pruned(api, params, report, launches: dict, n_batches: int,
+                 pattern, dense: dict, pruned: dict) -> None:
+    """Phases 4 and 4b: every Gram launch on the bf16 path, one per tap,
+    layer and batch; swap_topk once per site, layer and pass (taps and
+    sites from ``pruning.sites``); exact per-row sparsity, monotone row
+    losses, a positive mean error reduction, finite perplexities."""
+    from repro_torch.core import masks
+    from repro_torch.pruning import sites
+
+    cfg = api.cfg
+    specs = sites.site_specs(cfg, params)
+    n_gram = len(sites.tap_specs(cfg, specs)) * cfg.n_layers * n_batches
+    require(launches["gram_xtx_bf16"] == n_gram and launches["gram_xtx"] == 0,
+            f"{cfg.name}: the Gram launches were not all {n_gram} on the "
+            "bf16 path")
+    n_topk = len(specs) * cfg.n_layers * T_MAX
+    require(launches["swap_topk"] == n_topk,
+            f"{cfg.name}: swap_topk launched {launches['swap_topk']} times, "
+            f"want {n_topk}")
+    for s in report.sites:
+        node = report.masks
+        for k in s.name.split("."):
+            node = node[k]
+        require(masks.validate_mask(node, pattern),
+                f"{cfg.name} {s.name}: per-row sparsity not exact")
+        require(bool((s.row_loss_final <= s.row_loss_init).all()),
+                f"{cfg.name} {s.name}: a row loss rose")
+    require(report.mean_error_reduction() > 0,
+            f"{cfg.name}: no error reduction over the warmstart")
+    require(math.isfinite(dense["perplexity"])
+            and math.isfinite(pruned["perplexity"]),
+            f"{cfg.name}: perplexity not finite")
 
 
 RECIPE = {
@@ -985,28 +1238,8 @@ def main() -> int:
         log(f"   pruned ppl {pruned['perplexity']:.4f} acc {pruned['accuracy']:.4f}")
         log(f"   launches {main_launches}")
         log(f"   masks digest {digest(mask_leaves(report.masks))}")
-        n_gram = 7 * cfg.n_layers * len(batches)
-        require(main_launches["gram_xtx_bf16"] == n_gram
-                and main_launches["gram_xtx"] == 0,
-                f"the main path's Gram launches were not all {n_gram} on "
-                "the bf16 path")
-        n_topk = 7 * cfg.n_layers * T_MAX
-        require(main_launches["swap_topk"] == n_topk,
-                f"the main path launched swap_topk "
-                f"{main_launches['swap_topk']} times, want {n_topk}")
-        for s in report.sites:
-            node = report.masks
-            for k in s.name.split("."):
-                node = node[k]
-            require(masks.validate_mask(node, pattern),
-                    f"{s.name}: per-row sparsity not exact")
-            require(bool((s.row_loss_final <= s.row_loss_init).all()),
-                    f"{s.name}: a row loss rose")
-        require(report.mean_error_reduction() > 0,
-                "no error reduction over the warmstart")
-        require(math.isfinite(dense["perplexity"])
-                and math.isfinite(pruned["perplexity"]),
-                "perplexity not finite")
+        check_pruned(api, params, report, main_launches, len(batches),
+                     pattern, dense, pruned)
 
     with Phase("5 second path: refine on layer 0 w_down (k=1, candidates)"):
         taps = pruning.accumulate(api, params, batches)
@@ -1106,15 +1339,25 @@ def main() -> int:
 
     with Phase("7 recipe path: launch.prune with a mixed recipe, resume"):
         recipe_path(cfg)
+    del params, report, rep24, batches, api
+    torch.cuda.empty_cache()
 
-    launches = {"gram_xtx": main_launches["gram_xtx_bf16"]
-                + main_launches["gram_xtx"],
-                "swap_topk": main_launches["swap_topk"],
+    with Phase("3b kernel checks at the other dense configs' shapes"):
+        other_shapes(clock)
+    other = {name: other_config(name) for name in OTHER_DENSE}
+    with Phase("8 full depth, shapes only: plan_pruning on the meta device"):
+        full_depth_plans()
+
+    runs = [(main_launches, serve_launches)] + [
+        (o["prune"], o["serve"]) for o in other.values()]
+    launches = {"gram_xtx": sum(p["gram_xtx_bf16"] + p["gram_xtx"]
+                                for p, _ in runs),
+                "swap_topk": sum(p["swap_topk"] for p, _ in runs),
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches,
-                "spmm": serve_launches["nm24_2:4"],
-                "spmm_gather": serve_launches["gathered_0.6"]
-                + serve_launches["gathered_2:4"]}
+                "spmm": sum(s["nm24_2:4"] for _, s in runs),
+                "spmm_gather": sum(s["gathered_0.6"] + s["gathered_2:4"]
+                                   for _, s in runs)}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]

@@ -1,14 +1,18 @@
-"""Config registry of the port: llama31-8b (the paper's own) and its TINY.
+"""Config registry of the port: the dense family — the reference's four
+dense assigned architectures and llama31-8b (the paper's own), each with
+its TINY.
 
 ``get(name)`` returns the full config; ``get_tiny(name)`` the reduced
 same-family config the CPU tests instantiate.
 """
 from __future__ import annotations
 
-from . import llama31_8b
+from . import (chatglm3_6b, granite_34b, internlm2_20b, llama31_8b,
+               minitron_4b)
 from .base import ArchConfig
 
-_MODULES = [llama31_8b]
+# the reference registry's order, its non-dense families left out
+_MODULES = [chatglm3_6b, granite_34b, minitron_4b, internlm2_20b, llama31_8b]
 
 ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 TINY: dict[str, ArchConfig] = {m.CONFIG.name: m.TINY for m in _MODULES}

@@ -4,7 +4,8 @@
 for every field the dense transformer reads, so a config written for one
 package reads the same in the other. Family-specific fields the port does
 not run yet (MoE, SSM, RWKV, cross-attention, encoder-decoder) are left
-out until their slice lands.
+out until their slice lands, and so is ``grad_accum``, a training knob
+that comes with training (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -40,6 +41,12 @@ class ArchConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
+
+    def n_params(self) -> int:
+        """Total parameter count (embeddings included)."""
+        from repro_torch.models import param_count
+
+        return param_count(self)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -22,7 +22,8 @@ Two search families:
   kernel — returns the same candidates.
 
 The ΔL evaluation order is fixed: ``inter = 2 * (w_u * w_p) * G_up``,
-then ``dl = (a_u + b_p) - inter``. PyTorch runs each elementwise op as its
+then ``dl = (a_u + b_p) - inter``; a NaN ΔL reads as +inf in every
+search, as in the CUDA kernels. PyTorch runs each elementwise op as its
 own rounding step (no fused multiply-add), and the CUDA kernels keep the
 same order with round-to-nearest intrinsics, so kernel and plain version
 agree bit for bit on the card.
@@ -64,9 +65,12 @@ def swap_scores(w, m, c, g_diag):
 
 
 def _delta(a_u, b_p, w_u, w_p, g):
-    """ΔL in the fixed evaluation order (broadcasting operands)."""
+    """ΔL in the fixed evaluation order (broadcasting operands). A NaN
+    (inf - inf, for weights near 2^64) reads as +inf, the CUDA searches'
+    rule, so it never takes an argmin or a top-k slot from a finite pair."""
     inter = 2.0 * (w_u * w_p) * g
-    return (a_u + b_p) - inter
+    dl = (a_u + b_p) - inter
+    return dl.nan_to_num_(nan=INVALID, posinf=INVALID, neginf=-INVALID)
 
 
 def delta_matrix(w, m, c, G):
@@ -339,15 +343,16 @@ def commit_swaps_columns(w, m, c, G, dl, p_idx, *, eps: float = 0.0):
     dsum = torch.zeros(R, dtype=torch.float32, device=w.device)
     nacc = torch.zeros(R, dtype=torch.int64, device=w.device)
     quad = (w32 * w32) * g_diag[None, :]
+    w2 = 2.0 * w32            # the same bits as 2.0 * w32 in the loop
     for t in range(k):
         pt = p_idx[:, t]
         gcol = _cols(G32, pt)                                 # (R, d)
         wpt = w32[rows, pt]
         cpt = c[rows, pt]
         b_t = -2.0 * wpt * cpt + (wpt * wpt) * g_diag[pt]     # (R,)
-        a = 2.0 * w32 * c + quad
+        a = w2 * c + quad
         a = torch.where(m > 0.5, a, INVALID)
-        dl_u = a + b_t[:, None] - 2.0 * (w32 * wpt[:, None]) * gcol
+        dl_u = _delta(a, b_t[:, None], w32, wpt[:, None], gcol)
         ui = torch.argmin(dl_u, dim=1)                        # ties -> low u
         dl_t = dl_u[rows, ui]
         still_pruned = m[rows, pt] < 0.5

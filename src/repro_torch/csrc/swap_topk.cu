@@ -72,9 +72,9 @@
 //    d >= 46341 and meets its 2^30 sentinel from d = 32768.
 //
 // NaN: a NaN ΔL never wins. fminf keeps the running minimum over a NaN,
-// and the selection's `==` never matches one. (The plain chunked version
-// lets a NaN take its chunk's argmin and then drops the chunk; rows with a
-// NaN ΔL are the only ones where the two may differ.)
+// and the selection's `==` never matches one. The plain versions read a
+// NaN ΔL as +inf (swap_math._delta), the same rule. (The TPU kernel lets
+// a NaN take its tile's minimum and then drops the tile.)
 //
 // Outputs. swap_topk: vals (R, k) fp32, u and p (R, k) int32, ascending
 // by (ΔL, p); rows with fewer than k feasible pairs end in +inf entries

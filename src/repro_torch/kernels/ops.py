@@ -77,9 +77,9 @@ def _swap_inputs(w, m, c, G):
 def swap_argmin(w: torch.Tensor, m: torch.Tensor, c: torch.Tensor,
                 G: torch.Tensor):
     """Jointly-best 1-swap per row: (ΔL*, u*, p*) each (R,); ties to the
-    smallest flat index u·d + p; (+inf, 0, 0) where no pair is feasible.
-    On the card bitwise equal to the plain version, except that a NaN ΔL
-    never wins there (``csrc/swap_topk.cu``). Indices are int64."""
+    smallest flat index u·d + p; (+inf, 0, 0) where no pair is feasible;
+    a NaN ΔL reads as +inf. On the card bitwise equal to the plain
+    version. Indices are int64."""
     _check_swap_shapes(w, m, c, G)
     if not _on_cuda(w, m, c, G):
         return argmin_mod.swap_argmin_plain(w, m, c, G)

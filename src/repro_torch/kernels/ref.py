@@ -10,7 +10,9 @@ import torch
 
 def swap_argmin_ref(w, m, c, G):
     """Jointly-best 1-swap per row via the dense ΔL matrix; ties to the
-    smallest flat index u·d + p. Returns (dl*, u*, p*) each (R,)."""
+    smallest flat index u·d + p, a NaN ΔL read as +inf (the port's rule;
+    the reference's copy lets a NaN win). Returns (dl*, u*, p*) each
+    (R,)."""
     w32 = w.float()
     c32 = c.float()
     g_diag = torch.diagonal(G).float()
@@ -19,6 +21,7 @@ def swap_argmin_ref(w, m, c, G):
     b = torch.where(m > 0.5, float("inf"), -2.0 * w32 * c32 + quad)
     inter = 2.0 * torch.einsum("ru,rp,up->rup", w32, w32, G.float())
     dl = a[:, :, None] + b[:, None, :] - inter
+    dl = torch.where(torch.isnan(dl), float("inf"), dl)   # NaN never wins
     R, d, _ = dl.shape
     flat = dl.reshape(R, d * d)
     idx = torch.argmin(flat, dim=1)

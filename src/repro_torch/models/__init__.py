@@ -19,6 +19,7 @@ MoE, SSM, RWKV, VLM and encoder-decoder families with their slices.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 from repro_torch.configs.base import ArchConfig
@@ -63,4 +64,26 @@ def build(cfg: ArchConfig) -> ModelApi:
     )
 
 
-__all__ = ["ModelApi", "build"]
+def param_count(cfg: ArchConfig) -> int:
+    """Exact parameter count from the initializer's shapes on
+    ``device="meta"`` (no memory, no FLOPs): the counterpart of the
+    reference's ``jax.eval_shape`` count. Active-only counts wait for
+    MoE."""
+    params = build(cfg).init(device="meta")
+    return sum(math.prod(t.shape) for t in _leaves(params))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def embedding_params(cfg: ArchConfig) -> int:
+    n = cfg.vocab_size * cfg.d_model
+    return n if cfg.tie_embeddings else 2 * n
+
+
+__all__ = ["ModelApi", "build", "embedding_params", "param_count"]

@@ -197,6 +197,47 @@ def test_swap_argmin_infeasible_row():
     assert np.isinf(tv[1].item()) and tu[1].item() == 0 and tp[1].item() == 0
 
 
+@needs_reference
+def test_swap_argmin_nan_delta_reads_as_inf():
+    """A NaN ΔL (one Gram entry made NaN, so one pair of every row) reads
+    as +inf in the port's plain searches, the CUDA kernels' rule: each row
+    gets the best of its finite pairs, as the dense ΔL with NaN as +inf
+    gives it. The reference's Pallas kernel lets the NaN take its 256 x
+    256 tile's minimum and then drops the tile, so its pick is the best
+    pair outside that tile: row 0's best pair shares the NaN's tile, and
+    the reference misses it (a fault of the reference, ROADMAP C)."""
+    R, d, tile = 16, 512, 256
+    w, m, c, G = _swap_problem(5, R, d)
+    dl = sm.delta_matrix(*map(_t, (w, m, c, G))).reshape(R, d * d)
+    u0, p0 = divmod(int(dl[0].argmin()), d)
+    u1 = u0 + 1 if u0 % tile < tile - 1 else u0 - 1      # same tile, off
+    p1 = p0 if p0 != u1 else p0 ^ 1                      # the diagonal
+    assert (u1 // tile, p1 // tile) == (u0 // tile, p0 // tile)
+    G[u1, p1] = np.nan                                   # c, diag(G) clean
+    want = torch.where(torch.isnan(dl), torch.inf, dl)
+    want[:, u1 * d + p1] = torch.inf
+    idx = want.argmin(1)
+    got = argmin_mod.swap_argmin_plain(*map(_t, (w, m, c, G)))
+    assert torch.equal(got[0], want.gather(1, idx[:, None])[:, 0])
+    assert torch.equal(got[1], idx // d) and torch.equal(got[2], idx % d)
+    assert (int(got[1][0]), int(got[2][0])) == (u0, p0)
+    for k in (1, 8):                       # the top-k search: NaN slots too
+        tv, tu, tp = topk_mod.swap_topk_plain(*map(_t, (w, m, c, G)), k=k)
+        assert bool(torch.isfinite(tv).all())
+        assert torch.equal(tv[:, 0], got[0]) and torch.equal(tp[:, 0], got[2])
+    rv, ru, rp = ref.swap_argmin_ref(*map(_t, (w, m, c, G)))
+    assert torch.equal(ru, got[1]) and torch.equal(rp, got[2])
+    # the reference: best pair outside the NaN's tile, in every row
+    drop = want.reshape(R, d // tile, tile, d // tile, tile).clone()
+    drop[:, u1 // tile, :, p1 // tile, :] = torch.inf
+    jidx = drop.reshape(R, d * d).argmin(1)
+    jv, ju, jp = (np.asarray(x) for x in jops.swap_argmin(
+        *(jnp.asarray(x) for x in (w, m, c, G)), interpret=True))
+    assert np.array_equal(ju, (jidx // d).numpy())
+    assert np.array_equal(jp, (jidx % d).numpy())
+    assert (ju[0], jp[0]) != (u0, p0)
+
+
 # ---------------------------------------------------------------------------
 # swap_topk
 # ---------------------------------------------------------------------------
@@ -503,7 +544,8 @@ def test_cuda_kernels_match_plain(cuda, d_out, d_in):
 
 
 # (id, R, d, k, mask): ragged R and d, a small R that only the p-split
-# fills the card with, k at both ends, PerRow at 0.1 / 0.5 / 0.9, a
+# fills the card with, k at both ends, R = 128 rows (MQA's wk / wv) with a
+# 128-column last p-tile (d % 256 == 128, as chatglm3's d_ff = 13696), PerRow at 0.1 / 0.5 / 0.9, a
 # Bernoulli mask (unequal per-row counts; d = 301 takes the padded-G path,
 # and G differs from Gᵀ in one entry's last bit),
 # rows with fewer than k pruned columns, exact ties across u and p, and a
@@ -521,6 +563,7 @@ TOPK_CASES = [
     ("ties-48x384-k8", 48, 384, 8, "ties"),
     ("huge-g-40x256-k8", 40, 256, 8, "huge_g"),
     ("huge-w-40x256-k8", 40, 256, 8, "huge_w"),
+    ("ptile-128x384-k8", 128, 384, 8, "perrow0.6"),
 ]
 
 
@@ -609,10 +652,9 @@ def test_cuda_swap_argmin_edges(cuda, case):
     """swap_argmin on the card against swap_argmin_plain, every row bitwise
     (value bits, u and p; (+inf, 0, 0) where no pair is feasible), one
     launch; each finite value is ΔL at its own (u, p) to the bit. Rows
-    with a NaN ΔL (huge-w: a column's b is inf - inf) are held against the
-    dense ΔL with NaN as +inf instead: the plain chunked version lets a NaN
-    take its chunk's argmin and then drops the chunk, while in the kernel a
-    NaN never wins."""
+    with a NaN ΔL (huge-w: a column's b is inf - inf) included: both read
+    it as +inf, so the plain version equals the dense ΔL's pick with NaN
+    as +inf there."""
     _, R, d, _, mask = case
     make = _argmin_problem if case in ARGMIN_CASES else _topk_problem
     w, m, c, G = make(R, d, mask, cuda)
@@ -620,14 +662,8 @@ def test_cuda_swap_argmin_edges(cuda, case):
     got = ops.swap_argmin(w, m, c, G)
     assert ops.LAUNCHES["swap_argmin"] == 1
     want = argmin_mod.swap_argmin_plain(w, m, c, G)
-    dl = sm.delta_matrix(w, m, c, G)
-    nan = torch.isnan(dl).flatten(1).any(1)
-    if nan.any():
-        flat = torch.where(torch.isnan(dl), torch.inf, dl).flatten(1)
-        idx = flat.argmin(dim=1)
-        dense = (flat.gather(1, idx[:, None])[:, 0], idx // d, idx % d)
-        want = tuple(torch.where(nan, x, y) for x, y in zip(dense, want))
-    del dl
+    dense = ref.swap_argmin_ref(w, m, c, G)
+    assert torch.equal(dense[1], want[1]) and torch.equal(dense[2], want[2])
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     fin = torch.isfinite(got[0])
@@ -701,7 +737,8 @@ def test_cuda_swap_commit_matches_plain(cuda, d_out, d_in, k):
 
 # (id, R, d, k, kind): G mirrored bit for bit (the apply reads its rows)
 # or asymmetric (it reads columns; "lastbit": one entry's last bit, at an
-# odd d, so scalar loads); k at both ends; R not a multiple of the
+# odd d, so scalar loads); k at both ends; R = 128 rows with a 128-column
+# last p-tile (d % 256 == 128); R not a multiple of the
 # decisions' 4 rows a block; d = 3; rows with fewer than k pruned columns
 # (the +inf tail, indices clamped to d - 1); and, planted after the
 # search: duplicate u with repeated rows (compaction's pad slots), -0.0
@@ -723,6 +760,7 @@ COMMIT_CASES = [
     ("neg-zero-nan-40x256-k8", 40, 256, 8, "negzero"),
     ("inf-g-40x256-k8", 40, 256, 8, "inf_g"),
     ("huge-w-40x256-k8", 40, 256, 8, "huge_w"),
+    ("ptile-128x384-k8", 128, 384, 8, "sym"),
 ]
 
 
@@ -883,6 +921,39 @@ def test_cuda_spmm_matches_plain(cuda, dtype, T, d_out, d_in):
     assert _spmm_ok(got, spmm_mod.spmm_plain(x2, g60))
     torch.cuda.synchronize()
     assert ops.LAUNCHES["spmm"] == 3 * len(spmm_mod.EPILOGUES) + 3 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [4, 128])
+@pytest.mark.parametrize("act", ["gelu", "relu2", "silu"])
+def test_cuda_spmm_bias_epilogues(cuda, dtype, T, act):
+    """A bias with the plain MLPs' epilogues (gelu, tanh form; relu2) and
+    silu, at d_out = 128 (an MQA wk / wv: one 128-row block, so d_in is
+    split) in both packings: within tolerance of spmm_plain, which adds
+    the bias and applies the epilogue in the same order on the fp32 sum;
+    nm24 and gathered bitwise equal on one 2:4 mask."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    d_out, d_in = 128, 2048
+    w = (torch.randn(d_out, d_in, generator=gen, device=cuda)
+         * d_in ** -0.5).to(dt)
+    x = torch.randn(T, d_in, generator=gen, device=cuda).to(dt)
+    bias = torch.randn(d_out, generator=gen, device=cuda)
+    scores = torch.rand(d_out, d_in, generator=gen, device=cuda)
+    m24 = tmasks.make_mask(scores, tmasks.NM(2, 4))
+    nm = tpacked.pack(w, m24, "nm24")
+    ops.reset_launches()
+    y_nm = ops.spmm(x, nm, bias=bias, act=act)
+    assert _spmm_ok(y_nm, spmm_mod.spmm_plain(x, nm, bias, act))
+    assert torch.equal(y_nm, ops.spmm(x, tpacked.pack(w, m24, "gathered"),
+                                      bias=bias, act=act))
+    g60 = tpacked.pack(w, tmasks.make_mask(scores, tmasks.PerRow(0.6)),
+                       "gathered")
+    got = ops.spmm(x, g60, bias=bias, act=act)
+    assert _spmm_ok(got, spmm_mod.spmm_plain(x, g60, bias, act))
+    assert not torch.equal(got, ops.spmm(x, g60, act=act))   # the bias lands
+    assert ops.LAUNCHES["spmm"] == 4
 
 
 # (id, T, d_out, d_in, mask, offset): the bf16 gathered kernel's edges.

@@ -49,7 +49,9 @@ and its time:
    ``spmm`` at every shape of the serve path — w_gate / w_up (14336 x
    4096, silu), w_down (4096 x 14336), wq / wo (4096 x 4096) and wk / wv
    (1024 x 4096), T = 4 (decode) and 128 (prefill), nm24 on a 2:4 mask
-   and gathered on a PerRow(0.6) mask and on the same 2:4 mask — in fp32
+   and gathered on a PerRow(0.6) mask and on the same 2:4 mask, and at
+   w_gate also T = 1 and 64 (untimed; the continuous scheduler's one-row
+   decode bucket and its chunked-prefill window) — in fp32
    (within 1e-5 of max|y|: fp32 sums in another order) and bf16 (within
    one bf16 ulp of the plain element, or 1e-5 of max|y|: the two fp32
    sums round to neighbouring bf16 values), nm24 and gathered bitwise
@@ -108,6 +110,41 @@ and its time:
    weight bytes and ``kernel_used`` (best of 3 warm runs), and per packed
    engine the device time of its spmm kernels in one more warm
    ``generate`` (torch.profiler; the trace must hold every launch).
+6c. continuous serving (run after phase 8, on the params of phase 4 made
+   again from seed 0) — phase 4's PerRow(0.6) masks and phase 6's Wanda
+   2:4 masks, dense / masked PerRow(0.6) / nm24 (2:4) /
+   gathered PerRow(0.6) engines, each through ``ContinuousScheduler``
+   (8 slots of 1024 tokens, 16-token pages, decode chunks of 8):
+   (a) the reference test's four mixed greedy and sampled requests at
+   the pinned width give each request's solo tokens bitwise, and the
+   pools end empty; (b) across shapes, where the card's matmuls may
+   round a row otherwise: chunked prefill (64-token windows) vs one-shot
+   of 100-, 300- and 500-token prompts, and a batch of four 32-token
+   prompts prefilled together (the fixed path) vs each alone, both
+   teacher-forced for 8 and 16 decode steps — logits within SERVE_TOL
+   of max|logits|, with the largest |dK|, |dV| over valid positions and
+   the greedy tokens that flip (at near ties) printed; then the
+   scheduler's greedy tokens, chunked vs one-shot and against
+   ``generate``, equal up to the first near-tie (a step whose top-2
+   logit gap is within twice the forced pair's largest logits error);
+   (c) disaggregated (two pools, page shipping) == interleaved bitwise,
+   with shipped bytes = shipped pages x page bytes; (d) ``run_chaos``
+   under ``FaultPlan.chaos(0)``: no leaked bytes, no stream mismatches,
+   faults fired; (e) in every scheduler run spmm launched sites x layers
+   x (prefill dispatches + decode steps) times, counted from the
+   scheduler's ``dispatches`` (0 for dense and masked). One profiled
+   run per packed engine splits its wall time into device kernels
+   (spmm's share) and the rest. (f) ``bench_load_rows``, one pass
+   each (no warm-up pass), prompts 32-512 and outputs 16-128 tokens:
+   continuous for masked, nm24 and gathered at 8 arrivals/s (below the
+   continuous path's saturation, 13-19/s by host) and at 32/s (above
+   it: requests queue for one of the 8 slots), the rates from
+   ``launch/profile_serve.py``'s sweep, each over a window of 100 /
+   rate seconds (the same 89 requests at both rates from seed 0); and
+   nm24 continuous vs fixed over the first 2 s at 8/s (15 requests; the
+   fixed path, each prompt length alone, saturates by 2/s). Offered and
+   delivered tok/s, TTFT, queue wait and per-token p50 / p99, wasted
+   tokens: printed, not gated.
 7. recipe path — ``repro_torch.launch.prune.prune`` on the same model
    (its own params from seed 0) with a recipe of every rule kind: 2:4
    sparseswaps on wq/wo, sparsegpt PerRow(0.6) on wk, skip on wv, dsnot
@@ -153,9 +190,9 @@ and its time:
 9. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
    launches the nm24 engines'; ``spmm_gather``: the gathered kernel at
    w_gate T = 4 on PerRow(0.6), its launches the gathered engines'; the
-   Gram's, swap_topk's and spmm's launches those of phases 4 and 6 and of
-   every 4b / 6b run), the card line, and last {"ok": true, "device":
-   ...}.
+   Gram's, swap_topk's and spmm's launches those of phases 4, 6 and 6c
+   and of every 4b / 6b run), the card line, and last {"ok": true,
+   "device": ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -219,6 +256,12 @@ SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
 ]
 
 
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -266,10 +309,12 @@ def cuda_ms(fn, *, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, kernel: str, *, reps: int) -> float:
+def kernel_ms(fn, kernel: str, *, reps: int, tries: int = 5) -> float:
     """Mean device time in ms of the CUDA kernels whose name contains
     ``kernel``, per call of ``fn()``, by torch.profiler: the kernel alone,
-    without the host time of its wrapper between launches."""
+    without the host time of its wrapper between launches. A trace that
+    lost records (the profiler drops some late in a long process) is
+    taken again, up to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -277,16 +322,18 @@ def kernel_ms(fn, kernel: str, *, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        profiler_preroll()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    require(len(us) == reps,
-            f"the profiler saw {len(us)} {kernel} launches, want {reps}")
-    return sum(us) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiler_preroll()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if len(us) == reps:
+            return sum(us) / 1e3 / reps
+    raise AssertionError(f"the profiler saw {len(us)} {kernel} launches, "
+                         f"want {reps} ({tries} tries)")
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
@@ -582,8 +629,10 @@ def spmm_tol(want):
 
 
 def check_spmm(d_out: int, d_in: int, act, tag: str, *,
-               time_it: bool = True, bias: bool = False) -> dict:
-    """spmm against its plain version at one weight shape, T = 4 and 128,
+               time_it: bool = True, bias: bool = False,
+               extra_T: tuple = ()) -> dict:
+    """spmm against its plain version at one weight shape, T = 4 and 128
+    (and the untimed ``extra_T``),
     nm24 (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16, with
     nm24 == gathered bitwise on the 2:4 mask; bf16 times when asked.
     With ``bias`` a random (d_out,) bias goes to both, which add it to the
@@ -607,7 +656,7 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
     b = torch.randn(d_out, generator=gen, device="cuda") if bias else None
     tag = tag + (" +bias" if bias else "")
     out = {}
-    for T in (4, 128):
+    for T in (4, 128) + tuple(extra_T):
         x32 = torch.randn(T, d_in, generator=gen, device="cuda")
         y24 = {}
         for name, (fmt, mask) in runs.items():
@@ -624,7 +673,7 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                         f"spmm {tag} T={T} {name} {dt} out of tolerance")
                 if mask is m24:
                     y24.setdefault(dt, []).append(got)
-            if not time_it:
+            if not time_it or T in extra_T:
                 log(f"   spmm {tag} ({d_out}x{d_in}, act={act}) T={T} {name} "
                     f"K={pw.k}: max_abs_err fp32 {errs['float32']:.3e} "
                     f"bf16 {errs['bfloat16']:.3e}")
@@ -682,7 +731,7 @@ def forced_logits(eng, prompt: dict, tokens):
 
 
 def spmm_device_ms(eng, prompt: dict, launches: int,
-                   tries: int = 3) -> tuple[float, float]:
+                   tries: int = 5) -> tuple[float, float]:
     """Device time in ms of the spmm kernels (product and split reduction)
     of one warm ``generate`` by torch.profiler, and the generate's wall
     ms. The profiler must see all ``launches`` product kernels: a trace
@@ -807,6 +856,371 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
             < engines["masked_2:4"].weight_bytes(),
             "nm24 holds no fewer weight bytes than masked")
     return serve_launches
+
+
+# continuous serving (phase 6c): the chunked-prefill window, the prompt
+# lengths held chunked vs one-shot; the load rows' arrival rates, below
+# and above the continuous path's saturation (~18 requests/s on an H100
+# in ``launch/profile_serve.py``'s sweep: goodput follows the rate to
+# 16/s and makespans pass 1.6x the window at 24 and 32/s), the expected
+# requests a rate (the window is this / rate), and those of the fixed
+# path's row (it saturates by 2/s).
+# The scheduler's shape and the traffic (CONT, LOAD_PROMPT, LOAD_OUTPUT)
+# are profile_serve's.
+CHUNK_W = 64
+CHUNK_PROMPTS = (100, 300, 500)
+LOAD_RATES = (8.0, 32.0)
+LOAD_REQUESTS = 100
+FIXED_REQUESTS = 16
+
+
+def token_ids(n: int, seed: int, vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, vocab, size=n).astype(
+        np.int32)
+
+
+def sched_run(eng, reqs, n_sites: int, **kw):
+    """Serve ``reqs`` — (prompt, max_new, SamplingParams) — through one
+    ``ContinuousScheduler`` (``CONT``, plus ``kw``) until idle. Checks that
+    the pools end empty and, phase 6c (e), that the engine launched spmm
+    sites x layers x (prefill dispatches + decode steps) times, counted
+    from the scheduler's own dispatches (none for dense and masked).
+    Returns (tokens per request, scheduler, spmm launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import CONT
+    from repro_torch.serve import ContinuousScheduler
+
+    before = ops.LAUNCHES["spmm"]
+    sch = ContinuousScheduler(eng, **CONT, **kw)
+    rids = [sch.submit(p, n, sampling=s) for p, n, s in reqs]
+    done = sch.run_until_idle()
+    n = ops.LAUNCHES["spmm"] - before
+    d = sch.dispatches
+    want = (n_sites * eng.cfg.n_layers * (d["prefill"] + d["decode_steps"])
+            if eng.fmt in ("nm24", "gathered") else 0)
+    require(n == want, f"{eng.fmt}: {n} spmm launches for {d}, want {want}")
+    require(sch.pool.used_bytes == 0 and (
+        sch.prefill_pool is None or sch.prefill_pool.used_bytes == 0),
+        f"{eng.fmt}: pages leaked")
+    return [done[r].tokens for r in rids], sch, n
+
+
+def forced_run(eng, tokens, n_valid: int, cap: int, feed, window=None):
+    """Prefill ``tokens`` (B, S_pad; right-padded past ``n_valid``) into a
+    cache of ``cap`` slots, in one shot (``window`` None) or in
+    ``window``-token ``prefill_window`` calls, then one decode step per
+    column of ``feed`` (B, n) on the same cache, or, for an int ``feed``,
+    that many steps fed their own greedy tokens. Returns the (n + 1, B, V)
+    fp32 logits, the K, V of the valid prompt positions and the tokens
+    fed."""
+    import torch
+
+    api, dev = eng.api, eng.device
+    nv = torch.tensor(n_valid, device=dev)
+    with torch.no_grad():
+        cache = api.init_cache(eng.params, tokens.shape[0], cap)
+        if window is None:
+            logits, cache = api.prefill(eng.params, {"tokens": tokens,
+                                                     "n_valid": nv},
+                                        cache, masks=eng.masks)
+        else:
+            for off in range(0, n_valid, window):
+                logits, cache = api.prefill_window(
+                    eng.params, {"tokens": tokens[:, off:off + window],
+                                 "offset": torch.tensor(off, device=dev),
+                                 "n_valid": nv}, cache, masks=eng.masks)
+        kv = (cache.kv.k[:, :, :n_valid].clone(),
+              cache.kv.v[:, :, :n_valid].clone())
+        out, fed = [logits[:, -1].float()], []
+        n = feed if isinstance(feed, int) else feed.shape[1]
+        for i in range(n):
+            tok = (out[-1].argmax(-1)[:, None] if isinstance(feed, int)
+                   else feed[:, i:i + 1])
+            fed.append(tok)
+            logits, cache = api.decode_step(eng.params, tok, cache,
+                                            masks=eng.masks)
+            out.append(logits[:, -1].float())
+    return torch.stack(out), kv, torch.cat(fed, dim=1)
+
+
+def cross_shape(a, b) -> dict:
+    """Two forced runs of the same tokens along different shapes: the
+    largest |dK|, |dV| over valid positions, the logits' largest error and
+    scale, and the greedy tokens that flip. In a teacher-forced pair a
+    flip sits at a top-2 gap within twice that step's logits error, so
+    the logits' bound is what holds the flips."""
+    import torch
+
+    (la, (ka, va), _), (lb, (kb, vb), _) = a, b
+    diff = lambda x, y: float((x.float() - y.float()).abs().max())
+    flips = la.argmax(-1) != lb.argmax(-1)
+    gaps = top2_gap(la)[flips]
+    return {"dk": diff(ka, kb), "dv": diff(va, vb), "err": diff(la, lb),
+            "scale": float(la.abs().max()), "flips": int(flips.sum()),
+            "n": flips.numel(),
+            "gap": float(gaps.max()) if gaps.numel() else None}
+
+
+def top2_gap(logits):
+    """(..., V) logits -> (...) gap between the two largest."""
+    import torch
+
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def check_cross(name: str, what: str, r: dict) -> None:
+    """Prints a cross-shape comparison and gates its logits at SERVE_TOL
+    of max|logits| (the serving tolerance of phase 6)."""
+    rel = r["err"] / r["scale"]
+    flips = (f"{r['flips']} of {r['n']} greedy tokens flip, at top-2 gaps "
+             f"<= {r['gap']:.4e}" if r["flips"] else
+             f"all {r['n']} greedy tokens agree")
+    log(f"   6c (b) {name} {what}: max |dK| {r['dk']:.3e} |dV| "
+        f"{r['dv']:.3e} over valid positions; teacher-forced logits "
+        f"max_abs_err {r['err']:.4e} ({rel:.2e} of max|logits| "
+        f"{r['scale']:.3f}); {flips}")
+    require(math.isfinite(r["err"]) and r["err"] <= SERVE_TOL * r["scale"],
+            f"6c (b) {name} {what}: logits beyond {SERVE_TOL} of max|logits|")
+
+
+def check_streams(name: str, what: str, got, want, ref, err: float) -> str:
+    """Phase 6c (b)'s token gate across shapes: the greedy streams ``got``
+    and ``want`` (n tokens each) must agree up to the first near-tie, a
+    step whose reference logits ``ref`` (n, V; fed ``want``'s tokens)
+    have a top-2 gap within twice ``err``. The scheduler decodes at still
+    other shapes (8 rows over 1024 slots) than the forced pair that
+    measured ``err``, so ``err`` is that pair's largest logits error, not
+    its error at the step. Returns a summary."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    n = len(want)
+    differ = np.flatnonzero(got[:n] != want)
+    first_diff = int(differ[0]) if differ.size else n
+    near = np.flatnonzero((top2_gap(ref[:n]) <= 2 * err).cpu().numpy())
+    first_near = int(near[0]) if near.size else n
+    require(first_diff >= first_near,
+            f"6c (b) {name} {what}: greedy tokens differ at step "
+            f"{first_diff}, before the first near-tie (step {first_near}, "
+            f"top-2 gap <= {2 * err:.4e})")
+    return f"{first_diff}/{n} (near-tie at {first_near})"
+
+
+def cross_shape_checks(eng, name: str, longs: dict, short: list,
+                       n_sites: int) -> int:
+    """Phase 6c (b): comparisons across shapes, where the card's matmuls
+    (cuBLAS, spmm's split plan) may round a row otherwise: chunked
+    (CHUNK_W-token windows) vs one-shot prefill of each long prompt into
+    its pow2 bucket, and the fixed path's batch-4 prefill of the short
+    prompts vs each alone, teacher-forced (logits within SERVE_TOL).
+    Then the same prompts' greedy tokens through the scheduler, chunked
+    vs one-shot, and the scheduler (B = 1 prefill) vs ``generate``
+    (B = 4): each pair equal up to the first near-tie, judged on the
+    one-shot (batch) path's logits fed the stream and the largest logits
+    error of the forced pair (``check_streams``). Returns the spmm
+    launches of its scheduler runs."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import GREEDY
+    from repro_torch.serve.engine import next_pow2
+
+    dev = eng.device
+    n_new = 8
+    reqs = [(p, n_new, GREEDY) for p in longs.values()]
+    sch_one, _, n1 = sched_run(eng, reqs, n_sites, bucket_batch=False)
+    sch_chunk, _, n2 = sched_run(eng, reqs, n_sites, bucket_batch=False,
+                                 prefill_chunk=CHUNK_W)
+    agree = []
+    for (S, p), got, want in zip(longs.items(), sch_chunk, sch_one):
+        sb = next_pow2(S)
+        toks = torch.zeros((1, sb), dtype=torch.int64)
+        toks[0, :S] = torch.from_numpy(p.astype(np.int64))
+        toks = toks.to(dev)
+        one = forced_run(eng, toks, S, sb, n_new)
+        r = cross_shape(one, forced_run(eng, toks, S, sb, one[2],
+                                        window=CHUNK_W))
+        check_cross(name, f"S={S} chunked W={CHUNK_W} vs one-shot", r)
+        feed = torch.as_tensor(np.asarray(want[:n_new - 1]),
+                               device=dev)[None]
+        ref = forced_run(eng, toks, S, sb, feed)[0][:, 0]
+        agree.append(check_streams(name, f"S={S} scheduler chunked vs "
+                                   f"one-shot", got, want, ref, r["err"]))
+    S = len(short[0])
+    toks = torch.from_numpy(np.stack(short).astype(np.int64)).to(dev)
+    cap = next_pow2(S + SERVE_GEN)
+    fixed = eng.generate({"tokens": toks}, SERVE_GEN).tokens
+    feed = fixed[:, :SERVE_GEN - 1]
+    batch = forced_run(eng, toks, S, cap, feed)
+    solo = [forced_run(eng, toks[i:i + 1], S, cap, feed[i:i + 1])
+            for i in range(len(short))]
+    solo = (torch.cat([r[0] for r in solo], dim=1),
+            tuple(torch.cat([r[1][j] for r in solo], dim=1)
+                  for j in range(2)), feed)
+    r = cross_shape(batch, solo)
+    check_cross(name, f"batch {len(short)} x S={S} prefill vs each alone", r)
+    sched, _, n3 = sched_run(eng, [(p, SERVE_GEN, GREEDY) for p in short],
+                             n_sites, bucket_batch=False)
+    vs_gen = [check_streams(name, f"request {i} scheduler vs generate",
+                            got, want.cpu(), batch[0][:, i], r["err"])
+              for i, (got, want) in enumerate(zip(sched, fixed))]
+    log(f"   6c (b) {name}: scheduler greedy tokens equal before the first "
+        f"difference, chunked vs one-shot {agree}; scheduler vs generate "
+        f"{vs_gen}")
+    return n1 + n2 + n3
+
+
+def continuous_path(api, params, masks60: dict, masks24: dict) -> dict:
+    """Phase 6c: the continuous scheduler on the card, dense / masked
+    PerRow(0.6) / nm24 (Wanda 2:4) / gathered PerRow(0.6), checks (a)-(e)
+    in every format, then the load rows (f). Returns the spmm launches
+    of the phase per kernel ({"spmm": nm24's, "spmm_gather": gathered's})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import CONT, LOAD_OUTPUT, LOAD_PROMPT
+    from repro_torch.pruning import sites
+    from repro_torch.serve import (GREEDY, FaultPlan, SamplingParams,
+                                   ServeEngine, loadgen)
+
+    vocab = api.cfg.vocab_size
+    n_sites = len(sites.site_specs(api.cfg, params))
+    specs = {"dense": (None, "dense"), "masked": (masks60, "masked"),
+             "nm24": (masks24, "nm24"), "gathered": (masks60, "gathered")}
+    engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
+               for name, (m, fmt) in specs.items()}
+    ids = lambda n, seed: token_ids(n, seed, vocab)
+    # (a): the reference test's four mixed requests
+    mixed = [(ids(7, 1), 6, GREEDY),
+             (ids(12, 2), 9, SamplingParams(temperature=0.8, seed=4)),
+             (ids(5, 3), 3, SamplingParams(temperature=1.2, top_p=0.9,
+                                           top_k=32, seed=5)),
+             (ids(9, 4), 7, GREEDY)]
+    longs = {S: ids(S, 10 + S) for S in CHUNK_PROMPTS}
+    short = [ids(32, 20 + i) for i in range(4)]    # phase 6's prompt shape
+    # (c): the mixed requests, a long sampled one and a one-token one
+    disagg = mixed + [(longs[300], 8, SamplingParams(temperature=0.9,
+                                                     top_p=0.95, seed=9)),
+                      (ids(20, 5), 1, GREEDY)]
+    launches = {name: 0 for name in engines}
+    ops.reset_launches()
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        # (a) batched == solo, bitwise, at the pinned width
+        toks, _, n = sched_run(eng, mixed, n_sites, bucket_batch=False)
+        launches[name] += n
+        for i, req in enumerate(mixed):
+            solo, _, n = sched_run(eng, [req], n_sites, bucket_batch=False)
+            launches[name] += n
+            require(np.array_equal(toks[i], solo[0]),
+                    f"6c (a) {name}: request {i} batched != solo")
+        # (b) across shapes: chunked vs one-shot, batch 4 vs alone
+        launches[name] += cross_shape_checks(eng, name, longs, short,
+                                             n_sites)
+        # (c) disaggregated == interleaved, bitwise, same width
+        inter, _, n1 = sched_run(eng, disagg, n_sites, bucket_batch=False)
+        dis, sch, n2 = sched_run(eng, disagg, n_sites, bucket_batch=False,
+                                 disaggregate=True)
+        launches[name] += n1 + n2
+        require(all(np.array_equal(a, b) for a, b in zip(inter, dis)),
+                f"6c (c) {name}: disaggregated tokens differ")
+        pages = sum(sch.pool.pages_for(len(p)) for p, n, _ in disagg
+                    if n > 1)
+        require(sch.shipped_bytes == pages * sch.pool.page_bytes
+                == sch.prefill_pool.shipped_bytes_out,
+                f"6c (c) {name}: shipped {sch.shipped_bytes} B, want "
+                f"{pages} pages")
+        # (d) chaos
+        work = loadgen.make_workload(loadgen.LoadConfig(
+            arrival_rate=64.0, duration_s=0.5, prompt_len=(16, 128),
+            output_len=(8, 48), vocab_size=vocab))
+        before = ops.LAUNCHES["spmm"]
+        res = loadgen.run_chaos(eng, work, FaultPlan.chaos(0), **CONT)
+        launches[name] += ops.LAUNCHES["spmm"] - before
+        require(res["leaked_bytes"] == 0 and res["stream_mismatches"] == 0
+                and res["ok"] and res["faults_fired"],
+                f"6c (d) {name}: chaos verdict {res}")
+        torch.cuda.synchronize()
+        log(f"   6c {name}: (a) 4 requests batched == solo bitwise; (c) "
+            f"disaggregated == interleaved bitwise, {pages} pages x "
+            f"{sch.pool.page_bytes} B shipped; (d) chaos "
+            f"[{res['plan']}] {res['completed_faulted']}/"
+            f"{res['n_requests']} completed, leaked 0 B, 0 mismatches, "
+            f"fired {res['faults_fired']}, counters {res['counters']}; "
+            f"(e) spmm launches {launches[name]} = sites x layers x "
+            f"dispatches; {time.perf_counter() - t0:.2f} s")
+    # where a scheduler step's time goes: host vs device, spmm's share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in ("nm24", "gathered"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, sch, n = sched_run(engines[name], mixed, n_sites,
+                                  bucket_batch=False)
+            wall = time.perf_counter() - t0
+        launches[name] += n
+        dev_ms = spmm = 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms = e.time_range.elapsed_us() / 1e3
+                dev_ms += ms
+                if "spmm_" in e.name or "splitk_reduce" in e.name:
+                    spmm += ms
+        log(f"   6c {name}: one run of the 4 mixed requests ({sch._step_no} "
+            f"steps, {sch.dispatches}): wall {1e3 * wall:.2f} ms, device "
+            f"kernels {dev_ms:.2f} ms (spmm {spmm:.2f} ms), host or idle "
+            f"{1e3 * wall - dev_ms:.2f} ms")
+    del engines
+    # (f) the load rows: one pass each, no warm-up pass (the kernels are
+    # built and (a)-(e) ran them; each run first dispatches every decode
+    # shape once, ``ContinuousScheduler.warm``)
+    base = loadgen.LoadConfig(prompt_len=LOAD_PROMPT, output_len=LOAD_OUTPUT,
+                              seed=0)
+    runs = [(rate, LOAD_REQUESTS, ("continuous",), (masks60, ("masked",
+                                                              "gathered")))
+            for rate in LOAD_RATES]
+    runs += [(rate, LOAD_REQUESTS, ("continuous",), (masks24, ("nm24",)))
+             for rate in LOAD_RATES]
+    runs.append((LOAD_RATES[0], FIXED_REQUESTS, ("continuous", "fixed"),
+                 (masks24, ("nm24",))))
+    rows = []
+    for rate, n_req, modes, (masks, formats) in runs:
+        t0 = time.perf_counter()
+        before = ops.LAUNCHES["spmm"]
+        got = loadgen.bench_load_rows(
+            api, params, masks, formats=formats, rates=(rate,),
+            load=dataclasses.replace(base, duration_s=n_req / rate),
+            modes=modes, warmup=False, **CONT)
+        launches["gathered" if masks is masks60 else "nm24"] += \
+            ops.LAUNCHES["spmm"] - before
+        for r in got:
+            require("error" not in r, f"6c (f): {r}")
+        rows += got
+        log(f"   6c (f) {'/'.join(formats)} {'/'.join(modes)} rate {rate}/s "
+            f"over {n_req / rate} s: {time.perf_counter() - t0:.2f} s")
+    for r in rows:
+        window = r["duration_s"]
+        log(f"   6c (f) {r['variant']:8s} {r['mode']:10s} rate "
+            f"{r['arrival_rate']:5.1f}/s window {window:.3f} s: "
+            f"{r['completed']}/{r['n_requests']} done, makespan "
+            f"{r['makespan_s']:.3f} s ({r['makespan_s'] / window:.2f}x the "
+            f"window), tokens asked at "
+            f"{r['offered_tok_s'] * r['makespan_s'] / window:.1f} tok/s over "
+            f"the window, goodput {r['goodput_tok_s']:.1f} tok/s over the "
+            f"makespan, TTFT p50 {1e3 * r['p50_ttft_s']:.1f} p99 "
+            f"{1e3 * r['p99_ttft_s']:.1f} ms, queue wait p50 "
+            f"{1e3 * r['p50_queue_wait_s']:.1f} p99 "
+            f"{1e3 * r['p99_queue_wait_s']:.1f} ms, per-token p50 "
+            f"{1e3 * r['p50_tok_latency_s']:.2f} p99 "
+            f"{1e3 * r['p99_tok_latency_s']:.2f} ms, wasted "
+            f"{r['wasted_decode_tokens']} tokens [{r['kernel_used']}]")
+    return {"spmm": launches["nm24"], "spmm_gather": launches["gathered"]}
 
 
 def other_shapes(clock_mhz: float) -> None:
@@ -1197,7 +1611,9 @@ def main() -> int:
                 results.update(res)
                 results["swap_commit"] = commit
             del w, m, c, G
-        spmm_res = check_spmm(14336, 4096, "silu", "w_gate")
+        # T = 1 and 64: a one-row decode bucket and a chunked-prefill
+        # window of the continuous scheduler (phase 6c)
+        spmm_res = check_spmm(14336, 4096, "silu", "w_gate", extra_T=(1, 64))
         spmm_res.update({(T, f"{fmt} w_down"): r for (T, fmt), r in
                          check_spmm(4096, 14336, None, "w_down").items()})
         check_spmm(4096, 4096, None, "wq/wo", time_it=False)
@@ -1336,6 +1752,8 @@ def main() -> int:
         serve_launches = serve_path(api, params, report.masks, rep24.masks,
                                     pipe.get(0))
         log(f"   spmm launches {serve_launches}")
+        # phase 6c runs last, on these masks (kept on the host meanwhile)
+        masks_6c = [_tree_to(m, "cpu") for m in (report.masks, rep24.masks)]
 
     with Phase("7 recipe path: launch.prune with a mixed recipe, resume"):
         recipe_path(cfg)
@@ -1347,6 +1765,13 @@ def main() -> int:
     other = {name: other_config(name) for name in OTHER_DENSE}
     with Phase("8 full depth, shapes only: plan_pruning on the meta device"):
         full_depth_plans()
+    with Phase("6c continuous serving: scheduler, chunked prefill, "
+               "disaggregation, chaos, load"):
+        api = models.build(cfg)
+        params = api.init(seed=0, device=dev)      # phase 4's params
+        cont_launches = continuous_path(api, params, *masks_6c)
+        log(f"   spmm launches {cont_launches}")
+        del api, params, masks_6c
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o["serve"]) for o in other.values()]
@@ -1355,9 +1780,11 @@ def main() -> int:
                 "swap_topk": sum(p["swap_topk"] for p, _ in runs),
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches,
-                "spmm": sum(s["nm24_2:4"] for _, s in runs),
+                "spmm": sum(s["nm24_2:4"] for _, s in runs)
+                + cont_launches["spmm"],
                 "spmm_gather": sum(s["gathered_0.6"] + s["gathered_2:4"]
-                                   for _, s in runs)}
+                                   for _, s in runs)
+                + cont_launches["spmm_gather"]}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]

@@ -274,7 +274,7 @@ def profiler_preroll(n: int = 16) -> None:
 
 
 def cold_device_ms(fn, reps: int = REPS,
-                   tries: int = 3) -> tuple[float, float, float]:
+                   tries: int = 5) -> tuple[float, float, float]:
     """Device time of ``fn()`` in ms with a cold L2, as (median, min, max)
     over ``reps`` calls: a 128 MB buffer is rewritten before each call
     (the serving loop meets each weight after ~300 MB of others), and

@@ -266,16 +266,17 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def commit_split(w, m, c, G, *, reps: int = REPS, tries: int = 3):
+def commit_split(w, m, c, G, *, reps: int = REPS, tries: int = 5):
     """Per call of ``ops.swap_topk_commit`` (k = K): {(phase, kernel):
     [launches, device ms]} of what runs after the search, each call in its
     own trace, and the keyword arguments the calls took. Phases: "gather"
     (before the first ``swap_commit*`` kernel), "decisions" (that kernel),
     "apply" (``swap_commit_apply*`` and everything after the decisions).
-    The profiler can lose a trace's last kernel records (seen after a
-    330 ms search on an H100); a call launches the same kernels every
-    time, so only the traces with the most records after the search are
-    kept, taken again up to ``tries`` times per call."""
+    The profiler can lose a trace's kernel records (the last ones after
+    a 330 ms search on an H100, or the search's own); a call launches the
+    same kernels every time, so a trace without the search's merge kernel
+    is dropped, and only the traces with the most records after the
+    search are kept, taken again up to ``tries`` times per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -297,13 +298,17 @@ def commit_split(w, m, c, G, *, reps: int = REPS, tries: int = 3):
                     key=lambda e: e.time_range.start)
         merges = [i for i, e in enumerate(ev) if "swap_topk_merge" in e.name]
         if not merges:
-            raise RuntimeError("the trace holds no swap_topk_merge_kernel")
+            continue                    # the search's records were lost
         tails.append(ev[merges[-1] + 1:])
         most = max(map(len, tails))
         if sum(len(t) == most for t in tails) == reps:
             break
+    if not tails:
+        raise RuntimeError(f"no trace of {reps * tries} holds a "
+                           "swap_topk_merge_kernel")
+    kept = [t for t in tails if len(t) == max(map(len, tails))][:reps]
     per: dict[tuple[str, str], list] = {}
-    for tail in [t for t in tails if len(t) == most][:reps]:
+    for tail in kept:
         phase = "gather"
         for e in tail:
             if "swap_commit_apply" in e.name:
@@ -316,8 +321,8 @@ def commit_split(w, m, c, G, *, reps: int = REPS, tries: int = 3):
             if phase == "decisions":
                 phase = "apply"
     for acc in per.values():
-        acc[0] /= reps
-        acc[1] /= reps
+        acc[0] /= len(kept)
+        acc[1] /= len(kept)
     return per, kw
 
 

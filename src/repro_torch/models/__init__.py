@@ -11,10 +11,11 @@ path makes:
     init_cache(params, batch, s_max) -> cache
     prefill(params, batch, cache, masks=None) -> (logits, cache)
     decode_step(params, token, cache, masks=None) -> (logits, cache)
+    prefill_window(params, batch, cache, masks=None) -> (logits, cache)
 
-The windowed-prefill continuation and rolling caches come with
-continuous batching; the
-MoE, SSM, RWKV, VLM and encoder-decoder families with their slices.
+``prefill_window`` is the chunked-prefill continuation the continuous
+scheduler drives. Rolling caches come with the sliding-window configs;
+the MoE, SSM, RWKV, VLM and encoder-decoder families with their slices.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
     module: Any
+    prefill_window: Callable | None = None   # chunked-prefill continuation
 
 
 def build(cfg: ArchConfig) -> ModelApi:
@@ -61,6 +63,8 @@ def build(cfg: ArchConfig) -> ModelApi:
         decode_step=lambda p, tok, cache, masks=None: mod.decode_step(
             p, tok, cfg, cache, masks=masks),
         module=mod,
+        prefill_window=lambda p, b, cache, masks=None: mod.prefill_window(
+            p, b, cfg, cache, masks=masks),
     )
 
 

@@ -3,18 +3,20 @@
 The ``full`` path of the reference: one (S, S) score matrix per head,
 written as a matmul and a softmax (as the reference writes it), so the
 port computes the same function in the same order; plus the KV cache,
-the prefill cache write and single-token decode against the cache.
+the prefill cache write, the windowed-prefill continuation and
+single-token decode against the cache.
 
 Cache (single layer; the stacks add a leading L dim):
     KVCache.k/v : (B, S_max, kvH, dh)
     KVCache.pos : (B, S_max) int32 absolute position per slot, -1 = empty.
-                  Decode writes slot t (the last slot once t >= S_max).
+                  Decode writes slot t (the last slot once t >= S_max),
+                  each row at its own position ``t``, a (B,) tensor.
 
 The port writes the cache in place (the reference returns a new one).
 RoPE is applied at write time with absolute positions, so cached keys
-never need re-rotation. Decode takes one position ``t`` for the whole
-batch; per-row positions (continuous batching), rolling caches,
-windowed prefill and cross-attention are not ported yet.
+never need re-rotation. Rolling caches come with the sliding-window
+configs (ROADMAP A4; the dense configs have ``sliding_window = 0``), and
+cross-attention with its families.
 """
 from __future__ import annotations
 
@@ -140,24 +142,63 @@ def self_attention(p, x, positions, cfg, *, masks=None, taps=None,
     return _attend(p, q, k, v, mask, cfg, masks, taps), cache
 
 
-def decode_attention(p, x, t: int, cfg, cache: KVCache, *, masks=None,
+def window_attention(p, x, offset, cfg, cache: KVCache, *, masks=None,
+                     taps=None):
+    """Windowed-prefill continuation: a W-token window against prior KV.
+
+    x: (B, W, d), the prompt slice at absolute positions
+    ``[offset, offset + W)``; ``offset`` is a () integer tensor (read by
+    no host code), so every window of a chunked prefill runs one shape.
+    The cache already holds KV for positions ``[0, offset)``; the
+    window's KV is written at slots ``[offset, offset + W)`` first (in
+    place), then the window's queries attend over the WHOLE cache with
+    the positional mask doing the causal and empty-slot filtering.
+
+    As in the reference, every per-row reduction has the length of the
+    one-shot prefill over the same cache capacity (scores and
+    probs @ v run over all ``s_max`` slots; empty slots carry pos = -1,
+    underflow to an exact 0 in the softmax and add exact zeros), so
+    chunked prefill reproduces one-shot prefill wherever the projections
+    give each row the same sums at both row counts.
+    """
+    W = x.shape[1]
+    q, k, v = _proj_qkv(p, x, cfg, masks, taps)
+    pos_w = offset + torch.arange(W, device=x.device)
+    q = common.apply_rope(q, pos_w[None, :], pct=cfg.rope_pct,
+                          theta=cfg.rope_theta)
+    k = common.apply_rope(k, pos_w[None, :], pct=cfg.rope_pct,
+                          theta=cfg.rope_theta)
+    cache.k.index_copy_(1, pos_w, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, pos_w, v.to(cache.v.dtype))
+    cache.pos.index_copy_(1, pos_w, pos_w.to(torch.int32)
+                          .expand(x.shape[0], W))
+    # (B, W, s_max): per-row key positions (prior windows' slots hold
+    # their absolute positions, untouched slots hold -1)
+    mask = _scores_mask(pos_w, cache.pos, causal=True,
+                        window=cfg.sliding_window)
+    return _attend(p, q, cache.k, cache.v, mask, cfg, masks, taps), cache
+
+
+def decode_attention(p, x, t, cfg, cache: KVCache, *, masks=None,
                      taps=None):
     """One-token self attention against a cache.
 
-    x: (B, 1, d); t: absolute position of the new token, the same for
-    every row. Writes its key and value at slot min(t, S_max - 1) in
-    place. Returns (out (B, 1, d), cache).
+    x: (B, 1, d); t: (B,) int32 tensor, each row's absolute position
+    (one value repeated on the fixed-batch path; per row under continuous
+    batching, where each slot of the decode batch sits at its own
+    position). Writes each row's key and value at slot
+    min(t, S_max - 1) in place. Returns (out (B, 1, d), cache).
     """
     B = x.shape[0]
     q, k, v = _proj_qkv(p, x, cfg, masks, taps)
-    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    pos = t[:, None]
+    slot = torch.clamp_max(t, cache.k.shape[1] - 1).long()
+    rows = torch.arange(B, device=x.device)
     q = common.apply_rope(q, pos, pct=cfg.rope_pct, theta=cfg.rope_theta)
     k = common.apply_rope(k, pos, pct=cfg.rope_pct, theta=cfg.rope_theta)
-    s_max = cache.k.shape[1]
-    slot = min(t, s_max - 1)
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-    cache.pos[:, slot] = t
+    cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
+    cache.pos[rows, slot] = t
     mask = _scores_mask(pos, cache.pos, causal=True,
                         window=cfg.sliding_window)          # (B, 1, S_max)
     return _attend(p, q, cache.k, cache.v, mask, cfg, masks, taps), cache

@@ -8,9 +8,12 @@ packed model); ``_index`` slices it per layer. Where the reference scans
 over layers, the port loops over them.
 
 Serving: ``init_decode_cache`` -> ``prefill`` (the prompt; fills the KV
-cache) -> ``decode_step`` per new token. The cache is updated in place
-and its clock ``t`` is a Python int, so the decode loop never waits on
-the device for a position.
+cache) -> ``decode_step`` per new token. The cache is updated in place.
+Its clock ``t`` is a Python int on the fixed-batch path, so the decode
+loop never waits on the device for a position; the continuous scheduler
+keeps a (B,) tensor of per-row clocks instead, and ``prefill_window``
+(chunked prefill) takes its window offset and prompt length as tensors,
+so neither path reads the device from the host.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def _index(tree, i: int):
 
 class DecodeCache(NamedTuple):
     kv: attn.KVCache        # leaves stacked (L, ...)
-    t: int                  # next position
+    t: int | torch.Tensor   # next position: an int, or per row (B,)
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
@@ -104,17 +107,21 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
 
 def decoder_layer(p, x, positions, cfg, *, masks=None, taps=None,
                   mode: str = "train", cache: attn.KVCache | None = None,
-                  t: int | None = None):
+                  t=None):
     """One pre-norm decoder layer on unstacked params.
 
     ``mode`` is "train", "prefill" (writes the prompt's KV into
-    ``cache``) or "decode" (one token at position ``t`` against
-    ``cache``). Returns x.
+    ``cache``), "decode" (one token per row at the (B,) positions ``t``
+    against ``cache``) or "window" (a chunked-prefill window starting at
+    the () tensor ``t``). Returns x.
     """
     am = None if masks is None else masks.get("attn")
     h = _apply_norm(p["ln1"], x, cfg)
     if mode == "decode":
         a, _ = attn.decode_attention(p["attn"], h, t, cfg, cache, masks=am,
+                                     taps=taps)
+    elif mode == "window":
+        a, _ = attn.window_attention(p["attn"], h, t, cfg, cache, masks=am,
                                      taps=taps)
     else:
         a, _ = attn.self_attention(p["attn"], h, positions, cfg, masks=am,
@@ -210,10 +217,11 @@ def prefill(params, batch, cfg, cache: DecodeCache, *, masks=None):
     """Run the prompt, filling the cache. Returns (last-token logits
     (B, 1, V), cache).
 
-    ``batch["n_valid"]`` (optional int) marks a right-padded prompt: only
-    the first ``n_valid`` tokens are real. The pad tail is masked out of
-    the cache (pos = -1), the logits are taken at position
-    ``n_valid - 1``, and decoding resumes at ``t = n_valid``.
+    ``batch["n_valid"]`` (optional int, or a () integer tensor) marks a
+    right-padded prompt: only the first ``n_valid`` tokens are real. The
+    pad tail is masked out of the cache (pos = -1), the logits are taken
+    at position ``n_valid - 1``, and decoding resumes at ``t = n_valid``
+    (a tensor when ``n_valid`` is one: nothing reads it on the host).
     """
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -227,22 +235,67 @@ def prefill(params, batch, cfg, cache: DecodeCache, *, masks=None):
 
 
 def _finish_prefill(kv: attn.KVCache, x, S: int, n_valid):
-    """-> (kv with pad keys masked, next position, last REAL hidden state)."""
+    """-> (kv with pad keys masked, next position, last REAL hidden state).
+
+    The next position is ``n_valid`` as given: a host int stays one (the
+    fixed-batch clock), a tensor stays on the device.
+    """
     if n_valid is None:
         return kv, S, x[:, -1:]
-    nv = int(n_valid)
+    nv = torch.as_tensor(n_valid, device=x.device)
     # pad slots were written with pos >= n_valid; -1 hides them from every
     # later query (the decode steps then overwrite them in order)
     kv.pos.masked_fill_(kv.pos >= nv, -1)
-    return kv, nv, x[:, nv - 1:nv]
+    return kv, n_valid, x.index_select(1, (nv - 1).reshape(1))
+
+
+@torch.no_grad()
+def prefill_window(params, batch, cfg, cache: DecodeCache, *, masks=None):
+    """One fixed-width window of a chunked prefill. Returns (logits
+    (B, 1, V), cache).
+
+    ``batch`` carries ``tokens`` (B, W), the prompt slice at absolute
+    positions ``[offset, offset + W)``, and () int64 tensors ``offset``
+    (window start) and ``n_valid`` (the real prompt length). The cache
+    must already hold KV for ``[0, offset)``; the window's KV is written
+    in place and attends over prior slots and the window
+    (``attention.window_attention``).
+
+    Every call returns the logits at the last real prompt position seen
+    so far (``min(n_valid, offset + W) - 1``) and masks written pad slots
+    (pos >= n_valid) to -1, so only the final window's logits are the
+    request's. ``cache.t`` advances to the window end, clamped to
+    ``n_valid``.
+    """
+    tokens = batch["tokens"]
+    W = tokens.shape[1]
+    offset, n_valid = batch["offset"], batch["n_valid"]
+    x = params["embed"][tokens]
+    x = _run_layers(params, x, None, cfg, masks=masks, mode="window",
+                    cache=cache, t=offset)
+    cache.kv.pos.masked_fill_(cache.kv.pos >= n_valid, -1)
+    # the last real row within this window (pad rows of the final window
+    # sit past it)
+    idx = torch.clamp(torch.minimum(n_valid, offset + W) - 1 - offset, 0,
+                      W - 1)
+    x_last = _apply_norm(params["ln_f"], x.index_select(1, idx.reshape(1)),
+                         cfg)
+    t_next = torch.minimum(offset + W, n_valid)
+    return lm_head(params, x_last, cfg), DecodeCache(kv=cache.kv, t=t_next)
 
 
 @torch.no_grad()
 def decode_step(params, token, cfg, cache: DecodeCache, *, masks=None):
     """One decode step. token: (B, 1) int. Returns (logits (B, 1, V),
-    cache advanced by one position)."""
+    cache advanced by one position).
+
+    ``cache.t`` is a host int (the fixed-batch path) or a (B,) tensor of
+    per-row clocks (the continuous scheduler); the layers see a (B,)
+    int32 tensor either way, made on the device without a host read.
+    """
     x = params["embed"][token]
+    t = cache.kv.pos.new_zeros(token.shape[0]).add_(cache.t)
     x = _run_layers(params, x, None, cfg, masks=masks, mode="decode",
-                    cache=cache, t=cache.t)
+                    cache=cache, t=t)
     x = _apply_norm(params["ln_f"], x, cfg)
     return lm_head(params, x, cfg), DecodeCache(kv=cache.kv, t=cache.t + 1)

@@ -1,10 +1,14 @@
-"""Batched sparse serving: pack once, prefill + greedy decode.
-
-The reference's ``repro.serve`` also exports its scheduler, load
-generator, sampling and fault injection; those are not ported yet
-(ROADMAP A2).
-"""
+"""Sparse serving runtime: engine (step fns over packed weights), scheduler
+(continuous batching), kvcache (paged session storage), sampling,
+faultinject (deterministic chaos plans for robustness testing), loadgen
+(Poisson traffic on a virtual clock)."""
 from .engine import FORMATS, ServeEngine, ServeResult, bench_rows, next_pow2
+from .faultinject import FaultInjector, FaultPlan, ShipFault
+from .kvcache import HostSpill, PagedKVCache
+from .sampling import GREEDY, SamplingParams
+from .scheduler import Completion, ContinuousScheduler, Rejected, StepEvents
 
 __all__ = ["FORMATS", "ServeEngine", "ServeResult", "bench_rows",
-           "next_pow2"]
+           "next_pow2", "PagedKVCache", "HostSpill", "SamplingParams",
+           "GREEDY", "ContinuousScheduler", "Completion", "StepEvents",
+           "Rejected", "FaultPlan", "FaultInjector", "ShipFault"]

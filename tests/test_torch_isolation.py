@@ -50,7 +50,10 @@ def test_scan_covers_the_port():
                  "core/packed.py", "core/dsnot.py", "core/sparsegpt.py",
                  "pruning/recipe.py", "pruning/plan.py",
                  "pruning/executor.py", "pruning/stats.py",
-                 "pruning/recover.py", "runtime/fault_tolerance.py"):
+                 "pruning/recover.py", "runtime/fault_tolerance.py",
+                 "serve/sampling.py", "serve/_threefry.py",
+                 "serve/kvcache.py", "serve/scheduler.py",
+                 "serve/loadgen.py", "serve/faultinject.py"):
         assert must in names
 
 

@@ -1092,3 +1092,79 @@ def test_cuda_spmm_contracts(cuda, dtype):
     with pytest.raises(ValueError, match="aligned"):
         ops.spmm(x8, tpacked.PackedWeight(off.view(nm.values.shape), nm.idx,
                                           "nm24", 1200, 2, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 64])
+def test_cuda_spmm_serving_token_counts(cuda, T):
+    """spmm at the token counts only the continuous scheduler gives it —
+    T = 1 (a one-row decode bucket) and T = 64 (a chunked-prefill
+    window) — at llama31-8b's w_gate (14336 x 4096, silu) in bf16: nm24
+    (2:4) and gathered (PerRow 0.6 and the same 2:4 mask) against the
+    plain version, nm24 == gathered bitwise on the 2:4 mask."""
+    d_out, d_in = 14336, 4096
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    w = (torch.randn(d_out, d_in, generator=gen, device=cuda)
+         * d_in ** -0.5).to(torch.bfloat16)
+    x = torch.randn(T, d_in, generator=gen, device=cuda).to(torch.bfloat16)
+    scores = torch.rand(d_out, d_in, generator=gen, device=cuda)
+    m24 = tmasks.make_mask(scores, tmasks.NM(2, 4))
+    m60 = tmasks.make_mask(scores, tmasks.PerRow(0.6))
+    y = {}
+    for name, fmt, mask in (("nm24", "nm24", m24), ("ga24", "gathered", m24),
+                            ("ga60", "gathered", m60)):
+        pw = tpacked.pack(w, mask, fmt)
+        y[name] = ops.spmm(x, pw, act="silu")
+        assert _spmm_ok(y[name], spmm_mod.spmm_plain(x, pw, None, "silu")), \
+            name
+    assert torch.equal(y["nm24"], y["ga24"])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spmm"] == 3
+
+
+@pytest.mark.gpu
+def test_cuda_sampler_matches_cpu(cuda):
+    """The sampler on CUDA tensors against itself on CPU tensors for the
+    same logits and knobs: threefry bits and uniforms bitwise equal, and
+    tokens equal wherever both devices keep the same top-k / top-p
+    candidates and the CPU's two best perturbed scores differ by more
+    than 1e-4 (the card's ``log``, sort, softmax and cumsum are other
+    implementations)."""
+    from repro_torch.serve import _threefry, sampling
+
+    seeds = torch.tensor([0, 1, 7, 2**31 + 5, 2**32 - 1])
+    ts = torch.tensor([0, 5, 100, 2047, 65535])
+    bits = {}
+    for dev in ("cpu", cuda):
+        key = _threefry.fold_in(_threefry.seed_key(seeds.to(dev)), ts.to(dev))
+        bits[str(dev)] = _threefry.random_bits(key, 128256)
+    got, want = bits["cuda"].cpu(), bits["cpu"]
+    assert torch.equal(got, want)
+    assert torch.equal(_threefry.uniform(bits["cuda"]).cpu(),
+                       _threefry.uniform(want))
+    gen = torch.Generator().manual_seed(0)
+    knobs = [(0.0, 1.0, 0), (1.0, 1.0, 0), (0.8, 0.95, 40), (1.2, 0.9, 0),
+             (3.0, 1.0, 8), (0.7, 0.5, 0)]
+    compared = total = 0
+    for trial in range(8):
+        logits = torch.randn(len(knobs), 128256, generator=gen) * 3
+        args = [torch.tensor([k[i] for k in knobs]) for i in range(3)] + [
+            torch.randint(0, 2**32, (len(knobs),), generator=gen),
+            torch.randint(0, 4096, (len(knobs),), generator=gen)]
+        args[2] = args[2].long()
+        dargs = [logits.to(cuda)] + [a.to(cuda) for a in args]
+        cpu = sampling.sample_tokens(logits, *args)
+        dev = sampling.sample_tokens(*dargs).cpu()
+        scores, order, _ = sampling.perturbed_scores(logits, *args)
+        d_scores, d_order, _ = sampling.perturbed_scores(*dargs)
+        kept = lambda sc, od: torch.zeros_like(sc, dtype=torch.bool).scatter(
+            -1, od, sc > -1e29)
+        same_kept = (kept(scores, order)
+                     == kept(d_scores.cpu(), d_order.cpu())).all(-1)
+        top2 = torch.topk(scores, 2, dim=-1).values
+        clear = (((top2[:, 0] - top2[:, 1]) > 1e-4) & same_kept) \
+            | (args[0] <= 0)
+        total += len(knobs)
+        compared += int(clear.sum())
+        assert torch.equal(cpu[clear], dev[clear]), (trial, cpu, dev)
+    assert compared >= 0.9 * total, (compared, total)

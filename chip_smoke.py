@@ -187,11 +187,44 @@ and its time:
    meta device (nothing allocated), its weight, Gram and calibration
    bytes, and whether the bf16 model and its calibration state fit the
    card.
-9. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
+9. training and recovery (run last, after 6c; llama31-8b's layer widths
+   — d_model 4096, 32 / 8 KV heads, d_ff 14336, so every kernel runs at
+   the shapes of phases 3-6 — with depth 1 and vocabulary 32000, bf16,
+   seed 0: a TrainState checkpoint at 2 layers and vocabulary 128256 is
+   15 GB, and a run of the script is held under 45 GiB of writes), all
+   through the launchers in a temporary directory: (a)
+   ``launch.train.train`` for 8 steps of batch 4 x 128 tokens without
+   checkpoints: finite losses, step 7's below step 0's; then with a
+   checkpoint every 4 steps, stopped by SIGTERM after step 3 (the
+   preemption path: one checkpoint, at step 4), and rerun: it resumes at
+   step 4 and ends with the uninterrupted run's losses and params
+   bitwise;
+   (b) ``launch.prune.prune(from_ckpt=...)`` of the trained checkpoint,
+   PerRow(0.6), Wanda, SparseSwaps, k = 8, t_max = 4 with phase 4's gates
+   and launch arithmetic, the pruned params the trained ones;
+   (c) ``--recover all_masked`` for 20 steps, a checkpoint every 10
+   (``gc(keep=2)`` leaves 10 and 20): CE finite at every step, pruned
+   coordinates 0.0 in the recovered weights and in the saved m and v;
+   the step-20 checkpoint deleted, a rerun prints "recover: resumed at
+   step 10", runs 10 steps and gives the recovered params and CE
+   bitwise; then ``--recover norms`` into the same out dir (how many norm
+   scale elements moved is printed); (d) ``export_packed``, gathered for
+   these PerRow(0.6) masks and nm24 for a 2:4 run (recovered
+   all_masked), each served by ``launch.serve.serve(masks_from=...,
+   from_ckpt=...)``: greedy tokens and logits bitwise those of the
+   in-process recovered params in the same format, packed vs masked
+   logits (fed the masked tokens) within SERVE_TOL, spmm launches =
+   sites x layers x 16 per generate; and ``prune_ckpt``'s ``groups/``
+   root served with the run's masks' tokens. Prints the CE at the start
+   and end, the trainable fraction, the dense / pruned / recovered
+   perplexities, the train-step and recover-step ms (CUDA events, median
+   of steps 2-4), peak memory and the phase's wall time beside the card
+   line.
+10. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
    launches the nm24 engines'; ``spmm_gather``: the gathered kernel at
    w_gate T = 4 on PerRow(0.6), its launches the gathered engines'; the
-   Gram's, swap_topk's and spmm's launches those of phases 4, 6 and 6c
-   and of every 4b / 6b run), the card line, and last {"ok": true,
+   Gram's, swap_topk's and spmm's launches those of phases 4, 6, 6c and
+   9 and of every 4b / 6b run), the card line, and last {"ok": true,
    "device": ...}.
 
 Where the main path's device time goes is measured apart from this
@@ -1554,6 +1587,361 @@ def recipe_path(cfg) -> None:
         require(after == before, "plan_only allocated CUDA memory")
 
 
+# phase 9: training and post-prune recovery (8 train steps of batch 4 x
+# 128 tokens, a checkpoint every 4; 20 recovery steps, a checkpoint every
+# 10). A whole run of this script is held under 45 GiB of disk writes.
+# llama31-8b's TrainState at 2 layers and vocabulary 128256 is 15 GB a
+# checkpoint (bf16 params and fp32 m and v of 1.49 B params), and the
+# phase writes two besides the recovery's, so phase 9 keeps every layer
+# width (every kernel shape of phases 3-6) but cuts the depth to 1 and
+# the vocabulary to llama-2's 32000 (arXiv:2307.09288): 4.8 GB a
+# TrainState, ~25 GB written by the whole phase.
+P9_LAYERS, P9_VOCAB = 1, 32000
+TRAIN_STEPS, TRAIN_CKPT = 8, 4
+RECOVER_STEPS, RECOVER_CKPT = 20, 10
+TIMED_STEPS = 4          # CUDA-event timed steps; the median skips the first
+
+
+def event_ms(step, state, *args, n: int = TIMED_STEPS) -> float:
+    """Median ms of steps 2..n of ``state = step(*args, state, ...)`` by
+    CUDA events (each step's device work, the first left out)."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = step(*args[:-1], state, args[-1])
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    del state
+    return sorted(times[1:])[len(times[1:]) // 2]
+
+
+def echo_run(fn, **kw):
+    """``fn(**kw)`` with its standard output captured (and echoed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(**kw)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if "recover" in line or line.startswith(("resumed", "step ")):
+            log(f"     | {line}")
+    return out, text
+
+
+def equal_trees(a, b) -> bool:
+    import torch
+    from repro_torch.pruning.recover import _flat_leaves
+
+    fa, fb = _flat_leaves(a), _flat_leaves(b)
+    return [n for n, _ in fa] == [n for n, _ in fb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+def train_recover_path(cfg, smi: str, device="cuda") -> dict:
+    """Phase 9 on ``cfg`` (registered under its name for the launchers):
+    train -> prune the trained checkpoint -> recover (resumed) -> export
+    -> serve the export. Returns the kernel launches of its prune and
+    serve runs ({gram_xtx, swap_topk, spmm, spmm_gather})."""
+    import importlib
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+    from repro_torch import ckpt, configs, models
+    from repro_torch.core import masks
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.pruning import sites
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import steps as steps_lib
+
+    rec_mod = importlib.import_module("repro_torch.pruning.recover")
+    cuda = torch.device(device).type == "cuda"
+    configs.ARCHS[cfg.name] = cfg
+    arch, n_layers = cfg.name, cfg.n_layers
+    api = models.build(cfg)
+    n_sites = len(sites.site_specs(cfg, api.init(device="meta")))
+    totals = {"gram_xtx": 0, "swap_topk": 0, "spmm": 0, "spmm_gather": 0}
+    pattern = masks.PerRow(0.6)
+    common = dict(arch=arch, tiny=False, device=device)
+
+    def count(launches):
+        totals["gram_xtx"] += launches["gram_xtx"] + launches["gram_xtx_bf16"]
+        totals["swap_topk"] += launches["swap_topk"]
+
+    def sigterm_after(n: int):
+        """A make_train_step whose step sends this process SIGTERM after
+        its n-th call (the launcher's PreemptionGuard catches it)."""
+        real = steps_lib.make_train_step
+
+        def make(api, opt_cfg, *, masks=None):
+            step, calls = real(api, opt_cfg, masks=masks), [0]
+
+            def wrapped(state, batch):
+                out = step(state, batch)
+                calls[0] += 1
+                if calls[0] == n:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return out
+
+            return wrapped
+
+        return make
+
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        tdir = work / "train"
+        # (a) train uninterrupted (no checkpoint); then with checkpoints,
+        # preempted by SIGTERM after step 3, and resumed to the end
+        kw = dict(common, n_steps=TRAIN_STEPS, batch=4, seq=128, seed=0,
+                  log_every=1)
+        t0 = time.perf_counter()
+        full, _ = echo_run(launch_train.train, **kw)
+        t_full = time.perf_counter() - t0
+        losses = full["losses"]
+        require(len(losses) == TRAIN_STEPS
+                and all(math.isfinite(x) for x in losses),
+                f"train losses not finite: {losses}")
+        require(losses[-1] < losses[0],
+                f"step {TRAIN_STEPS - 1}'s loss {losses[-1]} is not below "
+                f"step 0's {losses[0]}")
+        params1 = full["state"].params
+        del full
+        kw.update(ckpt_dir=str(tdir), ckpt_every=TRAIN_CKPT)
+        real_make = steps_lib.make_train_step
+        steps_lib.make_train_step = sigterm_after(TRAIN_CKPT)
+        try:
+            t0 = time.perf_counter()
+            cut, text = echo_run(launch_train.train, **kw)
+            t_cut = time.perf_counter() - t0
+        finally:
+            steps_lib.make_train_step = real_make
+        require("preempted at step 3" in text
+                and cut["final_step"] == TRAIN_CKPT
+                and ckpt.steps(tdir) == [TRAIN_CKPT],
+                f"SIGTERM did not stop the run at step {TRAIN_CKPT} with one "
+                f"checkpoint: {ckpt.steps(tdir)}")
+        del cut
+        t0 = time.perf_counter()
+        run2, _ = echo_run(launch_train.train, **kw)
+        t_run2 = time.perf_counter() - t0
+        require(run2["start_step"] == TRAIN_CKPT
+                and run2["final_step"] == TRAIN_STEPS,
+                f"resume ran {run2['start_step']}..{run2['final_step']}")
+        require(run2["losses"] == losses[TRAIN_CKPT:],
+                "the resumed run's losses differ from the uninterrupted "
+                "run's")
+        require(equal_trees(run2["state"].params, params1),
+                "the resumed run's params differ from the uninterrupted "
+                "run's")
+        log(f"   (a) train: losses {[round(x, 4) for x in losses]}; "
+            f"{t_full:.2f} s for {TRAIN_STEPS} steps; with checkpoints "
+            f"{t_cut:.2f} s to the SIGTERM and its step-{TRAIN_CKPT} "
+            f"checkpoint, {t_run2:.2f} s resumed to the end: losses and "
+            "params bitwise the uninterrupted run's")
+        pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                      4, 128, split="train", device=device)
+        step = steps_lib.make_train_step(api, adamw.AdamWConfig())
+        train_ms = (event_ms(step, run2["state"], pipe.get(0)) if cuda
+                    else float("nan"))
+        trained = run2["state"].params
+        del run2, params1, step
+
+        # (b) prune the trained checkpoint, (c) recover all_masked, resumed
+        pdir = work / "prune"
+        pkw = dict(common, pattern="0.6", warmstart="wanda",
+                   method="sparseswaps", k_swaps=8, t_max=T_MAX, n_calib=16,
+                   calib_seq=128, calib_batch=4, seed=0, out_dir=str(pdir),
+                   calib_ckpt_every=RECOVER_CKPT, from_ckpt=str(tdir),
+                   recover="all_masked", recover_steps=RECOVER_STEPS)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        resA, _ = echo_run(launch_prune.prune, **pkw)
+        t_prune = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        count(launches)
+        rep, ex = resA["report"], resA["executor"]
+        require(equal_trees(ex.params, trained),
+                "--from-ckpt did not prune the trained params")
+        check_pruned(api, ex.params, rep, launches, 4, pattern,
+                     resA["dense"], resA["pruned"])
+        rr = resA["recover_result"]
+        rdir = pdir / "prune_ckpt" / "recover"
+        require(rr.steps_run == RECOVER_STEPS and not rr.diverged
+                and all(math.isfinite(c) for c in rr.ce_history),
+                f"recovery CE not finite at every step: {rr.ce_history}")
+        require(ckpt.steps(rdir) == [RECOVER_CKPT, RECOVER_STEPS],
+                f"recovery checkpoints {ckpt.steps(rdir)}")
+        flat_masks = dict(rec_mod._flat_leaves(rep.masks))
+        flat_rec = dict(rec_mod._flat_leaves(rep.updated_params))
+        for name, m in flat_masks.items():
+            require(not bool(flat_rec[name][m == 0].any()),
+                    f"{name}: a pruned weight is nonzero after recovery")
+        saved, _ = ckpt.restore(rdir, RECOVER_STEPS,
+                                [f".opt/.{p}/{n}" for p in "mv"
+                                 for n in flat_masks])
+        for path, arr in saved.items():
+            m = flat_masks[path.split("/")[-1]]
+            require(not bool(ckpt.to_tensor(arr, device)[m == 0].any()),
+                    f"{path}: a moment is nonzero at a pruned coordinate")
+        del saved
+        log(f"   (b) prune --from-ckpt: {t_prune:.2f} s with recovery, "
+            f"launches {launches}; dense ppl "
+            f"{resA['dense']['perplexity']:.4f}, pruned ppl "
+            f"{resA['pruned']['perplexity']:.4f}, error reduction "
+            f"{100 * rep.mean_error_reduction():.3f}%; masks digest "
+            f"{digest(mask_leaves(rep.masks))}")
+        log(f"   (c) recover all_masked: CE {rr.ce_history[0]:.4f} -> "
+            f"{rr.ce_history[-1]:.4f} over {rr.steps_run} steps, trainable "
+            f"{rr.trainable_count} of {rr.total_count} "
+            f"({100 * rr.trainable_frac:.3f}%), recovered ppl "
+            f"{resA['recovered']['perplexity']:.4f}; pruned coordinates "
+            "0.0 in the weights, m and v")
+        recovered = rep.updated_params
+        shutil.rmtree(rdir / f"step_{RECOVER_STEPS:08d}")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        resB, text = echo_run(launch_prune.prune, **pkw)
+        t_resume = time.perf_counter() - t0
+        count(dict(ops.LAUNCHES))
+        rr2 = resB["recover_result"]
+        require(f"recover: resumed at step {RECOVER_CKPT}" in text,
+                "the rerun did not resume the recovery")
+        require(rr2.start_step == RECOVER_CKPT
+                and rr2.steps_run == RECOVER_STEPS - RECOVER_CKPT,
+                f"the rerun ran {rr2.start_step} + {rr2.steps_run} steps")
+        require(equal_trees(resB["report"].updated_params, recovered),
+                "the resumed recovery's params differ from the "
+                "uninterrupted run's")
+        require(rr2.ce_history == rr.ce_history[RECOVER_CKPT:],
+                "the resumed recovery's CE differs")
+        log(f"   (c) rerun: {t_resume:.2f} s, resumed at step "
+            f"{rr2.start_step}, ran {rr2.steps_run} steps: recovered "
+            "params and CE bitwise the uninterrupted run's")
+        sel = rec_mod.build_selection(trained, rep.masks, rr.spec)
+        rstep = rec_mod._make_step(api, rep.masks, sel, rr.spec.opt_config())
+        rstate = steps_lib.TrainState(sel.trainable,
+                                      adamw.init(sel.trainable))
+        batch = pipe.get(1)
+        rec_ms = (event_ms(rstep, rstate, trained, batch) if cuda
+                  else float("nan"))
+        del sel, rstep, rstate
+
+        # (c) norms, into the same out dir (groups restored, no checkpoints)
+        ops.reset_launches()
+        resN, _ = echo_run(launch_prune.prune, **dict(
+            pkw, recover="norms", calib_ckpt_every=0))
+        count(dict(ops.LAUNCHES))
+        rn = resN["recover_result"]
+        require(rn.steps_run == RECOVER_STEPS
+                and all(math.isfinite(c) for c in rn.ce_history),
+                "norms recovery CE not finite")
+        base = dict(rec_mod._flat_leaves(trained))
+        moved = {n: f"{int((a != base[n]).sum())}/{a.numel()} {a.dtype}"
+                 for n, a in rec_mod._flat_leaves(rn.trainable)}
+        log(f"   (c) recover norms: CE {rn.ce_history[0]:.4f} -> "
+            f"{rn.ce_history[-1]:.4f}, trainable {rn.trainable_count} "
+            f"({100 * rn.trainable_frac:.4f}%), recovered ppl "
+            f"{resN['recovered']['perplexity']:.4f}; norm scale elements "
+            f"changed: {moved}")
+        sel = rec_mod.build_selection(trained, rep.masks, rn.spec)
+        rstep = rec_mod._make_step(api, rep.masks, sel, rn.spec.opt_config())
+        rstate = steps_lib.TrainState(sel.trainable,
+                                      adamw.init(sel.trainable))
+        norms_ms = (event_ms(rstep, rstate, trained, batch) if cuda
+                    else float("nan"))
+        del sel, rstep, rstate, resN, resA
+
+        # (d) export and serve: PerRow(0.6) gathered; a 2:4 run for nm24
+        prompt = synthetic.DataPipeline(
+            synthetic.CorpusConfig(cfg.vocab_size, seed=0), 4, 32,
+            split="val", device=device).get(0)
+        ex, rep = resB["executor"], resB["report"]
+        ops.reset_launches()
+        res24, _ = echo_run(launch_prune.prune, **dict(
+            pkw, pattern="2:4", out_dir=None, calib_ckpt_every=0))
+        count(dict(ops.LAUNCHES))
+        for fmt, (exe, rp) in (("gathered", (ex, rep)),
+                               ("nm24", (res24["executor"],
+                                         res24["report"]))):
+            out = exe.export_packed(work / f"export_{fmt}", fmt)
+            first = ops.LAUNCHES["spmm"]
+            want = ServeEngine(api, rp.updated_params, masks=rp.masks,
+                               fmt=fmt, device=device)
+            key = "spmm" if fmt == "nm24" else "spmm_gather"
+            before = ops.LAUNCHES["spmm"]
+            served, _ = echo_run(
+                launch_serve.serve, **dict(
+                    common, batch=4, prompt_len=32,
+                    gen=SERVE_GEN, masks_from=str(out), fmt=fmt, seed=0,
+                    from_ckpt=str(tdir), verbose=False))
+            n = ops.LAUNCHES["spmm"] - before
+            require(n == n_sites * n_layers * SERVE_GEN,
+                    f"{fmt}: serving the export launched spmm {n} times, "
+                    f"want {n_sites * n_layers * SERVE_GEN}")
+            direct = want.generate(prompt, SERVE_GEN)
+            require(torch.equal(served["tokens"], direct.tokens),
+                    f"{fmt}: the export's greedy tokens differ from the "
+                    "in-process recovered model's")
+            via = ServeEngine(api, trained, masks=out, fmt=fmt,
+                              device=device)
+            lt = want.logits_trace(prompt, SERVE_GEN)
+            require(torch.equal(via.logits_trace(prompt, SERVE_GEN), lt),
+                    f"{fmt}: the export's logits differ from the "
+                    "in-process recovered model's")
+            masked = ServeEngine(api, rp.updated_params, masks=rp.masks,
+                                 fmt="masked", device=device)
+            ref = masked.logits_trace(prompt, SERVE_GEN)
+            toks = masked.generate(prompt, SERVE_GEN).tokens
+            err = float((forced_logits(want, prompt, toks) - ref).abs().max())
+            scale = float(ref.abs().max())
+            require(math.isfinite(err) and err <= SERVE_TOL * scale,
+                    f"{fmt} vs masked beyond {SERVE_TOL} of max|logits|")
+            totals[key] += ops.LAUNCHES["spmm"] - first
+            log(f"   (d) {fmt}: launch.serve --masks-from the export: "
+                f"tokens and logits bitwise the in-process recovered "
+                f"model's, spmm launches {n}; vs masked (fed its tokens) "
+                f"{err / scale:.2e} of max|logits| {scale:.3f}")
+            del want, via, masked
+        groups = pdir / "prune_ckpt"
+        before = ops.LAUNCHES["spmm"]
+        served, _ = echo_run(launch_serve.serve, **dict(
+            common, batch=4, prompt_len=32, gen=SERVE_GEN,
+            masks_from=str(groups), fmt="gathered", seed=0,
+            from_ckpt=str(tdir), verbose=False))
+        want = ServeEngine(api, trained, masks=rep.masks, fmt="gathered",
+                           device=device).generate(prompt, SERVE_GEN)
+        totals["spmm_gather"] += ops.LAUNCHES["spmm"] - before
+        require(torch.equal(served["tokens"], want.tokens),
+                "serving prune_ckpt/groups differs from the run's masks")
+        log("   (d) launch.serve --masks-from prune_ckpt (groups/): tokens "
+            "bitwise the pruned model's")
+        del resB, res24, ex, rep, trained, recovered
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+            else float("nan"))
+    log(f"   train step {train_ms:.2f} ms, recover step all_masked "
+        f"{rec_ms:.2f} ms, norms {norms_ms:.2f} ms (CUDA events, median "
+        f"of steps 2-{TIMED_STEPS}); peak memory {peak:.2f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.2f} s; {smi}")
+    return totals
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1772,19 +2160,30 @@ def main() -> int:
         cont_launches = continuous_path(api, params, *masks_6c)
         log(f"   spmm launches {cont_launches}")
         del api, params, masks_6c
+    torch.cuda.empty_cache()
+    with Phase("9 training and recovery: train, prune --from-ckpt, "
+               "recover, export, serve the export"):
+        cfg9 = cfg.replace(name=f"{cfg.name}-L{P9_LAYERS}-V{P9_VOCAB}",
+                           n_layers=P9_LAYERS, vocab_size=P9_VOCAB)
+        log(f"   config: {cfg9.name}: llama31-8b's layer widths, depth "
+            f"{P9_LAYERS}, vocabulary {P9_VOCAB} (the write budget)")
+        rec_launches = train_recover_path(cfg9, smi)
+        log(f"   launches {rec_launches}")
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o["serve"]) for o in other.values()]
     launches = {"gram_xtx": sum(p["gram_xtx_bf16"] + p["gram_xtx"]
-                                for p, _ in runs),
-                "swap_topk": sum(p["swap_topk"] for p, _ in runs),
+                                for p, _ in runs) + rec_launches["gram_xtx"],
+                "swap_topk": sum(p["swap_topk"] for p, _ in runs)
+                + rec_launches["swap_topk"],
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches,
                 "spmm": sum(s["nm24_2:4"] for _, s in runs)
-                + cont_launches["spmm"],
+                + cont_launches["spmm"] + rec_launches["spmm"],
                 "spmm_gather": sum(s["gathered_0.6"] + s["gathered_2:4"]
                                    for _, s in runs)
-                + cont_launches["spmm_gather"]}
+                + cont_launches["spmm_gather"]
+                + rec_launches["spmm_gather"]}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]

@@ -8,18 +8,21 @@ Layout of one checkpoint directory (as ``repro.ckpt.store`` writes it)::
       shard_0_<k>.npz
 
 Leaf paths join the nested dict keys with "/", in sorted key order (the
-order JAX flattens a dict in). One process writes every leaf as a single
-shard covering the whole array, so each package reads what the other
-writes. Writes land in ``step_X.tmp-<nonce>/`` first, are fsync'd, then
-renamed, so a reader never sees a partial checkpoint; a hash mismatch
-marks a checkpoint invalid and ``latest_valid`` skips it.
+order JAX flattens a dict in); a NamedTuple's fields (a ``TrainState``)
+join as ``.field`` in field order, and None is an empty subtree, as in
+``jax.tree_util``. One process writes every leaf as a single shard
+covering the whole array, so each package reads what the other writes.
+Writes land in ``step_X.tmp-<nonce>/`` first, are fsync'd, then renamed,
+so a reader never sees a partial checkpoint; a hash mismatch marks a
+checkpoint invalid and ``latest_valid`` skips it.
 
-fp32, int32 and uint8 leaves travel both ways. bf16 leaves (a
-``weights/`` dump of updated bf16 weights) are written byte for byte as
-the reference writes them: its ml_dtypes arrays land in the .npz as raw
-2-byte records under manifest dtype "bfloat16". Reading bf16 back waits
-for the ``weights/`` splice (ROADMAP A2) and raises, as do sharded,
-multi-host restores and the reference's retry of transient I/O errors.
+fp32, int32, uint8 and bf16 leaves travel both ways. bf16 leaves are
+written byte for byte as the reference writes them: its ml_dtypes arrays
+land in the .npz as raw 2-byte records (numpy reads them back as ``V2``)
+under manifest dtype "bfloat16". ``restore`` returns them as those ``V2``
+records, and ``to_tensor`` reads them through their 16-bit pattern as
+``torch.bfloat16``. Sharded, multi-host restores and the reference's
+retry of transient I/O errors are not ported (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -35,13 +38,45 @@ import numpy as np
 import torch
 
 
-def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
+def _children(tree) -> list[tuple[str, object]] | None:
+    """(path component, child) of a dict (sorted keys) or a NamedTuple
+    (``.field``, in field order); None for a leaf."""
     if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten(tree[k], f"{prefix}{k}/")
-        return out
-    return [(prefix[:-1], tree)]
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
+    kids = _children(tree)
+    if kids is None:
+        return [] if tree is None else [(prefix[:-1], tree)]
+    out = []
+    for k, v in kids:
+        out += _flatten(v, f"{prefix}{k}/")
+    return out
+
+
+def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """A restored leaf as a tensor on ``device``; ``V2`` records (bf16)
+    through their 16-bit pattern."""
+    if arr.dtype == np.dtype("V2"):
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.asarray(arr)).to(device)
+
+
+def unflatten(flat: dict, device="cpu") -> dict:
+    """{"a/b/c": array} -> nested dicts of tensors on ``device``."""
+    tree: dict = {}
+    for path, arr in flat.items():
+        keys = path.split("/")
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = to_tensor(arr, device)
+    return tree
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
@@ -203,27 +238,64 @@ def _slices(index: list, shape: list) -> tuple:
                  for i, (a, b) in enumerate(index))
 
 
-def restore(ckpt_dir: str | Path, step: int) -> tuple[dict, dict]:
-    """Every leaf of one checkpoint, assembled from its shards' index
-    slices: ({path: np.ndarray}, manifest). Raises ``IOError`` on a hash
-    mismatch."""
+def restore(ckpt_dir: str | Path, step: int,
+            paths=None) -> tuple[dict, dict]:
+    """The leaves of one checkpoint (all of them, or those named in
+    ``paths``), assembled from their shards' index slices: ({path:
+    np.ndarray}, manifest); bf16 leaves as ``V2`` records. Raises
+    ``IOError`` on a hash mismatch and ``KeyError`` on a missing path."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     man = _load_manifest(d)
     if man is None:
         raise FileNotFoundError(d)
+    by_path = {e["path"]: e for e in man["leaves"]}
     out = {}
     with _Shards(d) as shards:
-        for e in man["leaves"]:
-            if e["dtype"] == "bfloat16":
-                raise NotImplementedError(
-                    f"leaf {e['path']!r} is bfloat16; bf16 checkpoints wait "
-                    "for the weights/ rule (ROADMAP A2)")
-            full = np.zeros(e["shape"], dtype=e["dtype"])
+        for path in (by_path if paths is None else paths):
+            e = by_path[path]
+            dtype = "V2" if e["dtype"] == "bfloat16" else e["dtype"]
+            full = np.zeros(e["shape"], dtype=dtype)
             for sh in e["shards"]:
                 arr = shards.get(sh)
                 if _sha256(arr) != sh["sha256"]:
                     raise IOError(f"hash mismatch in {d}/{sh['file']}:"
                                   f"{sh['key']}")
                 full[_slices(sh["index"], e["shape"])] = arr
-            out[e["path"]] = full
+            out[path] = full
     return out, man
+
+
+def _rebuild(like, flat: dict, device, prefix: str = ""):
+    kids = _children(like)
+    if kids is None:
+        if like is None:
+            return None
+        return to_tensor(flat[prefix[:-1]],
+                         like.device if device is None else device)
+    rebuilt = {k: _rebuild(v, flat, device, f"{prefix}{k}/") for k, v in kids}
+    if isinstance(like, dict):
+        return {k: rebuilt[str(k)] for k in like}
+    return type(like)(*(rebuilt[f".{f}"] for f in like._fields))
+
+
+def restore_like(ckpt_dir: str | Path, step: int, like, *,
+                 device=None) -> tuple[object, dict]:
+    """The counterpart of the reference's ``restore(dir, step, target)``:
+    the leaves ``like``'s structure names (nested dicts and NamedTuples,
+    None an empty subtree), read and hash-checked, as tensors in that
+    structure on ``device`` (default: each ``like`` leaf's device), with
+    the dtypes the manifest records. Returns (tree, manifest)."""
+    flat, man = restore(ckpt_dir, step, [p for p, _ in _flatten(like)])
+    return _rebuild(like, flat, device), man
+
+
+def restore_latest_like(ckpt_dir: str | Path, like, *, device=None):
+    """(step, tree, manifest) of the newest checkpoint whose leaves that
+    ``like`` names read back and pass their hash checks, or None."""
+    for s in reversed(steps(ckpt_dir)):
+        try:
+            tree, man = restore_like(ckpt_dir, s, like, device=device)
+        except (OSError, KeyError, ValueError):
+            continue
+        return s, tree, man
+    return None

@@ -4,8 +4,9 @@
 for every field the dense transformer reads, so a config written for one
 package reads the same in the other. Family-specific fields the port does
 not run yet (MoE, SSM, RWKV, cross-attention, encoder-decoder) are left
-out until their slice lands, and so is ``grad_accum``, a training knob
-that comes with training (ROADMAP A3).
+out until their slice lands. Of the execution knobs the port keeps the
+two training reads: ``remat`` (recompute each layer's activations in the
+backward pass) and ``grad_accum`` (microbatches per train step).
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ class ArchConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     sliding_window: int = 0            # 0 = full attention
+    remat: bool = True                 # per-layer activation checkpointing
+    grad_accum: int = 1                # microbatches per step (train memory)
     dtype: str = "bfloat16"            # compute/param dtype ("float32" on CPU tests)
 
     @property

@@ -14,6 +14,8 @@ CONFIG = ArchConfig(
     n_kv_heads=1,
     d_ff=24576,
     vocab_size=49152,
+    grad_accum=2,             # two microbatches per train step, as the
+                              # reference's config sets it
     mlp="plain",
     act="gelu",
 )

@@ -14,6 +14,8 @@ CONFIG = ArchConfig(
     n_kv_heads=8,
     d_ff=16384,
     vocab_size=92544,
+    grad_accum=2,             # two microbatches per train step, as the
+                              # reference's config sets it
     mlp="gated",
     act="silu",
 )

@@ -10,8 +10,11 @@ bf16 tensors as float32, which holds every bf16 value exactly.
 
 A reference ``PackedWeight`` leaf (after ``jax.tree.map(np.asarray, ...)``
 its ``values``/``idx`` are numpy arrays) becomes the port's
-``PackedWeight`` with the same arrays and format fields. It is read by
-its attributes, so nothing of the reference is imported.
+``PackedWeight`` with the same arrays and format fields, and a reference
+``TrainState`` (``params``, ``opt`` = ``AdamWState(m, v, step)``) the
+port's ``TrainState``; ``to_numpy`` of a port ``TrainState`` gives
+``{"params", "opt": {"m", "v", "step"}}``. Both are read by their
+attributes, so nothing of the reference is imported.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ _PACKED_FIELDS = ("values", "idx", "fmt", "d_in", "n", "m")
 
 def _leaf_from_numpy(x, device) -> torch.Tensor:
     a = np.asarray(x)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
@@ -36,6 +39,16 @@ def from_numpy(tree, *, device="cpu"):
     """Nested dicts of numpy arrays -> nested dicts of tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device=device) for k, v in tree.items()}
+    if hasattr(tree, "params") and hasattr(tree, "opt"):
+        from repro_torch.optim.adamw import AdamWState
+        from repro_torch.train.steps import TrainState
+
+        o = tree.opt
+        return TrainState(
+            params=from_numpy(tree.params, device=device),
+            opt=AdamWState(m=from_numpy(o.m, device=device),
+                           v=from_numpy(o.v, device=device),
+                           step=_leaf_from_numpy(o.step, device)))
     if all(hasattr(tree, f) for f in _PACKED_FIELDS):
         return PackedWeight(values=_leaf_from_numpy(tree.values, device),
                             idx=_leaf_from_numpy(tree.idx, device),
@@ -45,9 +58,14 @@ def from_numpy(tree, *, device="cpu"):
 
 
 def to_numpy(tree):
-    """Nested dicts of tensors -> nested dicts of numpy arrays."""
+    """Nested dicts of tensors -> nested dicts of numpy arrays; a
+    ``TrainState`` -> ``{"params", "opt": {"m", "v", "step"}}``."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if hasattr(tree, "params") and hasattr(tree, "opt"):
+        return {"params": to_numpy(tree.params),
+                "opt": {"m": to_numpy(tree.opt.m), "v": to_numpy(tree.opt.v),
+                        "step": to_numpy(tree.opt.step)}}
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()

@@ -22,14 +22,18 @@ in ascending column order in both formats, so the two packings of one
 ``PackedWeight`` keeps leading stack dims (layers), so a packed leaf
 sits in the stacked param tree where the dense weight was, and the model
 slices it per layer. Masks come from ``prune_model`` reports
-(``from_report``) or from a masks-tree checkpoint written by either
-package (``load_mask_tree``); executor ``groups/`` checkpoints and a
-``weights/`` splice are not ported yet (ROADMAP A2).
+(``from_report``) or from any pruning-run artifact either package writes
+(``load_masks_and_weights``): a masks-tree checkpoint, executor
+``groups/`` checkpoints (with sparsegpt's updated weights), or a launcher
+``--out-dir`` / ``export_packed`` root whose ``weights/`` (updated or
+recovered leaves) are spliced in; ``load_packed_tree`` reads an
+``export_packed`` artifact's packed leaves without re-packing.
 """
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -297,50 +301,157 @@ def from_report(cfg, params: dict, report, fmt: str = "nm24") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# export_packed artifacts
+# ---------------------------------------------------------------------------
+
+def load_packed_tree(params: dict, out_dir: str | Path) -> dict:
+    """Inverse of ``PruneExecutor.export_packed``: a pre-packed param tree.
+
+    Restores the values / idx checkpoint under ``<out_dir>/packed`` and
+    splices ``PackedWeight`` leaves into a copy of ``params`` (on their
+    device) at the recorded site paths: serving needs no re-pack and never
+    reads the masks.
+    """
+    from repro_torch import ckpt
+
+    d = Path(out_dir) / "packed"
+    found = ckpt.restore_latest(d)
+    if found is None:
+        raise FileNotFoundError(f"no valid packed checkpoint under {d}")
+    _, restored, man = found
+    dev = _device_of(params)
+    out = _copy_dicts(params)
+    for name, mt in man["extra"]["sites"].items():
+        pw = PackedWeight(
+            values=ckpt.to_tensor(restored[f"values/{name}"], dev),
+            idx=ckpt.to_tensor(restored[f"idx/{name}"], dev),
+            fmt=mt["fmt"], d_in=int(mt["d_in"]), n=int(mt["n"]),
+            m=int(mt["m"]))
+        _set(out, tuple(name.split(".")), pw)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # mask-checkpoint loading (the --masks-from path)
 # ---------------------------------------------------------------------------
 
-def load_mask_tree(cfg, params: dict, ckpt_dir: str | Path) -> dict:
-    """Assemble a masks tree from a pruning-run artifact directory.
+class MaskSource(NamedTuple):
+    """A mask artifact resolved once: its masks and the weights they
+    belong to — the fields of a ``PruneReport`` that ``ServeEngine``
+    reads, so every engine built from it serves the same trees."""
 
-    Accepts a masks-tree checkpoint (``<dir>/step_*``, as
-    ``ckpt.save(dir, step, report.masks)`` writes it in either package)
-    or a launcher ``--out-dir`` root (its ``masks/``).
-    """
+    masks: dict
+    updated_params: dict
+
+
+def load_mask_tree(cfg, params: dict, ckpt_dir: str | Path) -> dict:
+    """Assemble a masks tree from a pruning-run artifact directory (see
+    ``load_masks_and_weights`` for what it accepts)."""
     return load_masks_and_weights(cfg, params, ckpt_dir)[0]
 
 
 def load_masks_and_weights(cfg, params: dict,
                            ckpt_dir: str | Path) -> tuple[dict, dict]:
-    """``load_mask_tree`` plus the weights the masks belong to.
+    """(masks tree, the weights the masks belong to) from any pruning-run
+    artifact directory, in resolution order:
 
-    A masks-only artifact returns ``params`` unchanged. An artifact that
-    carries updated weights (a ``weights/`` dump of a sparsegpt or
-    recovery run) or only executor ``groups/`` checkpoints raises
-    ``NotImplementedError``: serving its masks over the original weights
-    would be silently wrong. A JAX launcher ``--out-dir`` root without
-    ``weights/`` is served from its ``masks/``, which hold the same masks
-    as its ``prune_ckpt/groups``.
+    * an executor checkpoint dir (``<dir>/groups/<site>/step_*``): the
+      per-group masks; sparsegpt groups carry ``new_weights`` (the
+      refiner updates the kept weights), spliced into a copy of
+      ``params``; sites without a valid group checkpoint serve dense;
+    * a masks-tree checkpoint (``<dir>/step_*``); ``params`` unchanged;
+    * a launcher ``--out-dir`` or ``export_packed`` root: ``prune_ckpt/``
+      then ``masks/`` by the rules above, with ``<dir>/weights`` (the
+      changed leaves of a sparsegpt or recovery run) spliced over the
+      result.
+
+    Serving masks over weights they were not refined on would be silently
+    wrong, so every weight source is applied. Each package reads the
+    other's artifacts; the returned trees live on ``params``' device.
     """
     from repro_torch import ckpt
 
     d = Path(ckpt_dir)
     if (d / "groups").is_dir():
-        raise NotImplementedError(
-            f"{d} holds executor groups/ checkpoints; serving from them is "
-            "not ported yet (ROADMAP A2) — serve the run's masks/ instead")
+        return _masks_from_groups(cfg, params, d / "groups")
     if ckpt.steps(d):
         return _masks_from_tree_ckpt(cfg, params, d), params
-    if (d / "weights").is_dir():
-        raise NotImplementedError(
-            f"{d}/weights holds updated weights (sparsegpt or recovery); "
-            "splicing them before serving is not ported yet (ROADMAP A2)")
-    if ckpt.steps(d / "masks"):
-        return load_masks_and_weights(cfg, params, d / "masks")
-    if (d / "prune_ckpt").is_dir():
-        return load_masks_and_weights(cfg, params, d / "prune_ckpt")
+    # executor checkpoints first: a launcher --out-dir root holds both a
+    # masks tree (masks/) and the group checkpoints (prune_ckpt/), and
+    # only the latter carry sparsegpt's updated weights
+    for sub in ("prune_ckpt", "masks"):
+        if (d / sub).exists():
+            try:
+                masks, params = load_masks_and_weights(cfg, params, d / sub)
+            except FileNotFoundError:
+                continue
+            if (d / "weights").is_dir():
+                params = _splice_weights(params, d / "weights")
+            return masks, params
     raise FileNotFoundError(
-        f"no mask checkpoint under {d} (want step_* or masks/)")
+        f"no mask checkpoint under {d} (want groups/<site>/step_* or "
+        "step_* or masks/|prune_ckpt/)")
+
+
+def _splice_weights(params: dict, d: Path) -> dict:
+    """Overlay an exported weight checkpoint (a flat {dotted name: leaf}
+    tree, as ``export_packed`` and the prune launcher write it) onto a
+    copy of ``params``, each leaf in the dtype of the one it replaces."""
+    from repro_torch import ckpt
+
+    found = ckpt.restore_latest(d)
+    if found is None:
+        return params
+    dev = _device_of(params)
+    out = _copy_dicts(params)
+    for name, arr in found[1].items():
+        ppath = tuple(name.split("."))
+        old = _get(params, ppath)
+        _set(out, ppath, ckpt.to_tensor(arr, dev).to(old.dtype))
+    return out
+
+
+def _masks_from_groups(cfg, params: dict,
+                       groups_dir: Path) -> tuple[dict, dict]:
+    """Masks (and sparsegpt's updated weights) from executor group
+    checkpoints, one ``groups/<site>/`` per site group."""
+    from repro_torch import ckpt
+    from repro_torch.pruning import sites as sites_lib
+
+    specs = {s.name: s for s in sites_lib.site_specs(cfg, params)}
+    dev = _device_of(params)
+    tree: dict = {}
+    new_params = params
+    found = 0
+    for name, ppath in _site_paths(cfg):
+        found_g = ckpt.restore_latest(groups_dir / name)
+        if found_g is None:
+            continue
+        restored, spec = found_g[1], specs[name]
+
+        def unstack(arr):
+            t = ckpt.to_tensor(arr, dev)
+            return (t.reshape(*spec.stack_shape, spec.d_out, spec.d_in)
+                    if spec.stack_shape else t[0])
+
+        node = tree
+        for k in ppath[:-1]:
+            node = node.setdefault(k, {})
+        node[ppath[-1]] = unstack(restored["masks"])
+        if "new_weights" in restored:
+            if new_params is params:
+                new_params = _copy_dicts(params)
+            old = _get(params, ppath)
+            _set(new_params, ppath,
+                 unstack(restored["new_weights"]).to(old.dtype))
+        found += 1
+    if not found:
+        raise FileNotFoundError(
+            f"no valid group mask checkpoints under {groups_dir}")
+    # keep top-level family keys the models index unconditionally
+    for name, _ in _site_paths(cfg):
+        tree.setdefault(name.split(".", 1)[0], {})
+    return tree, new_params
 
 
 def _device_of(params: dict) -> torch.device:
@@ -358,15 +469,7 @@ def _masks_from_tree_ckpt(cfg, params: dict, d: Path) -> dict:
     found = ckpt.restore_latest(d)
     if found is None:
         raise FileNotFoundError(f"no valid checkpoint under {d}")
-    _, restored, _ = found
-    dev = _device_of(params)
-    tree: dict = {}
-    for path, leaf in restored.items():
-        keys = path.split("/")
-        node = tree
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = torch.from_numpy(leaf).to(dev)
+    tree = ckpt.unflatten(found[1], _device_of(params))
     for name, _ in _site_paths(cfg):
         tree.setdefault(name.split(".", 1)[0], {})
     return tree

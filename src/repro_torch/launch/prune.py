@@ -28,18 +28,31 @@ directory resumes. Then
 
     python -m repro_torch.launch.serve --masks-from D --format nm24 ...
 
-serves the pruned model, as the reference's launchers do. ``--mesh``,
-``--recover*`` and ``--from-ckpt`` are not ported yet (ROADMAP A3, A5).
+serves the pruned model, as the reference's launchers do.
+
+``--from-ckpt DIR`` prunes the params of the newest TrainState checkpoint
+under DIR (``launch.train``'s, or the reference's) instead of the seeded
+init. ``--recover norms_biases [--recover-steps N --recover-lr LR]``
+appends PERP post-prune recovery (``pruning.recover``): masked-gradient
+AdamW on the selected params over the calibration stream (the run's own
+batch, sequence length and seed; the flag overrides a recipe's
+``recover``), resumable under ``D/prune_ckpt/recover`` with
+``--calib-ckpt-every k`` as its checkpoint period. The recovered model
+is evaluated, ``report.json`` gains ``recovered`` and ``recovery``, and
+its changed leaves go to ``D/weights``, so ``launch.serve --masks-from
+D`` serves the recovered model. ``--mesh`` is not ported (ROADMAP A5).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 
 from repro_torch import ckpt, configs, models, pruning
 from repro_torch.device import disable_tf32, resolve_device
 from repro_torch.pruning.executor import changed_leaves
+from repro_torch.train import steps as steps_lib
 
 
 def _build_recipe(pattern, *, recipe: str | None, warmstart: str,
@@ -60,11 +73,22 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
           out_dir: str | None = None, calib_ckpt_every: int = 0,
           recipe: str | None = None, plan_only: bool = False,
           calib_stats: str = "full", device="cuda", n_layers: int | None = None,
+          from_ckpt: str | None = None, recover: str | None = None,
+          recover_steps: int = 50, recover_lr: float = 1e-3,
           callback: pruning.PruneCallback | None = None,
           verbose: bool = True) -> dict:
     """The launcher as a function. ``n_layers`` cuts the depth (the
-    widths stay); ``callback`` receives the executor's progress (default:
-    one printed line per group when ``verbose``)."""
+    widths stay); ``from_ckpt`` prunes a trained TrainState checkpoint's
+    params; ``callback`` receives the executor's progress (default: one
+    printed line per group when ``verbose``).
+
+    ``recover``: a PERP selection name ("norms", "biases",
+    "norms_biases", "all_masked", "lora") runs post-prune recovery for
+    ``recover_steps`` steps at ``recover_lr`` on the calibration stream,
+    checkpointed every ``calib_ckpt_every`` steps; it overrides a recipe's
+    ``recover``. Returns the report, the evaluations, the plan, the
+    calibration statistics and the executor (for ``export_packed``), and
+    with recovery its result and evaluation."""
     dev = resolve_device(device)
     disable_tf32()
     cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
@@ -73,6 +97,12 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
     api = models.build(cfg)
     rec = _build_recipe(pattern, recipe=recipe, warmstart=warmstart,
                         method=method, t_max=t_max, k_swaps=k_swaps)
+    if recover is not None:
+        # the flag wins over a recipe's spec; the calibration stream's
+        # geometry and seed are the pruning run's own
+        rec = dataclasses.replace(rec, recover=pruning.RecoverSpec(
+            select=recover, steps=recover_steps, lr=recover_lr,
+            batch_size=calib_batch, seq_len=calib_seq, seed=seed))
 
     if plan_only:
         # shapes only: no weight materialized, no FLOP spent
@@ -81,7 +111,8 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
         print(plan.describe())
         return {"plan": plan}
 
-    params = api.init(seed=seed, device=dev)
+    params = (steps_lib.restore_params(api, from_ckpt, device=dev)
+              if from_ckpt else api.init(seed=seed, device=dev))
     plan = pruning.plan_pruning(api, params, rec, compact_every=compact_every)
     if verbose:
         print(plan.describe())
@@ -109,18 +140,37 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
               f"acc {100*dense_eval['accuracy']:.2f}%")
         print(f"pruned: ppl {sparse_eval['perplexity']:.2f}  "
               f"acc {100*sparse_eval['accuracy']:.2f}%")
+    result = {"report": report, "dense": dense_eval, "pruned": sparse_eval,
+              "plan": plan, "stats": executor.stats, "executor": executor}
+    if plan.recover is not None:
+        rec_res = executor.recover(checkpoint_every=calib_ckpt_every,
+                                   verbose=verbose)
+        result["recover_result"] = rec_res
+        result["recovered"] = pruning.evaluate(
+            api, report.updated_params, masks=report.masks, seed=seed,
+            device=dev)
+        if verbose:
+            rv = result["recovered"]
+            print(f"recovered ({plan.recover.select}, "
+                  f"{rec_res.steps_run + rec_res.start_step} steps, "
+                  f"{100*rec_res.trainable_frac:.2f}% of params): "
+                  f"ppl {rv['perplexity']:.2f}  "
+                  f"acc {100*rv['accuracy']:.2f}%")
     if out_dir:
         write_out_dir(Path(out_dir), arch, rec, params, report, dense_eval,
-                      sparse_eval)
-    return {"report": report, "dense": dense_eval, "pruned": sparse_eval,
-            "plan": plan, "stats": executor.stats}
+                      sparse_eval, recovered=result.get("recovered"),
+                      recover_result=result.get("recover_result"))
+    return result
 
 
 def write_out_dir(out: Path, arch: str, recipe, params, report,
-                  dense_eval: dict, sparse_eval: dict) -> None:
+                  dense_eval: dict, sparse_eval: dict, *,
+                  recovered: dict | None = None,
+                  recover_result=None) -> None:
     """``out/masks`` (masks-tree checkpoint, step 0), ``out/weights`` (the
-    leaves sparsegpt updated), ``out/recipe.json`` and ``out/report.json``
-    with the reference's keys that apply to this launcher."""
+    leaves sparsegpt or recovery changed), ``out/recipe.json`` and
+    ``out/report.json`` with the reference's keys that apply to this
+    launcher (``recovered`` and ``recovery`` after a recovery pass)."""
     out.mkdir(parents=True, exist_ok=True)
     ckpt.save(out / "masks", 0, report.masks)
     if report.updated_params is not None:
@@ -138,6 +188,18 @@ def write_out_dir(out: Path, arch: str, recipe, params, report,
                    "err_red": [float(x) for x in s.error_reduction]}
                   for s in report.sites],
     }
+    if recovered is not None:
+        r = recover_result
+        doc["recovered"] = recovered
+        doc["recovery"] = {
+            "spec": r.spec.to_json_dict(),
+            "trainable_count": r.trainable_count,
+            "trainable_frac": r.trainable_frac,
+            "steps_run": r.steps_run, "start_step": r.start_step,
+            "diverged": r.diverged,
+            "ce_start": r.ce_history[0] if r.ce_history else None,
+            "ce_end": r.ce_history[-1] if r.ce_history else None,
+        }
     (out / "report.json").write_text(json.dumps(doc, indent=1))
 
 
@@ -156,6 +218,9 @@ def main(argv=None):
     ap.add_argument("--compact-every", type=int, default=None,
                     help="gather converged rows out every S passes")
     ap.add_argument("--n-calib", type=int, default=16)
+    ap.add_argument("--from-ckpt", default=None,
+                    help="prune the newest TrainState checkpoint here "
+                         "(launch.train) instead of the seeded init")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir", default=None,
                     help="write masks/, recipe.json and report.json here; "
@@ -172,6 +237,15 @@ def main(argv=None):
     ap.add_argument("--calib-ckpt-every", type=int, default=0,
                     help="checkpoint the calibration accumulator every k "
                          "batches (under <out>/prune_ckpt/calib)")
+    ap.add_argument("--recover", default=None,
+                    choices=["norms", "biases", "norms_biases",
+                             "all_masked", "lora"],
+                    help="run PERP post-prune recovery on this param "
+                         "selection (overrides a recipe-attached spec)")
+    ap.add_argument("--recover-steps", type=int, default=50,
+                    help="recovery AdamW steps over the calibration stream")
+    ap.add_argument("--recover-lr", type=float, default=1e-3,
+                    help="recovery peak learning rate (warmup-cosine)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -181,7 +255,9 @@ def main(argv=None):
           n_calib=args.n_calib, seed=args.seed, out_dir=args.out_dir,
           recipe=args.recipe, plan_only=args.plan_only,
           calib_stats=args.calib_stats,
-          calib_ckpt_every=args.calib_ckpt_every, device=args.device)
+          calib_ckpt_every=args.calib_ckpt_every, device=args.device,
+          from_ckpt=args.from_ckpt, recover=args.recover,
+          recover_steps=args.recover_steps, recover_lr=args.recover_lr)
 
 
 if __name__ == "__main__":

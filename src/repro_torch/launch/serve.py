@@ -12,9 +12,13 @@ startup (``repro_torch.serve.ServeEngine``):
     python -m repro_torch.launch.serve --arch llama31-8b --tiny \
         --masks-from out --format nm24 --device cpu
 
-``--masks-from`` takes a masks-tree checkpoint or a launcher ``--out-dir``
-root, written by this package or by the reference's. ``--format`` picks
-the weight representation (dense / masked / nm24 / gathered). ``--bench``
+``--masks-from`` takes a masks-tree checkpoint, an executor ``groups/``
+root, a launcher ``--out-dir`` or an ``export_packed`` root, written by
+this package or by the reference's; updated or recovered weights there
+(``weights/``, sparsegpt groups) are spliced in. ``--from-ckpt`` serves
+a trained model (``launch.train``'s checkpoints) instead of the seeded
+init. ``--format`` picks the weight representation (dense / masked /
+nm24 / gathered). ``--bench``
 times dense vs masked vs packed and prints one prefill and one decode row
 per format (with the kernel each phase launched and the resident weight
 bytes); it writes them as JSON only to ``--bench-out``. ``--sample
@@ -54,6 +58,7 @@ from repro_torch.data import synthetic
 from repro_torch.device import disable_tf32, resolve_device
 from repro_torch.serve import FaultPlan, ServeEngine, bench_rows, loadgen
 from repro_torch.serve.sampling import GREEDY, parse_sample_flag
+from repro_torch.train import steps as steps_lib
 
 
 def serve(arch: str, *, tiny: bool = True, batch: int = 4,
@@ -68,12 +73,17 @@ def serve(arch: str, *, tiny: bool = True, batch: int = 4,
           load_queue_ttl: float | None = None, load_shed: bool = False,
           load_max_queue: int | None = None, disaggregate: bool = False,
           prefill_chunk: int | None = None, chaos: bool = False,
-          chaos_seed: int = 0, verbose: bool = True) -> dict:
+          chaos_seed: int = 0, from_ckpt: str | None = None,
+          verbose: bool = True) -> dict:
     """Serve a batch of prompts; returns tokens + timing (+ bench rows).
 
-    ``masks``/``masks_from`` feed the sparse formats. ``fmt=None`` picks
-    "masked" when a mask source is given, "dense" otherwise. ``sample``
-    is a ``SamplingParams`` (greedy when None).
+    The model is initialised from ``seed``, or read from the newest
+    TrainState checkpoint under ``from_ckpt`` (``launch.train``'s).
+    ``masks``/``masks_from`` feed the sparse formats; a ``masks_from``
+    directory's updated or recovered weights (``weights/``, sparsegpt
+    groups) are spliced over the model for every format but dense.
+    ``fmt=None`` picks "masked" when a mask source is given, "dense"
+    otherwise. ``sample`` is a ``SamplingParams`` (greedy when None).
 
     ``load_bench`` runs the continuous-vs-fixed load sweep over
     ``load_rates`` arrivals/s (``serve.loadgen``), with the disaggregated
@@ -89,7 +99,8 @@ def serve(arch: str, *, tiny: bool = True, batch: int = 4,
     disable_tf32()
     cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
     api = models.build(cfg)
-    params = api.init(seed=seed, device=dev)
+    params = (steps_lib.restore_params(api, from_ckpt, device=dev)
+              if from_ckpt else api.init(seed=seed, device=dev))
     corpus = synthetic.CorpusConfig(cfg.vocab_size, seed=seed)
     pipe = synthetic.DataPipeline(corpus, batch, prompt_len, split="val",
                                   device=dev)
@@ -98,7 +109,8 @@ def serve(arch: str, *, tiny: bool = True, batch: int = 4,
     if fmt is None:
         fmt = "masked" if mask_src is not None else "dense"
     if isinstance(mask_src, (str, Path)):       # resolve the directory once
-        mask_src = packed_lib.load_mask_tree(cfg, params, mask_src)
+        mask_src = packed_lib.MaskSource(*packed_lib.load_masks_and_weights(
+            cfg, params, mask_src))
 
     engine = ServeEngine(api, params, masks=mask_src, fmt=fmt, device=dev)
     res = engine.generate(prompt, gen, sampling=sample)
@@ -232,6 +244,9 @@ def main(argv=None):
                     help="weight representation (default: masked when "
                          "--masks-from is given, dense otherwise)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--from-ckpt", default=None,
+                    help="serve the newest TrainState checkpoint here "
+                         "(launch.train) instead of the seeded init")
     ap.add_argument("--bench", action="store_true",
                     help="time dense vs masked vs packed, per phase")
     ap.add_argument("--bench-out", default=None,
@@ -280,7 +295,7 @@ def main(argv=None):
     serve(args.arch, tiny=args.tiny, batch=args.batch,
           prompt_len=args.prompt_len, gen=args.gen,
           masks_from=args.masks_from, fmt=args.format, seed=args.seed,
-          bench=args.bench,
+          from_ckpt=args.from_ckpt, bench=args.bench,
           bench_out=Path(args.bench_out) if args.bench_out else None,
           device=args.device,
           sample=parse_sample_flag(args.sample) if args.sample else None,

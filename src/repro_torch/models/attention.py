@@ -70,11 +70,15 @@ def _m(masks, name):
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, kvH, dh) -> (B, S, H, dh) by group repetition."""
-    kvh = k.shape[-2]
+    """(B, S, kvH, dh) -> (B, S, H, dh) by group repetition (head i reads
+    KV head i // (H / kvH)). An expand, not ``repeat_interleave``: its
+    backward is a plain sum over each group, where repeat_interleave's
+    adds with atomics on the card, so training steps repeat bitwise."""
+    B, S, kvh, dh = k.shape
     if kvh == n_heads:
         return k
-    return torch.repeat_interleave(k, n_heads // kvh, dim=-2)
+    return k[:, :, :, None, :].expand(B, S, kvh, n_heads // kvh, dh
+                                      ).reshape(B, S, n_heads, dh)
 
 
 def _scores_mask(q_pos, k_pos, *, causal: bool, window: int) -> torch.Tensor:

@@ -21,6 +21,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.packed import PackedWeight
 
@@ -149,20 +150,33 @@ def _run_layers(params, x, positions, cfg, *, masks, mode, cache, t=None):
 def forward(params, batch, cfg, *, masks=None, want_taps=False,
             tap_policy: common.TapPolicy | None = None):
     """Training/scoring forward. batch["tokens"]: (B, S) int.
+    Differentiable end to end (nothing in place); with ``cfg.remat`` and
+    autograd on, each layer runs under ``torch.utils.checkpoint``.
 
     Returns (hidden (B, S, D), taps, aux). ``taps`` maps each tap name to
     {field: stacked (L, ...) tensor}; empty unless ``want_taps``.
     """
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = params["embed"][tokens]
+    # F.embedding, not indexing: its backward sums each row's gradients in
+    # a fixed order on the CPU and the card, where indexing's backward
+    # (index_put_ with accumulate) may add them in any order on the CPU
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=tokens.device)
     m_layers = None if masks is None else masks["layers"]
+    # the reference's per-layer jax.checkpoint: under autograd each layer
+    # keeps only its input and recomputes the rest in the backward pass
+    remat = cfg.remat and not want_taps and torch.is_grad_enabled()
     per_layer = []
     for i in range(cfg.n_layers):
         taps = common.Taps(tap_policy) if want_taps else None
-        x = decoder_layer(_index(params["layers"], i), x, positions, cfg,
-                          masks=_index(m_layers, i), taps=taps)
+        lp, lm = _index(params["layers"], i), _index(m_layers, i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                decoder_layer, lp, x, positions, cfg, masks=lm,
+                use_reentrant=False)
+        else:
+            x = decoder_layer(lp, x, positions, cfg, masks=lm, taps=taps)
         if want_taps:
             per_layer.append(taps.entries)
     x = _apply_norm(params["ln_f"], x, cfg)

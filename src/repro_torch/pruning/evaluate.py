@@ -6,12 +6,11 @@ top-1 accuracy on held-out sequences.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.data import synthetic
 from repro_torch.models import ModelApi
+from repro_torch.train import steps as steps_lib
 
 
 def val_batches(cfg_arch, *, n_batches: int = 4, batch: int = 8,
@@ -22,16 +21,9 @@ def val_batches(cfg_arch, *, n_batches: int = 4, batch: int = 8,
     return [pipe.get(i) for i in range(n_batches)]
 
 
-@torch.no_grad()
 def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:
-    """Token-weighted mean-CE perplexity over an iterable of batches."""
-    tot, n = 0.0, 0.0
-    for b in batches:
-        _, aux = api.loss(params, b, masks=masks)
-        cnt = float((b["labels"] >= 0).sum())
-        tot += float(aux["ce"]) * cnt
-        n += cnt
-    return math.exp(tot / max(n, 1.0))
+    """Token-weighted mean-CE perplexity (``train.steps.perplexity``)."""
+    return steps_lib.perplexity(api, params, batches, masks=masks)
 
 
 @torch.no_grad()

@@ -17,8 +17,11 @@ the Gram diagonal and the feature means). Each package resumes from the
 other's group checkpoints.
 
 Progress flows through a callback protocol (``PruneCallback``);
-``PrintProgress`` prints one line per group. Post-prune recovery and the
-packed export are not ported yet (ROADMAP A3, A2).
+``PrintProgress`` prints one line per group. After ``run``, ``recover``
+trains the PERP selection on top of the run's weights (under
+``ckpt_dir/recover``) and installs the result in the report, and
+``export_packed`` writes the servable artifact: ``packed/``, ``masks/``
+and, where leaves changed, ``weights/``.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from . import engine as engine_lib
 from . import plan as plan_lib
 from . import sites as sites_lib
 from . import stats as stats_lib
+from .recover import _flat_leaves
 
 
 @dataclasses.dataclass
@@ -241,6 +245,7 @@ class PruneExecutor:
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir is not None else None
         self.callback = callback or PruneCallback()
         self.engine_mode = engine_mode
+        self._last_report: PruneReport | None = None
 
     # -- group checkpointing ------------------------------------------------
 
@@ -265,7 +270,7 @@ class PruneExecutor:
                 or tree["masks"].shape != tuple(g.weights.shape)):
             return None
         dev = g.weights.device
-        t = lambda k: torch.from_numpy(tree[k]).to(dev)
+        t = lambda k: ckpt.to_tensor(tree[k], dev)
         return engine_lib.GroupResult(
             masks=t("masks"), loss_init=t("loss_init"),
             loss_final=t("loss_final"), swaps=t("swaps").long(),
@@ -369,19 +374,86 @@ class PruneExecutor:
             pattern=_summarize([pg.rule.pattern_str for pg in active]),
             wall_time_s=time.time() - t_start,
             updated_params=new_params, plan=plan)
+        self._last_report = report
         self.callback.on_run_done(report)
         return report
 
+    # -- post-prune recovery ------------------------------------------------
 
-def _flat(tree: dict, prefix: str = "") -> list[tuple[str, object]]:
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out += _flat(v, f"{prefix}{k}.")
-        else:
-            out.append((f"{prefix}{k}", v))
-    return out
+    def recover(self, spec=None, *, checkpoint_every: int = 0,
+                batches=None, verbose: bool = False):
+        """Run the PERP recovery pass on the last ``run()``'s masks.
+
+        ``spec`` defaults to the plan's attached ``RecoverSpec`` (recipe
+        ``recover=``), else ``RecoverSpec()``. Recovery trains on top of
+        the report's ``updated_params`` when the refiner produced them
+        (sparsegpt), checkpoints under ``<ckpt_dir>/recover``, and
+        installs the recovered tree in the report: the next
+        ``export_packed()`` ships it.
+        """
+        # ``from . import recover`` would resolve to the re-exported
+        # function on the package, not this submodule
+        from .recover import RecoverSpec
+        from .recover import recover as _recover
+
+        report = self._last_report
+        if report is None:
+            raise ValueError("nothing to recover — call run() first")
+        if spec is None:
+            spec = self.plan.recover or RecoverSpec()
+        base = (report.updated_params
+                if report.updated_params is not None else self.params)
+        res = _recover(self.api, base, report.masks, spec,
+                       ckpt_dir=self.ckpt_dir,
+                       checkpoint_every=checkpoint_every, batches=batches,
+                       verbose=verbose)
+        report.updated_params = res.params
+        return res
+
+    # -- serving export -----------------------------------------------------
+
+    def export_packed(self, out_dir: str | Path, fmt: str = "nm24",
+                      *, report: PruneReport | None = None) -> Path:
+        """Export the masks as a servable packed checkpoint.
+
+        Packs the run's weights (``updated_params`` where the refiner or
+        recovery changed them) under the last ``run()``'s masks, or an
+        explicit ``report``'s, into ``core.packed`` format ``fmt`` and
+        writes, each atomically: ``out_dir/packed`` (the values / idx
+        trees, site metadata in the manifest), ``out_dir/masks`` (for
+        masked-dense serving and re-packing) and, when leaves changed,
+        ``out_dir/weights`` (every leaf that differs from the executor's
+        params, by dotted name). ``core.packed.load_packed_tree`` and
+        ``load_masks_and_weights`` (``launch.serve --masks-from``) read it.
+        """
+        from repro_torch.core import packed as packed_lib
+
+        report = report if report is not None else self._last_report
+        if report is None:
+            raise ValueError("nothing to export — call run() first or "
+                             "pass report=")
+        params = (report.updated_params
+                  if report.updated_params is not None else self.params)
+        tree = packed_lib.pack_tree(self.api.cfg, params, report.masks, fmt)
+        vals, idx, meta = {}, {}, {}
+        for name, leaf in _flat_leaves(tree):
+            if not isinstance(leaf, packed_lib.PackedWeight):
+                continue
+            vals[name] = leaf.values
+            idx[name] = leaf.idx
+            meta[name] = {"fmt": leaf.fmt, "d_in": leaf.d_in, "n": leaf.n,
+                          "m": leaf.m,
+                          "dtype": str(leaf.values.dtype).removeprefix(
+                              "torch.")}
+        out = Path(out_dir)
+        ckpt.save(out / "packed", 0, {"values": vals, "idx": idx},
+                  extra={"format": fmt, "sites": meta})
+        ckpt.save(out / "masks", 0, report.masks)
+        if report.updated_params is not None:
+            upd = changed_leaves(self.params, params)
+            if upd:
+                ckpt.save(out / "weights", 0, upd)
+        return out
 
 
 def changed_leaves(base: dict, new: dict) -> dict:
@@ -389,7 +461,8 @@ def changed_leaves(base: dict, new: dict) -> dict:
     ``base`` — the minimal weight dump (``<out>/weights``) the serving
     splice restores over a fresh init."""
     out = {}
-    for (name, bleaf), (_, nleaf) in zip(_flat(base), _flat(new)):
+    for (name, bleaf), (_, nleaf) in zip(_flat_leaves(base),
+                                         _flat_leaves(new)):
         if nleaf is bleaf or torch.equal(nleaf, bleaf):
             continue
         out[name] = nleaf

@@ -61,6 +61,11 @@ class PrunePlan:
     def active_groups(self) -> tuple[PlannedGroup, ...]:
         return tuple(g for g in self.groups if not g.skip)
 
+    @property
+    def recover(self):
+        """The recipe's attached RecoverSpec (None = no recovery pass)."""
+        return self.recipe.recover
+
     def total_weight_bytes(self) -> int:
         return sum(g.weight_bytes for g in self.groups)
 
@@ -125,7 +130,20 @@ class PrunePlan:
         if self.cfg is not None:
             lines.append("")
             lines.extend(self._describe_calibration())
+        if self.recover is not None:
+            lines.append("")
+            lines.extend(self._describe_recovery())
         return "\n".join(lines)
+
+    def _describe_recovery(self) -> list[str]:
+        """The post-prune recovery block: what retrains, for how long."""
+        rec = self.recover
+        warm = max(1, int(rec.warmup_frac * rec.steps))
+        return [
+            f"recovery (PERP): {rec.describe()}",
+            f"  schedule: {warm}-step warmup -> cosine to "
+            f"{rec.min_lr_frac:g}x lr | wd {rec.weight_decay:g} | "
+            f"ckpt key {rec.fingerprint()} (under <ckpt_dir>/recover)"]
 
     def _describe_calibration(self) -> list[str]:
         """The calibration cost block: per-tap level + accumulator bytes.
@@ -158,14 +176,10 @@ def plan_pruning(api, params, recipe: recipe_lib.PruneRecipe, *,
     """Resolve ``recipe`` against the model's sites into a ``PrunePlan``.
 
     Pure shape arithmetic: ``params`` may live on ``device="meta"`` and no
-    calibration is required. A recipe that attaches recovery raises
+    calibration is required. A recipe's attached recovery (``recover=``)
+    rides along as ``PrunePlan.recover``; ``mesh=`` raises
     ``NotImplementedError`` here, before any work.
     """
-    if recipe.recover is not None:
-        raise NotImplementedError(
-            f"the recipe asks for recovery ({recipe.recover.select}); "
-            "post-prune recovery is not ported yet (ROADMAP A3: training "
-            "and recovery)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded refinement is not ported yet (ROADMAP A5: "

@@ -22,9 +22,8 @@ and ``validate()`` checks every rule against the model's enumerated sites
 before a plan is built — a dead glob or an unknown method fails at plan
 time, not after an hour of calibration.
 
-A recipe's ``recover`` spec round-trips through JSON here, but running
-recovery is not ported yet: ``plan_pruning`` raises on a recipe that
-carries one (ROADMAP A3).
+A recipe's ``recover`` spec round-trips through JSON here; the plan
+carries it, and ``PruneExecutor.recover`` runs it after the refinement.
 """
 from __future__ import annotations
 
@@ -128,8 +127,8 @@ class PruneRecipe:
 
     ``recover`` (optional) attaches a post-prune recovery pass
     (``pruning.recover.RecoverSpec``). It rides the recipe's JSON
-    round-trip (top-level ``"recover"`` key); executing it is not ported
-    yet.
+    round-trip (top-level ``"recover"`` key) and the plan
+    (``PrunePlan.recover``).
     """
 
     rules: tuple[SiteRule, ...] = ()

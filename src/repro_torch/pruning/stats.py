@@ -197,14 +197,7 @@ def _try_resume(ckpt_dir: Path, spec: CalibSpec, expected: dict, device):
     if (man.get("extra", {}).get("calib_spec") != spec.fingerprint()
             or {k: list(v.shape) for k, v in flat.items()} != expected):
         return 0, None
-    taps: dict = {}
-    for path, arr in flat.items():
-        keys = path.split("/")
-        node = taps
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = torch.from_numpy(arr).to(device)
-    return step, taps
+    return step, ckpt.unflatten(flat, device)
 
 
 def _device_of(params) -> torch.device:

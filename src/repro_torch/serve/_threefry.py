@@ -5,10 +5,13 @@ partitionable bit layout (``jax_threefry_partitionable``): the key of a
 seed is ``(0, seed)``, ``fold_in(key, d)`` is ``threefry(key, (0, d))``,
 and the bits of a (V,) draw are ``x0 ^ x1`` of ``threefry(key, (0, i))``
 over the counter ``i = 0 .. V-1`` (the 64-bit linear index split into two
-32-bit words; its high word is 0 below 2**32 draws). A uniform in
-[tiny, 1) keeps the top 23 bits as the mantissa of a float in [1, 2),
-subtracts 1 and clamps at ``finfo(float32).tiny``; the Gumbel noise is
-``-log(-log(u))``.
+32-bit words; its high word is 0 below 2**32 draws; a draw of any shape
+counts its row-major index). A uniform in [tiny, 1) keeps the top 23
+bits as the mantissa of a float in [1, 2), subtracts 1 and clamps at
+``finfo(float32).tiny``; the Gumbel noise is ``-log(-log(u))``. A normal
+is ``sqrt(2) * erfinv(u)`` of a uniform in [nextafter(-1, 0), 1), as
+``jax.random.normal`` makes it; ``torch.erfinv`` and XLA's differ in the
+last bits, so normals agree to a few ulps, not bitwise.
 
 torch's uint32 arithmetic is partial, so every word is an int64 holding
 a value in [0, 2**32) and sums are masked back to 32 bits. Everything is
@@ -16,6 +19,8 @@ tensor ops on the input's device: a batch of keys draws its bits without
 a host round trip.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -78,3 +83,14 @@ def uniform(bits: torch.Tensor) -> torch.Tensor:
 def gumbel(bits: torch.Tensor) -> torch.Tensor:
     """The reference's low-range Gumbel noise, -log(-log(u))."""
     return -torch.log(-torch.log(uniform(bits)))
+
+
+def normal(key, shape) -> torch.Tensor:
+    """float32 standard normals of one key (words of shape (1,)), as
+    ``jax.random.normal(key, shape)`` draws them (to erfinv's ulps)."""
+    bits = random_bits(key, math.prod(shape))[0]
+    f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).to(f.device)
+    # maxval - minval rounds to 2.0 in float32, so the affine map is exact
+    u = torch.maximum(f * 2.0 + lo, lo)
+    return (math.sqrt(2) * torch.erfinv(u)).reshape(shape)

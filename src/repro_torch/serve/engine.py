@@ -97,10 +97,12 @@ class ServeEngine:
     Args:
         api/params: the model to serve (dense weights).
         masks: mask source for the sparse formats — a masks tree, a
-            ``PruneReport``, or a checkpoint directory (a masks-tree
-            checkpoint or a launcher ``--out-dir`` root; see
-            ``core.packed.load_mask_tree``). Required for ``masked``,
-            ``nm24`` and ``gathered``.
+            ``PruneReport`` (its ``updated_params`` served where set), or
+            a pruning-run directory (a masks-tree checkpoint, executor
+            ``groups/``, a launcher ``--out-dir`` or ``export_packed``
+            root, with their updated weights spliced in; see
+            ``core.packed.load_masks_and_weights``). Required for
+            ``masked``, ``nm24`` and ``gathered``.
         fmt: one of ``FORMATS``.
         device: where to serve; "cuda" unless asked for the CPU. Params
             and masks move there; raises when the card is missing.
@@ -119,7 +121,7 @@ class ServeEngine:
         if fmt == "dense":
             masks = None           # baseline: original weights, no masks
         else:
-            masks = self._resolve_masks(params, masks)
+            masks, params = self._resolve_masks(params, masks)
             if masks is None:
                 raise ValueError(f"format {fmt!r} needs masks "
                                  "(tree, PruneReport, or checkpoint dir)")
@@ -145,12 +147,16 @@ class ServeEngine:
         self.dispatch_hook = None
 
     def _resolve_masks(self, params, masks):
+        """-> (masks tree | None, params): a checkpoint source may carry
+        updated weights (sparsegpt, recovery), a report may too."""
         if masks is None or isinstance(masks, dict):
-            return masks
+            return masks, params
         if isinstance(masks, (str, Path)):
-            return packed_lib.load_mask_tree(self.cfg, params, masks)
+            return packed_lib.load_masks_and_weights(self.cfg, params, masks)
         if hasattr(masks, "masks"):           # PruneReport
-            return masks.masks
+            if getattr(masks, "updated_params", None) is not None:
+                params = _to(masks.updated_params, self.device)
+            return masks.masks, params
         raise TypeError(f"cannot interpret masks source {type(masks)!r}")
 
     # -- accounting ---------------------------------------------------------

@@ -1,2 +1,1 @@
-"""Step functions. Serving steps so far; the training steps come with the
-training slice."""
+"""Step functions: training, evaluation and serving."""

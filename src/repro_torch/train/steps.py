@@ -1,14 +1,135 @@
-"""Serving steps: prefill and decode bound to a model, and greedy decode.
+"""Train, eval and serve step functions.
 
-The reference jits these (``jax.jit``); PyTorch runs them eagerly, so
-``make_serve_steps`` only binds the masks. The training and evaluation
-steps of the reference's module join this file in the training slice.
+``train_step_fn`` is (state, batch) -> (state, metrics), the reference's
+pure step on trees of tensors: autograd gives the gradients, and
+``optim.adamw.update`` applies them (with ``masks`` it keeps a pruning
+mask invariant, for sparse finetuning). The reference jits its steps;
+PyTorch runs them eagerly, so ``make_train_step`` and
+``make_serve_steps`` only bind their arguments.
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
+from repro_torch import ckpt
 from repro_torch.models import ModelApi
+from repro_torch.optim import adamw
+
+
+class TrainState(NamedTuple):
+    """Checkpoints under the reference's leaf paths: ``.params/...``,
+    ``.opt/.m/...``, ``.opt/.v/...``, ``.opt/.step``."""
+    params: Any
+    opt: adamw.AdamWState
+
+
+def init_state(api: ModelApi, *, seed: int = 0, device="cuda") -> TrainState:
+    params = api.init(seed=seed, device=device)
+    return TrainState(params=params, opt=adamw.init(params))
+
+
+def restore_params(api: ModelApi, ckpt_dir, *, device) -> dict:
+    """The params of the newest TrainState checkpoint under ``ckpt_dir``
+    whose params read back and pass their hash checks (written by either
+    package), on ``device``; the optimizer state is not read."""
+    like = TrainState(params=api.init(device="meta"), opt=None)
+    found = ckpt.restore_latest_like(ckpt_dir, like, device=device)
+    if found is None:
+        raise FileNotFoundError(f"no valid checkpoint under {ckpt_dir}")
+    return found[1].params
+
+
+def value_and_grad(loss_fn, tree):
+    """(loss_fn(tree) -> (loss, aux), grads shaped like ``tree``)."""
+    leaves = []
+
+    def track(t):
+        t = t.detach().requires_grad_(True)
+        leaves.append(t)
+        return t
+
+    with torch.enable_grad():
+        loss, aux = loss_fn(adamw.tree_map(track, tree))
+        grads = iter(torch.autograd.grad(loss, leaves))
+    return (loss.detach(), aux), adamw.tree_map(lambda _: next(grads), tree)
+
+
+def _detached(aux: dict) -> dict:
+    return {k: v.detach() for k, v in aux.items() if k != "taps"}
+
+
+def train_step_fn(api: ModelApi, opt_cfg: adamw.AdamWConfig, *, masks=None):
+    """The train step (state, batch) -> (state, metrics).
+
+    ``cfg.grad_accum`` > 1 splits the batch into that many microbatches,
+    runs them in order and sums their gradients in fp32, then divides by
+    the count; loss and aux are the microbatches' means, so the metric
+    keys are those of ``grad_accum == 1``.
+    """
+    accum = max(api.cfg.grad_accum, 1)
+
+    def grad_fn(params, batch):
+        return value_and_grad(lambda p: api.loss(p, batch, masks=masks),
+                              params)
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if accum == 1:
+            (loss, aux), grads = grad_fn(state.params, batch)
+            aux = _detached(aux)
+        else:
+            grads, losses, auxes = None, [], []
+            for i in range(accum):
+                mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                (l, a), g = grad_fn(state.params, mb)
+                g = adamw.tree_map(lambda x: x.to(torch.float32), g)
+                grads = g if grads is None else adamw.tree_map(
+                    torch.add, grads, g)
+                losses.append(l)
+                auxes.append(_detached(a))
+            grads = adamw.tree_map(lambda g: g / accum, grads)
+            loss = torch.mean(torch.stack(losses))
+            aux = {k: torch.mean(torch.stack([a[k] for a in auxes]), dim=0)
+                   for k in auxes[0]}
+        new_params, new_opt, om = adamw.update(
+            opt_cfg, grads, state.opt, state.params, masks=masks)
+        return TrainState(new_params, new_opt), {"loss": loss, **aux, **om}
+
+    return step
+
+
+def make_train_step(api: ModelApi, opt_cfg: adamw.AdamWConfig, *,
+                    masks=None):
+    """The train step with ``masks`` bound: masks are static artifacts of
+    a sparse-finetune job, not per-step inputs."""
+    return train_step_fn(api, opt_cfg, masks=masks)
+
+
+def make_eval_step(api: ModelApi, *, masks=None):
+    """(params, batch) -> (mean CE, valid-token count), without autograd."""
+    @torch.no_grad()
+    def step(params, batch):
+        _, aux = api.loss(params, batch, masks=masks)
+        return aux["ce"], (batch["labels"] >= 0).to(torch.float32).sum()
+
+    return step
+
+
+def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:
+    """Token-weighted mean-CE perplexity over an iterable of batches: each
+    batch's mean CE weighs by its valid-token count, so a ragged last
+    batch or padded prompts do not bias it; exp in fp32, as the
+    reference takes it."""
+    step = make_eval_step(api, masks=masks)
+    tot, n = 0.0, 0.0
+    for b in batches:
+        ce, cnt = step(params, b)
+        tot += float(ce) * float(cnt)
+        n += float(cnt)
+    return float(torch.exp(torch.tensor(tot / max(n, 1.0),
+                                        dtype=torch.float32)))
 
 
 def make_serve_steps(api: ModelApi, *, masks=None):

@@ -65,9 +65,9 @@ K_SWAPS = 1
 # yet (grad_accum comes with training, ROADMAP A3)
 NOT_PORTED = {
     "attn_impl", "attn_q_chunk", "capacity_factor", "cross_attn_every",
-    "d_frontend", "fsdp_params", "grad_accum", "head_chunk", "long_window",
+    "d_frontend", "fsdp_params", "head_chunk", "long_window",
     "moe_group_size", "moe_parallelism", "n_enc_layers", "n_experts",
-    "n_img_tokens", "n_src_frames", "remat", "router_aux_coef",
+    "n_img_tokens", "n_src_frames", "router_aux_coef",
     "router_z_coef", "rwkv_chunk", "rwkv_head_dim", "rwkv_lora_decay",
     "rwkv_lora_mix", "scan_layers", "shared_attn_every", "ssm_chunk",
     "ssm_conv", "ssm_expand", "ssm_head_dim", "ssm_state", "top_k",

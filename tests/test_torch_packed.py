@@ -10,8 +10,8 @@ reference's, on shared numpy inputs.
   regimes, both formats, every epilogue, with and without bias: within
   1e-5 of max|y| (fp32 sums in another order). Two small cases against
   ``kernel="pallas"`` in interpret mode.
-* Masks-tree checkpoints cross-read both ways (fp32, int32, uint8), and a
-  corrupt shard is rejected.
+* Masks-tree checkpoints cross-read both ways (fp32, int32, uint8; bf16
+  leaves bitwise), and a corrupt shard is rejected.
 """
 import json
 
@@ -331,8 +331,7 @@ def test_ckpt_rejects_corruption_and_bf16(tmp_path):
     with pytest.raises(IOError, match="hash mismatch"):
         tckpt.restore(tmp_path, 2)
     # bf16 leaves are written byte for byte as the reference writes them
-    # (raw 2-byte records, dtype "bfloat16"); reading them here waits for
-    # the weights/ splice
+    # (raw 2-byte records, dtype "bfloat16") and read back bitwise
     b = torch.tensor([1.5, -2.25, 3e-3], dtype=torch.bfloat16)
     tckpt.save(tmp_path, 3, {"a": b})
     jckpt.save(tmp_path / "ref", 3, {"a": jax.numpy.asarray(
@@ -342,6 +341,8 @@ def test_ckpt_rejects_corruption_and_bf16(tmp_path):
     mine, theirs = leaf(tmp_path), leaf(tmp_path / "ref")
     assert mine["dtype"] == theirs["dtype"] == "bfloat16"
     assert mine["shards"][0]["sha256"] == theirs["shards"][0]["sha256"]
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tckpt.restore(tmp_path, 3)
+    for d in (tmp_path, tmp_path / "ref"):
+        got = tckpt.to_tensor(tckpt.restore(d, 3)[0]["a"])
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), b.view(torch.int16))
     assert tckpt.steps(tmp_path) == [1, 2, 3]            # nothing half-written

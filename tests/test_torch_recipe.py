@@ -8,7 +8,8 @@ recipe, plan-only and resume surfaces on the CPU.
   values) raise with the same messages;
 * the plan's engine paths, weight/Gram bytes and calibration costs equal
   the reference's; ``--plan-only`` plans on ``device="meta"``;
-* a recipe that asks for recovery raises ``NotImplementedError``.
+* a recipe that asks for recovery plans it (``PrunePlan.recover``);
+  a mesh raises ``NotImplementedError``.
 """
 import json
 
@@ -157,11 +158,14 @@ def test_plan_costs_and_paths_match_reference(apis):
 
 
 def test_recovery_and_mesh_raise(apis):
+    """A recipe's recovery rides the plan (``PruneExecutor.recover`` runs
+    it; ``tests/test_torch_recover.py``); a mesh still raises (A5)."""
     _, _, tapi, tmeta = apis
-    rec = tpruning.PruneRecipe.single("0.6",
-                                      recover=tpruning.RecoverSpec())
-    with pytest.raises(NotImplementedError, match="A3"):
-        tpruning.plan_pruning(tapi, tmeta, rec)
+    spec = tpruning.RecoverSpec(select="lora", steps=7)
+    rec = tpruning.PruneRecipe.single("0.6", recover=spec)
+    plan = tpruning.plan_pruning(tapi, tmeta, rec)
+    assert plan.recover == spec
+    assert "recovery (PERP): select=lora steps=7" in plan.describe()
     with pytest.raises(NotImplementedError, match="A5"):
         tpruning.plan_pruning(tapi, tmeta, tpruning.PruneRecipe.single("0.6"),
                               mesh=object())

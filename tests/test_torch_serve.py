@@ -12,9 +12,9 @@ goes to the port through numpy. Checked:
   greedy tokens and weight bytes; nm24 == gathered bitwise in the port;
 * a reference launcher ``--out-dir``: loaded by ``load_mask_tree`` into
   ``ServeEngine`` it gives the reference ``serve``'s tokens and weight
-  bytes, and the port's ``serve(masks_from=...)`` serves it; a
-  ``weights/`` or executor ``groups/`` artifact raises
-  ``NotImplementedError``;
+  bytes, and the port's ``serve(masks_from=...)`` serves it, and its
+  executor ``groups/`` root too (the ``weights/`` and ``export_packed``
+  splices: ``tests/test_torch_recover.py``);
 * the CLI: ``launch.prune --out-dir`` then ``launch.serve --masks-from``.
 """
 import json
@@ -188,14 +188,17 @@ def test_serve_from_reference_out_dir(world, tmp_path):
                        verbose=False)
     assert out["tokens"].shape == (2, 3)
     assert out["weight_bytes"] == want["weight_bytes"]
-    # executor groups/ and a weights/ splice are not ported: both raise
-    with pytest.raises(NotImplementedError, match="groups"):
-        ServeEngine(world["tapi"], world["tparams"], fmt="nm24",
-                    masks=tmp_path / "prune_ckpt", device="cpu")
+    # the reference's executor groups/ root serves the same tokens, and a
+    # weights/ dir without a valid checkpoint splices nothing
+    via_groups = ServeEngine(world["tapi"], world["tparams"], fmt="nm24",
+                             masks=tmp_path / "prune_ckpt", device="cpu")
+    got2 = via_groups.generate(convert.from_numpy(_np_tree(pipe.get(0))), 3)
+    assert np.array_equal(got2.tokens.numpy(), np.asarray(want["tokens"]))
     (tmp_path / "weights").mkdir()
-    with pytest.raises(NotImplementedError, match="weights"):
-        tserve.serve(ARCH, tiny=True, masks_from=str(tmp_path),
-                     device="cpu", verbose=False)
+    out = tserve.serve(ARCH, tiny=True, batch=2, prompt_len=8, gen=3,
+                       masks_from=str(tmp_path), fmt="nm24", device="cpu",
+                       verbose=False)
+    assert out["tokens"].shape == (2, 3)
     with pytest.raises(FileNotFoundError, match="no mask checkpoint"):
         tserve.serve(ARCH, tiny=True, masks_from=str(tmp_path / "nothing"),
                      device="cpu", verbose=False)

@@ -178,12 +178,40 @@ and its time:
    and gates, the Gram and swap_topk launch counts from the config's taps
    and sites (``pruning.sites``: 7 for a gated MLP, 6 for a plain one),
    its time, peak memory and mask digest; then phase 6's serving without
-   the dense engine and the timed runs (masked, nm24 and gathered on the
-   PerRow(0.6) masks and on Wanda 2:4 ones), spmm launches = sites x
+   the timed runs (dense, masked, nm24 and gathered on the PerRow(0.6)
+   masks and on Wanda 2:4 ones), spmm launches = sites x
    layers x 16 per packed generate, nm24 == gathered bitwise, packed vs
    masked logits within SERVE_TOL. Each config's state is freed before
    the next.
-8. full depth, shapes only: every dense config's ``plan_pruning`` on the
+3m. the MoE experts' shapes, each stacked call one launch for all its
+   experts: ``gram_xtx_stacked`` (bf16) at mixtral-8x7b's (E = 8, T =
+   160, d = 4096 and 14336) and granite-moe-3b's (E = 40, T = 128, d =
+   1536 and 512), T an expert's capacity buffer over a calibration batch
+   of 4 x 128 tokens: within 1e-5 of max|G|, every G_e exactly symmetric
+   and bitwise ``gram_xtx`` of its slice; ``spmm_stacked`` at the experts'
+   w_gate (silu) and w_down of both configs, T = 4 (decode) and 40
+   (mixtral's prefill) an expert, nm24 (2:4) and gathered (PerRow(0.6)
+   and 2:4), fp32 and bf16: phase 3's tolerances, every expert's y
+   bitwise ``spmm`` of its slice, nm24 == gathered bitwise on 2:4. Each
+   timed at mixtral's shapes as phase 3 times: the kernel, the plain
+   version, ``torch.bmm`` (bf16 in, fp32 out for the Gram, the fp32
+   upcast's time printed beside it; on the masked dense weights for spmm;
+   ``library_ms``) and the bound (summed over the experts).
+4m / 6m. mixtral-8x7b and granite-moe-3b-a800m at full width with the
+   depth cut to 2 layers, bf16, seed 0: phase 4's prune_model and gates,
+   an MoE tap's Gram one stacked launch a layer and batch (mixtral: 2
+   taps x 2 layers x 4 batches = 16) and no unstacked Gram for an expert,
+   swap_topk once per instance and search pass (an instance is one expert
+   of one layer, at most t_max passes each); time, peak memory and a masks
+   digest. mixtral-8x7b is then served as phase 6b serves: attention
+   through ``spmm`` (4 sites x 2 layers x 16 =
+   128 launches a packed generate) and the experts through
+   ``spmm_stacked`` (3 x 2 x 16 = 96), nm24 == gathered bitwise, packed
+   vs masked logits within SERVE_TOL with the routing teacher-forced too
+   (the masked run's expert ids replayed): every routing decision that
+   flips unforced must be a near tie (top-k gap at most twice the
+   router-logit difference) and at most ROUTE_FLIPS of them may flip.
+8. full depth, shapes only: every config's ``plan_pruning`` on the
    meta device (nothing allocated), its weight, Gram and calibration
    bytes, and whether the bf16 model and its calibration state fit the
    card.
@@ -224,8 +252,11 @@ and its time:
    launches the nm24 engines'; ``spmm_gather``: the gathered kernel at
    w_gate T = 4 on PerRow(0.6), its launches the gathered engines'; the
    Gram's, swap_topk's and spmm's launches those of phases 4, 6, 6c and
-   9 and of every 4b / 6b run), the card line, and last {"ok": true,
-   "device": ...}.
+   9 and of every 4b / 6b / 4m / 6m run; ``gram_xtx_stacked`` at
+   mixtral's moe_w_down, its launches phase 4m's; ``spmm_stacked`` and
+   ``spmm_stacked_gather`` at mixtral's w_gate, nm24 at T = 40 and
+   gathered PerRow(0.6) at T = 4, their launches phase 6m's), the card
+   line, and last {"ok": true, "device": ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -248,6 +279,10 @@ SRC = ROOT / "src"
 KERNELS = {
     "gram_xtx": ("gram", "src/repro_torch/csrc/gram.cu",
                  "src/repro/kernels/gram.py:22"),
+    # the stacked calls: the reference's vmaps of kernels 1 and 5 over
+    # experts, one launch of the same CUDA sources each
+    "gram_xtx_stacked": ("gram", "src/repro_torch/csrc/gram.cu",
+                         "src/repro/kernels/ops.py:176"),
     "swap_topk": ("swap_topk", "src/repro_torch/csrc/swap_topk.cu",
                   "src/repro/kernels/swap_topk.py:78"),
     "swap_argmin": ("swap_topk", "src/repro_torch/csrc/swap_topk.cu",
@@ -258,6 +293,10 @@ KERNELS = {
              "src/repro/kernels/spmm.py:220"),
     "spmm_gather": ("spmm", "src/repro_torch/csrc/spmm.cu",
                     "src/repro/kernels/spmm.py:220"),
+    "spmm_stacked": ("spmm", "src/repro_torch/csrc/spmm.cu",
+                     "src/repro/kernels/spmm.py:490"),
+    "spmm_stacked_gather": ("spmm", "src/repro_torch/csrc/spmm.cu",
+                            "src/repro/kernels/spmm.py:490"),
 }
 PEAK_FP32 = 67e12        # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
@@ -265,6 +304,7 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 T_MAX = 4                # search passes of the main path (k = 8)
 SERVE_TOL = 0.05         # packed vs masked prefill logits, of max|logits|
 SERVE_GEN = 16           # new tokens per request on the serve path
+ROUTE_FLIPS = 0.01       # an MoE pair's routing decisions that may flip
 # the other dense configs (phases 3b, 4b, 6b) and their shapes new to the
 # kernels
 OTHER_DENSE = ("chatglm3-6b", "granite-34b", "minitron-4b", "internlm2-20b")
@@ -277,6 +317,25 @@ SWAP_SHAPES = [                  # (R, d, site); the first two timed
     (128, 6144, "granite-34b wk/wv: MQA"),
     (3072, 9216, "minitron-4b w_down"),
     (9216, 3072, "minitron-4b w_up"),
+]
+# the MoE configs (phases 3m, 4m, 6m) and their stacked kernels' shapes.
+# The Gram: (E, T, d, site), T an expert's capacity buffer over a
+# calibration batch of 4 x 128 tokens (mixtral: 4 x capacity(128) = 4 x
+# 40; granite-moe: 4 x capacity(128) = 4 x 32). spmm: (E, d_out, d_in,
+# act, site, timed) at T = 4 (decode: capacity(1) = 1 slot a row) and 40
+# (mixtral's prefill of 4 x 32 tokens: 4 x capacity(32) = 4 x 10).
+MOE = ("mixtral-8x7b", "granite-moe-3b-a800m")
+GRAM_STACKED = [
+    (8, 160, 4096, "mixtral-8x7b moe_w_up"),
+    (8, 160, 14336, "mixtral-8x7b moe_w_down"),
+    (40, 128, 1536, "granite-moe-3b moe_w_up"),
+    (40, 128, 512, "granite-moe-3b moe_w_down"),
+]
+SPMM_STACKED = [
+    (8, 14336, 4096, "silu", "mixtral-8x7b w_gate", True),
+    (8, 4096, 14336, None, "mixtral-8x7b w_down", True),
+    (40, 512, 1536, "silu", "granite-moe-3b w_gate", False),
+    (40, 1536, 512, None, "granite-moe-3b w_down", False),
 ]
 SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
     (4096, 4096, None, True, "chatglm3-6b wq", False),
@@ -741,6 +800,171 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
     return out
 
 
+def check_gram_stacked(E: int, T: int, d: int, tag: str) -> dict:
+    """The stacked Gram (bf16, the calibration path) against its plain
+    version, within 1e-5 of max|G|, each G_e exactly symmetric and
+    bitwise the unstacked kernel on its slice; one launch a call; then
+    device times with a cold L2: the kernel, the plain version,
+    ``torch.bmm(x.mT, x, out_dtype=torch.float32)`` on the bf16 stack
+    (``library_ms``, the counterpart of phase 3's ``torch.mm`` call),
+    ``torch.bmm`` over the fp32 upcast (printed only) and the bound
+    (E·T·d·(d+1) operations at the bf16 peak against 2·E·T·d + 4·E·d²
+    bytes)."""
+    import torch
+    from repro_torch.kernels import gram as gram_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_spmm import cold_device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(E * d + T)
+    x = torch.randn(E, T, d, generator=gen, device="cuda").to(torch.bfloat16)
+    ops.reset_launches()
+    Gk = ops.gram_xtx_stacked(x)
+    require(ops.LAUNCHES["gram_xtx_stacked_bf16"] == 1,
+            f"gram_xtx_stacked {tag}: not one launch")
+    Gp = gram_mod.gram_xtx_stacked_plain(x)
+    err = float((Gk - Gp).abs().max())
+    scale = float(Gp.abs().max())
+    del Gp
+    sym = torch.equal(Gk, Gk.transpose(1, 2))
+    per = all(torch.equal(Gk[e], ops.gram_xtx(x[e])) for e in range(E))
+    log(f"   gram_xtx_stacked {tag} (E={E}, T={T}, d={d}) bf16: max_abs_err "
+        f"{err:.3e} (max|G| {scale:.3e}, {err / scale:.2e} of it) "
+        f"symmetric={sym} per expert == gram_xtx of its slice: {per}")
+    require(err <= 1e-5 * scale and sym and per,
+            f"gram_xtx_stacked {tag} out of tolerance")
+    del Gk
+    x32 = x.float()
+    flops = float(E) * T * d * (d + 1)
+    b_ms, b_by = bound(flops, 2.0 * E * T * d + 4.0 * E * d * d, PEAK_BF16)
+    ms, lo, hi = cold_device_ms(lambda: ops.gram_xtx_stacked(x))
+    plain_ms, _, _ = cold_device_ms(
+        lambda: gram_mod.gram_xtx_stacked_plain(x))
+    up_ms, ulo, uhi = cold_device_ms(lambda: torch.bmm(x32.mT, x32))
+    del x32
+    torch.cuda.empty_cache()
+    lib_ms, llo, lhi = cold_device_ms(
+        lambda: torch.bmm(x.mT, x, out_dtype=torch.float32))
+    log(f"   gram_xtx_stacked {tag}: device time, median [min-max] of 20 "
+        f"calls, L2 flushed: kernel {ms:.4f} [{lo:.4f}-{hi:.4f}] ms, plain "
+        f"{plain_ms:.4f} ms, torch.bmm(x.mT, x, out_dtype=torch.float32) "
+        f"{lib_ms:.4f} [{llo:.4f}-{lhi:.4f}] ms, torch.bmm on the fp32 "
+        f"upcast {up_ms:.4f} [{ulo:.4f}-{uhi:.4f}] ms, bound {b_ms:.4f} ms "
+        f"({b_by}; kernel at {100 * b_ms / ms:.1f}% of the bound)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"{tag} E={E} T={T} d={d} bf16"}
+
+
+def check_spmm_stacked(E: int, d_out: int, d_in: int, act, tag: str, *,
+                       time_it: bool) -> dict:
+    """The stacked spmm at one expert shape, T = 4 and 40 an expert, nm24
+    (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16: one launch a
+    call, within phase 3's tolerances of the plain version, each expert's
+    y bitwise the unstacked kernel on its slice, nm24 == gathered bitwise
+    on the 2:4 mask; bf16 device times with a cold L2 when asked (the
+    kernel, the plain version, ``torch.bmm(x, (W⊙M)ᵀ)`` as
+    ``library_ms``, and the bound summed over the experts). Returns {(T,
+    "nm24" | "gathered" | "gathered 2:4"): timings}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import masks, packed
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spmm as spmm_mod
+    from repro_torch.launch.profile_spmm import cold_device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(E + d_out + d_in)
+    w = (torch.randn(E, d_out, d_in, generator=gen, device="cuda")
+         * d_in ** -0.5)
+    scores = torch.rand(E * d_out, d_in, generator=gen, device="cuda")
+    m24 = masks.make_mask(scores, masks.NM(2, 4)).reshape(w.shape)
+    m60 = masks.make_mask(scores, masks.PerRow(0.6)).reshape(w.shape)
+    del scores
+    runs = {"nm24": ("nm24", m24), "gathered": ("gathered", m60),
+            "gathered 2:4": ("gathered", m24)}
+    out = {}
+    for T in (4, 40):
+        x32 = torch.randn(E, T, d_in, generator=gen, device="cuda")
+        y24 = {}
+        for name, (fmt, mask) in runs.items():
+            errs = {}
+            for dt in (torch.float32, torch.bfloat16):
+                pw = packed.pack(w.to(dt), mask, fmt)
+                x = x32.to(dt)
+                ops.reset_launches()
+                got = ops.spmm_stacked(x, pw, act=act)
+                require(ops.LAUNCHES["spmm_stacked"] == 1
+                        and ops.LAUNCHES["spmm"] == 0,
+                        f"spmm_stacked {tag} T={T} {name}: not one launch")
+                want = spmm_mod.spmm_stacked_plain(x, pw, None, act)
+                diff = (got.float() - want.float()).abs()
+                require(bool((diff <= spmm_tol(want)).all())
+                        and got.dtype == dt,
+                        f"spmm_stacked {tag} T={T} {name} {dt} out of "
+                        "tolerance")
+                errs[str(dt).split(".")[1]] = float(diff.max())
+                for e in range(E):
+                    one = dataclasses.replace(pw, values=pw.values[e],
+                                              idx=pw.idx[e])
+                    require(torch.equal(got[e], ops.spmm(x[e], one, act=act)),
+                            f"spmm_stacked {tag} T={T} {name} {dt}: expert "
+                            f"{e} differs from the unstacked kernel")
+                if mask is m24:
+                    y24.setdefault(dt, []).append(got)
+            line = (f"   spmm_stacked {tag} (E={E}, {d_out}x{d_in}, act={act}"
+                    f") T={T} {name} K={pw.k}: max_abs_err fp32 "
+                    f"{errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; "
+                    f"every expert bitwise the unstacked kernel")
+            if not time_it:
+                log(line)
+                continue
+            wm = (w * mask).to(torch.bfloat16)
+            ms, lo, hi = cold_device_ms(lambda: ops.spmm_stacked(x, pw,
+                                                                 act=act))
+            plain_ms, _, _ = cold_device_ms(
+                lambda: spmm_mod.spmm_stacked_plain(x, pw, None, act))
+            lib_ms, llo, lhi = cold_device_ms(
+                lambda: torch.bmm(x, wm.transpose(1, 2)))
+            del wm
+            K = pw.k
+            nbytes = E * (2 * T * d_in + 2 * T * d_out) + pw.nbytes
+            b_ms, b_by = bound(2.0 * E * T * d_out * K, nbytes, PEAK_BF16)
+            out[(T, name)] = {"max_abs_err": errs["bfloat16"], "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": lib_ms,
+                              "shape": f"{tag} E={E} T={T} {name} bf16"}
+            log(f"{line}; bf16 device time, median [min-max] of 20 cold "
+                f"calls: kernel {ms:.4f} [{lo:.4f}-{hi:.4f}] ms, plain "
+                f"{plain_ms:.4f} ms, torch.bmm on masked dense {lib_ms:.4f} "
+                f"[{llo:.4f}-{lhi:.4f}] ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{nbytes / 1e6:.1f} MB; kernel at {100 * b_ms / ms:.1f}% of "
+                f"the bound)")
+        for dt, (y_nm, y_ga) in y24.items():
+            require(torch.equal(y_nm, y_ga),
+                    f"spmm_stacked {tag} T={T} {dt}: nm24 and gathered "
+                    "differ on the 2:4 mask")
+        del x32, y24
+    del w, m24, m60
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_shapes() -> dict:
+    """Phase 3m: the stacked Gram at GRAM_STACKED and the stacked spmm at
+    SPMM_STACKED, each held and timed as ``check_gram_stacked`` and
+    ``check_spmm_stacked`` say. Returns the kernels line's rows."""
+    grams = {tag: check_gram_stacked(E, T, d, tag)
+             for E, T, d, tag in GRAM_STACKED}
+    spmm = {}
+    for E, d_out, d_in, act, tag, timed in SPMM_STACKED:
+        spmm[tag] = check_spmm_stacked(E, d_out, d_in, act, tag,
+                                       time_it=timed)
+    return {"gram_xtx_stacked": grams["mixtral-8x7b moe_w_down"],
+            "spmm_stacked": spmm["mixtral-8x7b w_gate"][(40, "nm24")],
+            "spmm_stacked_gather": spmm["mixtral-8x7b w_gate"][
+                (4, "gathered")]}
+
+
 def forced_logits(eng, prompt: dict, tokens):
     """(n_new, B, vocab) fp32 logits of ``eng``'s model at the prefill and
     at each decode step, fed ``tokens`` (B, n_new) in place of its own
@@ -761,6 +985,89 @@ def forced_logits(eng, prompt: dict, tokens):
                                             cache, masks=eng.masks)
             out.append(logits[:, -1].float())
     return torch.stack(out)
+
+
+class RouteTape:
+    """Routing teacher-forced, as ``forced_logits`` forces the tokens: an
+    MoE model's top-k routing is a discrete choice, and where two of a
+    token's router logits nearly tie, the 1-2 bf16 ulps between a packed
+    and a masked run's hidden states can send it to another expert, whose
+    output differs by O(1). ``record`` keeps every ``models.moe.route``
+    call's (logits, expert ids) of one run; ``replay`` makes the calls of
+    another run, in the same order, take the recorded ids (with gates
+    from its own logits at them) and notes each token whose own top-k
+    differs (a flip): the recorded run's gap between its k-th and
+    (k+1)-th logits there, and the largest router-logit difference
+    between the runs at that token."""
+
+    def __init__(self):
+        self.calls, self.flips, self.tokens = [], [], 0
+
+    def _patched(self, fn):
+        import contextlib
+
+        from repro_torch.models import moe
+
+        @contextlib.contextmanager
+        def ctx():
+            orig, moe.route = moe.route, lambda *a, **kw: fn(orig, *a, **kw)
+            try:
+                yield self
+            finally:
+                moe.route = orig
+        return ctx()
+
+    def record(self):
+        def fn(orig, x, router, k):
+            logits, ids, gates = orig(x, router, k)
+            self.calls.append((logits.clone(), ids.clone()))
+            return logits, ids, gates
+        return self._patched(fn)
+
+    def replay(self):
+        import torch
+        it = iter(self.calls)
+
+        def fn(orig, x, router, k):
+            logits, ids, _ = orig(x, router, k)
+            ref_logits, ref_ids = next(it)
+            flip = (ids.sort(-1).values != ref_ids.sort(-1).values).any(-1)
+            top = ref_logits.sort(-1, descending=True).values
+            gap = top[..., k - 1] - top[..., k]
+            diff = (logits - ref_logits).abs().amax(-1)
+            self.flips += list(zip(gap[flip].tolist(), diff[flip].tolist()))
+            self.tokens += flip.numel()
+            return (logits, ref_ids,
+                    torch.softmax(logits.gather(-1, ref_ids), dim=-1))
+        return self._patched(fn)
+
+
+def routed_pair(eng, ref_eng, prompt: dict, tokens, tag: str) -> float:
+    """An MoE pair's logits error with both the tokens and the routing
+    teacher-forced (``RouteTape``): the reference engine's forced run
+    records its routing, the other's replays it, and the routing
+    decisions that would have flipped are printed with their top-k gap
+    and router-logit difference. Fails unless every flip is a near tie
+    (its gap at most twice the difference, which any flip of a true
+    top-k needs) and at most ROUTE_FLIPS of the decisions flip. Returns
+    the largest logits error."""
+    tape = RouteTape()
+    with tape.record():
+        ref = forced_logits(ref_eng, prompt, tokens)
+    with tape.replay():
+        got = forced_logits(eng, prompt, tokens)
+    err = float((got - ref).abs().max())
+    log(f"   {tag}, routing teacher-forced too: logits max_abs_err "
+        f"{err:.4e} ({err / float(ref.abs().max()):.2e} of max|logits|); "
+        f"{len(tape.flips)} of {tape.tokens} routing decisions flip "
+        f"unforced, (top-k gap, router-logit difference): "
+        f"{[(round(g, 6), round(d, 6)) for g, d in tape.flips[:8]]}")
+    require(all(g <= 2 * d for g, d in tape.flips),
+            f"{tag}: a routing decision flips away from a near tie")
+    require(len(tape.flips) <= ROUTE_FLIPS * tape.tokens,
+            f"{tag}: {len(tape.flips)} of {tape.tokens} routing decisions "
+            f"flip, more than {ROUTE_FLIPS:.0%}")
+    return err
 
 
 def spmm_device_ms(eng, prompt: dict, launches: int,
@@ -821,9 +1128,9 @@ def serve_bench(engines: dict, prompt: dict, launches: dict) -> dict:
 
 def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
                bench: bool = True):
-    """Phase 6 (and 6b with ``bench=False``: no dense engine, no timed
-    runs or profiles). Returns the spmm launches of each engine's first
-    generate."""
+    """Phase 6 (and 6b, 6m with ``bench=False``: no timed runs or
+    profiles). Returns the spmm launches of each engine's first generate, {"spmm": unstacked
+    calls, "spmm_stacked": stacked ones (an MoE model's experts)}."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.pruning import sites
@@ -833,9 +1140,8 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
              "gathered_0.6": (masks60, "gathered"),
              "masked_2:4": (masks24, "masked"), "nm24_2:4": (masks24, "nm24"),
              "gathered_2:4": (masks24, "gathered")}
-    if not bench:
-        del specs["dense"]
-    n_sites = len(sites.site_specs(api.cfg, params))
+    stacks = [len(s.stack_shape) for s in sites.site_specs(api.cfg, params)]
+    n_sites = {"spmm": stacks.count(1), "spmm_stacked": stacks.count(2)}
     engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
                for name, (m, fmt) in specs.items()}
     for name, eng in engines.items():
@@ -844,14 +1150,17 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
     ops.reset_launches()
     cold, serve_launches = {}, {}
     for name, eng in engines.items():
-        before = ops.LAUNCHES["spmm"]
+        before = {k: ops.LAUNCHES[k] for k in n_sites}
         cold[name] = eng.generate(prompt, SERVE_GEN)
-        n = serve_launches[name] = ops.LAUNCHES["spmm"] - before
+        n = serve_launches[name] = {k: ops.LAUNCHES[k] - v
+                                    for k, v in before.items()}
         packed = specs[name][1] in ("nm24", "gathered")
-        want = n_sites * api.cfg.n_layers * SERVE_GEN if packed else 0
-        require(n == want, f"{name}: {n} spmm launches, want {want}")
-    warm = (serve_bench(engines, prompt, serve_launches) if bench
-            else {name: [] for name in engines})
+        want = {k: v * api.cfg.n_layers * SERVE_GEN if packed else 0
+                for k, v in n_sites.items()}
+        require(n == want, f"{name}: spmm launches {n}, want {want}")
+    warm = (serve_bench(engines, prompt, {k: sum(v.values()) for k, v in
+                                          serve_launches.items()})
+            if bench else {name: [] for name in engines})
     traces = {name: eng.logits_trace(prompt, SERVE_GEN)
               for name, eng in engines.items()}
     toks = {name: [r.tokens for r in warm[name]] + [cold[name].tokens]
@@ -872,16 +1181,19 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
         scale = float(ref.abs().max())
         errs = (forced - ref).abs().amax(dim=(1, 2))      # per position
         err = float(errs.max())
-        prune_gap = (f"; dense vs masked prefill "
-                     f"{float((traces['dense'][0] - ref[0]).abs().max()):.4e}"
-                     if bench else "")
+        prune_gap = float((traces["dense"][0] - ref[0]).abs().max())
         agree = float((toks[packed_name][0] == toks[masked_name][0])
                       .float().mean())
         log(f"   {packed_name} vs {masked_name} (fed the masked tokens): "
             f"logits max_abs_err prefill {float(errs[0]):.4e}, decode steps "
             f"{float(errs[1:].max()):.4e} ({err / scale:.2e} of "
-            f"max|logits| {scale:.3f}{prune_gap}); free-running greedy "
+            f"max|logits| {scale:.3f}; dense vs masked prefill "
+            f"{prune_gap:.4e}); free-running greedy "
             f"tokens agree {100 * agree:.1f}%")
+        if api.cfg.is_moe:
+            err = routed_pair(engines[packed_name], engines[masked_name],
+                              prompt, toks[masked_name][0],
+                              f"{packed_name} vs {masked_name}")
         require(math.isfinite(err) and err <= SERVE_TOL * scale,
                 f"{packed_name} vs {masked_name} beyond {SERVE_TOL} of "
                 "max|logits|")
@@ -1322,8 +1634,8 @@ def other_config(name: str) -> dict:
     """Phases 4b and 6b for one dense config at full width, 2 layers, bf16,
     random weights from seed 0 (chatglm3's qkv biases, zero at init, drawn
     from N(0, 0.02²) so the bias path carries values): prune_model as in
-    phase 4 with its gates, then serving as phase 6 without the dense
-    engine and the timed runs. Returns the launches of both paths."""
+    phase 4 with its gates, then serving as phase 6 without the timed
+    runs. Returns the launches of both paths."""
     import torch
     from repro_torch import configs, models, pruning
     from repro_torch.core import masks
@@ -1383,22 +1695,107 @@ def other_config(name: str) -> dict:
     return {"prune": prune_launches, "serve": serve_launches}
 
 
+def moe_config(name: str, *, serve: bool) -> dict:
+    """Phases 4m (and 6m with ``serve``) for one MoE config at full width,
+    2 layers, bf16, random weights from seed 0: phase 4's prune_model with
+    its gates (``check_pruned``: an MoE tap's Gram one stacked launch a
+    layer and batch; swap_topk once per instance and search pass, every
+    expert of a layer an instance), time, peak memory and a masks digest;
+    then phase 6's serving without the timed runs: dense, masked, nm24 and
+    gathered on the PerRow(0.6) and Wanda 2:4 masks, attention through
+    spmm and the experts through spmm_stacked (sites x layers x 16
+    launches each a packed generate), nm24 == gathered bitwise, packed vs
+    masked logits within SERVE_TOL. Returns the launches of both paths."""
+    import torch
+    from repro_torch import configs, models, pruning
+    from repro_torch.core import masks
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    full = configs.get(name)
+    cfg = full.replace(n_layers=2)
+    api = models.build(cfg)
+    params = api.init(seed=0, device=dev)
+    pattern = masks.PerRow(0.6)
+    batches = list(pruning.calibration_batches(
+        cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=dev))
+    out = {}
+    with Phase(f"4m {name}: prune_model + perplexity"):
+        log(f"   config: {name} full width (d_model {cfg.d_model}, "
+            f"{cfg.n_heads} / {cfg.n_kv_heads} KV heads, {cfg.n_experts} "
+            f"experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, moe_group_size "
+            f"{cfg.moe_group_size}, sliding_window {cfg.sliding_window}, "
+            f"vocab {cfg.vocab_size}), n_layers 2 (reduced from "
+            f"{full.n_layers}), {cfg.dtype}; {cfg.n_params()} params "
+            f"({cfg.n_active_params()} active)")
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = pruning.prune_model(api, params, batches, pattern,
+                                     warmstart="wanda", method="sparseswaps",
+                                     t_max=T_MAX)
+        torch.cuda.synchronize()
+        t_prune = time.perf_counter() - t0
+        out["prune"] = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        dense = pruning.evaluate(api, params, seed=0, device=dev)
+        pruned = pruning.evaluate(api, params, masks=report.masks, seed=0,
+                                  device=dev)
+        log(report.summary())
+        n_inst = sum(s.n_instances
+                     for s in pruning.site_specs(cfg, params))
+        log(f"   {name}: prune_model {t_prune:.2f} s, max memory "
+            f"{peak / 2**30:.2f} GiB; dense ppl {dense['perplexity']:.4f}, "
+            f"pruned ppl {pruned['perplexity']:.4f}; mean error reduction "
+            f"{100 * report.mean_error_reduction():.3f}%; {n_inst} "
+            f"instances refined")
+        log(f"   {name}: launches {out['prune']}")
+        log(f"   {name}: masks digest {digest(mask_leaves(report.masks))}")
+        check_pruned(api, params, report, out["prune"], len(batches),
+                     pattern, dense, pruned)
+    masks60 = _tree_to(report.masks, "cpu")     # 11.8 GB at mixtral: held on
+    del report                                  # the host while the 2:4
+    torch.cuda.empty_cache()                    # run calibrates
+    if serve:
+        with Phase(f"6m {name}: serve dense / masked / nm24 / gathered"):
+            rep24 = pruning.prune_model(api, params, batches, masks.NM(2, 4),
+                                        warmstart="wanda", method="none")
+            pipe = synthetic.DataPipeline(
+                synthetic.CorpusConfig(cfg.vocab_size), 4, 32, split="val",
+                device=dev)
+            out["serve"] = serve_path(api, params, _tree_to(masks60, dev),
+                                      rep24.masks, pipe.get(0), bench=False)
+            log(f"   {name}: spmm launches {out['serve']}")
+            del rep24
+    del params, masks60, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_pruned(api, params, report, launches: dict, n_batches: int,
                  pattern, dense: dict, pruned: dict) -> None:
-    """Phases 4 and 4b: every Gram launch on the bf16 path, one per tap,
-    layer and batch; swap_topk once per site, layer and pass (taps and
-    sites from ``pruning.sites``); exact per-row sparsity, monotone row
-    losses, a positive mean error reduction, finite perplexities."""
+    """Phases 4, 4b and 4m: every Gram launch on the bf16 path, one per
+    tap, layer and batch, an MoE tap's (every expert's Gram) one stacked
+    launch; swap_topk once per site instance and pass: T_MAX passes each
+    (taps, sites and instances from ``pruning.sites``; an expert of a
+    layer is an instance); exact per-row sparsity, monotone row losses, a positive mean error
+    reduction, finite perplexities."""
     from repro_torch.core import masks
     from repro_torch.pruning import sites
 
     cfg = api.cfg
     specs = sites.site_specs(cfg, params)
-    n_gram = len(sites.tap_specs(cfg, specs)) * cfg.n_layers * n_batches
-    require(launches["gram_xtx_bf16"] == n_gram and launches["gram_xtx"] == 0,
-            f"{cfg.name}: the Gram launches were not all {n_gram} on the "
-            "bf16 path")
-    n_topk = len(specs) * cfg.n_layers * T_MAX
+    stack = {s.name: len(s.stack_shape) for s in specs}
+    taps = [stack[t.sites[0]] for t in sites.tap_specs(cfg, specs)]
+    n_gram = taps.count(1) * cfg.n_layers * n_batches
+    n_stacked = taps.count(2) * cfg.n_layers * n_batches
+    require(launches["gram_xtx_bf16"] == n_gram and launches["gram_xtx"] == 0
+            and launches["gram_xtx_stacked_bf16"] == n_stacked
+            and launches["gram_xtx_stacked"] == 0,
+            f"{cfg.name}: the Gram launches were not {n_gram} unstacked and "
+            f"{n_stacked} stacked, all on the bf16 path")
+    n_topk = sum(s.n_instances for s in specs) * T_MAX
     require(launches["swap_topk"] == n_topk,
             f"{cfg.name}: swap_topk launched {launches['swap_topk']} times, "
             f"want {n_topk}")
@@ -2151,6 +2548,11 @@ def main() -> int:
     with Phase("3b kernel checks at the other dense configs' shapes"):
         other_shapes(clock)
     other = {name: other_config(name) for name in OTHER_DENSE}
+    with Phase("3m kernel checks at the MoE experts' shapes: stacked Gram "
+               "and spmm"):
+        results.update(moe_shapes())
+    moe = {name: moe_config(name, serve=name == "mixtral-8x7b")
+           for name in MOE}
     with Phase("8 full depth, shapes only: plan_pruning on the meta device"):
         full_depth_plans()
     with Phase("6c continuous serving: scheduler, chunked prefill, "
@@ -2171,19 +2573,30 @@ def main() -> int:
         log(f"   launches {rec_launches}")
 
     runs = [(main_launches, serve_launches)] + [
-        (o["prune"], o["serve"]) for o in other.values()]
+        (o["prune"], o.get("serve"))
+        for o in (*other.values(), *moe.values())]
+    served = [s for _, s in runs if s is not None]
     launches = {"gram_xtx": sum(p["gram_xtx_bf16"] + p["gram_xtx"]
                                 for p, _ in runs) + rec_launches["gram_xtx"],
+                "gram_xtx_stacked": sum(p["gram_xtx_stacked_bf16"]
+                                        + p["gram_xtx_stacked"]
+                                        for p, _ in runs),
                 "swap_topk": sum(p["swap_topk"] for p, _ in runs)
                 + rec_launches["swap_topk"],
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches,
-                "spmm": sum(s["nm24_2:4"] for _, s in runs)
+                "spmm": sum(s["nm24_2:4"]["spmm"] for s in served)
                 + cont_launches["spmm"] + rec_launches["spmm"],
-                "spmm_gather": sum(s["gathered_0.6"] + s["gathered_2:4"]
-                                   for _, s in runs)
+                "spmm_gather": sum(s["gathered_0.6"]["spmm"]
+                                   + s["gathered_2:4"]["spmm"]
+                                   for s in served)
                 + cont_launches["spmm_gather"]
-                + rec_launches["spmm_gather"]}
+                + rec_launches["spmm_gather"],
+                "spmm_stacked": sum(s["nm24_2:4"]["spmm_stacked"]
+                                    for s in served),
+                "spmm_stacked_gather": sum(
+                    s["gathered_0.6"]["spmm_stacked"]
+                    + s["gathered_2:4"]["spmm_stacked"] for s in served)}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]

@@ -1,12 +1,15 @@
-"""Architecture config schema (the port's own copy of the dense subset).
+"""Architecture config schema (the port's own copy of the subset it runs).
 
 ``ArchConfig`` keeps the field names and defaults of the reference schema
-for every field the dense transformer reads, so a config written for one
-package reads the same in the other. Family-specific fields the port does
-not run yet (MoE, SSM, RWKV, cross-attention, encoder-decoder) are left
-out until their slice lands. Of the execution knobs the port keeps the
-two training reads: ``remat`` (recompute each layer's activations in the
-backward pass) and ``grad_accum`` (microbatches per train step).
+for every field the dense and MoE transformers read, so a config written
+for one package reads the same in the other. Family-specific fields the
+port does not run yet (SSM, RWKV, cross-attention, encoder-decoder) are
+left out until their slice lands. Of the execution knobs the port keeps
+the two training reads, ``remat`` (recompute each layer's activations in
+the backward pass) and ``grad_accum`` (microbatches per train step), and
+the MoE block's two: ``moe_group_size`` (dispatch-group tokens) and
+``moe_parallelism``, where on one device "tp" and "local" run the same
+code and "ep" (experts sharded over devices) raises (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -34,10 +37,18 @@ class ArchConfig:
     rope_pct: float = 1.0              # fraction of head dim rotated
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    sliding_window: int = 0            # 0 = full attention
+    sliding_window: int = 0            # 0 = full attention; >0 = SWA (mixtral)
+    # --- MoE (family "moe") ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    router_z_coef: float = 1e-3
     remat: bool = True                 # per-layer activation checkpointing
     grad_accum: int = 1                # microbatches per step (train memory)
     dtype: str = "bfloat16"            # compute/param dtype ("float32" on CPU tests)
+    moe_parallelism: Literal["tp", "ep", "local"] = "tp"
+    moe_group_size: int = 0            # dispatch-group tokens (0 = full seq)
 
     @property
     def head_dim(self) -> int:
@@ -45,11 +56,21 @@ class ArchConfig:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
     def n_params(self) -> int:
         """Total parameter count (embeddings included)."""
         from repro_torch.models import param_count
 
         return param_count(self)
+
+    def n_active_params(self) -> int:
+        """Active-per-token parameters (MoE: top_k of n_experts)."""
+        from repro_torch.models import param_count
+
+        return param_count(self, active_only=True)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -4,9 +4,11 @@ The reference's params, taken to numpy (``jax.tree.map(np.asarray,
 params)``), are nested dicts of arrays; ``from_numpy`` turns them into the
 port's nested dicts of tensors with the same keys and layouts: linear
 weights stay (d_out, d_in) and per-layer leaves stay stacked on a leading
-L axis. ``to_numpy`` is the inverse. bfloat16 arrays (ml_dtypes, as JAX
-exports them) travel through their 16-bit pattern; ``to_numpy`` returns
-bf16 tensors as float32, which holds every bf16 value exactly.
+L axis (an MoE model's expert stacks keep their (L, E, d_out, d_in) and
+its router its fp32). ``to_numpy`` is the inverse. bfloat16 arrays
+(ml_dtypes, as JAX exports them) travel through their 16-bit pattern;
+``to_numpy`` returns bf16 tensors as float32, which holds every bf16
+value exactly.
 
 A reference ``PackedWeight`` leaf (after ``jax.tree.map(np.asarray, ...)``
 its ``values``/``idx`` are numpy arrays) becomes the port's

@@ -100,6 +100,29 @@ def _kept_first(mk: torch.Tensor) -> torch.Tensor:
     return torch.sort(1.0 - mk, dim=-1, stable=True).indices
 
 
+# elements sorted at a time when packing: a whole stacked leaf's sort
+# (fp32 keys and int64 indices, 12 bytes an element) would take 11 GB at
+# mixtral-8x7b's two-layer w_gate stack (2 x 8 x 14336 x 4096)
+_PACK_CHUNK = 1 << 24
+
+
+def _gather_kept(w: torch.Tensor, mk: torch.Tensor, k: int, idx_dtype):
+    """(values, idx) of each row along the last axis: its first k
+    positions of ``_kept_first`` (the kept ones, ascending) in
+    ``idx_dtype`` and the weights there, sorted a chunk of rows at a time
+    (each row's sort is its own, so the result is the whole-leaf one)."""
+    d = w.shape[-1]
+    w2, m2 = w.reshape(-1, d), mk.reshape(-1, d)
+    vals = w2.new_empty((w2.shape[0], k))
+    idx = torch.empty((w2.shape[0], k), dtype=idx_dtype, device=w.device)
+    step = max(1, _PACK_CHUNK // d)
+    for lo in range(0, w2.shape[0], step):
+        order = _kept_first(m2[lo:lo + step])[:, :k]
+        vals[lo:lo + step] = torch.gather(w2[lo:lo + step], -1, order)
+        idx[lo:lo + step] = order
+    return (vals.reshape(*w.shape[:-1], k), idx.reshape(*w.shape[:-1], k))
+
+
 def pack_nm(w: torch.Tensor, mask: torch.Tensor, *, n: int = 2,
             m: int = 4) -> PackedWeight:
     """Pack an N:M mask: (..., d_out, d_in) -> values + uint8 block idx.
@@ -118,11 +141,10 @@ def pack_nm(w: torch.Tensor, mask: torch.Tensor, *, n: int = 2,
         bad = int((per_block != n).sum())
         raise ValueError(
             f"mask is not {n}:{m}: {bad} block(s) keep != {n} entries")
-    order = _kept_first(mb)[..., :n]                  # within-block pos
-    wb = w.reshape(*w.shape[:-1], nb, m)
-    vals = torch.gather(wb, -1, order).reshape(*w.shape[:-1], nb * n)
-    idx = order.to(torch.uint8).reshape(*w.shape[:-1], nb * n)
-    return PackedWeight(values=vals.contiguous(), idx=idx.contiguous(),
+    vals, idx = _gather_kept(w.reshape(*w.shape[:-1], nb, m), mb, n,
+                             torch.uint8)             # within-block pos
+    return PackedWeight(values=vals.reshape(*w.shape[:-1], nb * n),
+                        idx=idx.reshape(*w.shape[:-1], nb * n),
                         fmt="nm24", d_in=d_in, n=n, m=m)
 
 
@@ -143,11 +165,8 @@ def pack_gathered(w: torch.Tensor, mask: torch.Tensor) -> PackedWeight:
             f"keeping between {lo} and {hi} entries")
     if k == 0:
         raise ValueError("gathered format cannot represent all-pruned rows")
-    order = _kept_first(mk)[..., :k]                  # ascending columns
-    vals = torch.gather(w, -1, order)
-    return PackedWeight(values=vals.contiguous(),
-                        idx=order.to(torch.int32).contiguous(),
-                        fmt="gathered", d_in=d_in)
+    vals, idx = _gather_kept(w, mk, k, torch.int32)   # ascending columns
+    return PackedWeight(values=vals, idx=idx, fmt="gathered", d_in=d_in)
 
 
 def pack(w: torch.Tensor, mask: torch.Tensor, fmt: str, *, n: int = 2,

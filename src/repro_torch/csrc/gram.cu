@@ -1,17 +1,23 @@
-// G = Xᵀ X with fp32 sums, for calibration activations x (T, d).
+// G = Xᵀ X with fp32 sums, for calibration activations x (T, d), and the
+// stacked form G_e = X_eᵀ X_e for x (E, T, d) -> (E, d, d) (MoE experts,
+// each over its capacity buffer).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/gram.py::_kernel
 // (gram_xtx_padded): there a (TI, TJ) output tile stays in VMEM while the
-// sequential grid streams token strips through it. On Hopper the blocks
-// run in parallel and in no order, so each block owns one 128 x 128 output
-// tile and loops over all T tokens itself. G is symmetric: the grid holds
-// only the nt (nt + 1) / 2 tiles on and above the diagonal (1-D, so no
-// block exits empty), and each block writes its tile and the tile's
-// mirror image. The tile passes through shared memory on its way out
-// (store_tile): rows of the tile, then rows of its transpose, each warp
-// store 128 contiguous bytes; a diagonal tile writes its upper half and
-// mirrors it. G == Gᵀ therefore holds exactly, whatever order the sums
-// took.
+// sequential grid streams token strips through it. The stacked form
+// replaces src/repro/kernels/ops.py::gram_xtx_stacked, a vmap of that
+// kernel over experts: here the expert is the grid's y axis (blockIdx.y),
+// so a stacked call is one launch, and each expert's blocks run exactly
+// the unstacked call's code on its slice (bitwise the unstacked result).
+// On Hopper the blocks run in parallel and in no order, so each block owns
+// one 128 x 128 output tile and loops over all T tokens itself. G is
+// symmetric: the grid holds only the nt (nt + 1) / 2 tiles on and above
+// the diagonal (1-D, so no block exits empty), and each block writes its
+// tile and the tile's mirror image. The tile passes through shared memory
+// on its way out (store_tile): rows of the tile, then rows of its
+// transpose, each warp store 128 contiguous bytes; a diagonal tile writes
+// its upper half and mirrors it. G == Gᵀ therefore holds exactly,
+// whatever order the sums took.
 //
 // bf16 activations (the calibration path on the card): gram_bf16_kernel,
 // on the tensor cores. Products of bf16 values are exact in fp32, so the
@@ -20,8 +26,11 @@
 // and X[t0:t0+64, j0:j0+128] by TMA (four 64 x 64 boxes, 128-byte swizzle,
 // zeros past T and d; two boxes on a diagonal tile, where the strips are
 // the same) through a ring of STAGES 32 KB stages with full / empty
-// mbarriers. Two consumer warpgroups each own 64 rows of the tile and run
-// wgmma m64n128k16 with both operands from shared memory: the strips lie
+// mbarriers. The tensor map is 3-D, (ld, T, E): a strip that runs past an
+// expert's T (MoE capacity buffers make T any size, 160 at mixtral's
+// calibration) reads the TMA's zero fill, never the next expert's rows.
+// Two consumer warpgroups each own 64 rows of the tile and run wgmma
+// m64n128k16 with both operands from shared memory: the strips lie
 // token-major, so A = X_iᵀ and B = X_j are both MN-major (the transpose
 // bits wgmma allows for 16-bit types). Two blocks fit on an SM (97 KB of
 // shared memory each), so one block's stores overlap the other's loads.
@@ -117,6 +126,8 @@ static_assert(STAGE_TILE_BYTES <= STAGES * STAGE_BYTES,
 __global__ void __launch_bounds__(TC_THREADS, 2)
 gram_bf16_kernel(const __grid_constant__ CUtensorMap tm,
                  float* __restrict__ out, int n_tok, int d, int nt) {
+  const int e = blockIdx.y;                  // the expert (0 unstacked)
+  out += (size_t)e * d * d;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // the swizzled boxes want 1 KB aligned stages
   uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -155,11 +166,11 @@ gram_bf16_kernel(const __grid_constant__ CUtensorMap tm,
         const uint32_t bar = smem_addr(&full[s]);
         const int t0 = i * BKT;
         mbar_expect(bar, bytes);
-        tma_load(dst, &tm, i0, t0, bar);
-        tma_load(dst + BOX, &tm, i0 + 64, t0, bar);
+        tma_load3(dst, &tm, i0, t0, e, bar);
+        tma_load3(dst + BOX, &tm, i0 + 64, t0, e, bar);
         if (!diag) {
-          tma_load(dst + 2 * BOX, &tm, j0, t0, bar);
-          tma_load(dst + 3 * BOX, &tm, j0 + 64, t0, bar);
+          tma_load3(dst + 2 * BOX, &tm, j0, t0, e, bar);
+          tma_load3(dst + 3 * BOX, &tm, j0 + 64, t0, e, bar);
         }
       }
     }
@@ -263,6 +274,8 @@ __global__ void __launch_bounds__(F_THREADS, 2)
 gram_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
                 int n_tok, int d, int ld, int nt) {
   extern __shared__ __align__(16) float fsm[];
+  x += (size_t)blockIdx.y * n_tok * ld;      // the expert (0 unstacked)
+  out += (size_t)blockIdx.y * d * d;
   int bi, bj;
   tile_of(blockIdx.x, nt, bi, bj);
   const int i0 = bi * TILE;
@@ -331,42 +344,60 @@ int fail_code() {
   return err != 0 ? err : static_cast<int>(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-extern "C" {
-
-// x: (n_tok, ld) row-major fp32 with d <= ld, ld % 4 == 0 and x 16-byte
-// aligned; out: (d, d) row-major fp32, overwritten with XᵀX of the first
-// d columns. Returns cudaGetLastError() after the launch.
-int gram_xtx_f32(const void* x, void* out, int n_tok, int d, int ld,
-                 void* stream) {
+// x: (n_exp, n_tok, ld) row-major fp32 with d <= ld, ld % 4 == 0 and x
+// 16-byte aligned; out: (n_exp, d, d) row-major fp32, each overwritten
+// with its expert's XᵀX of the first d columns, in one launch.
+int launch_f32(const void* x, void* out, int n_exp, int n_tok, int d, int ld,
+               cudaStream_t stream) {
   static bool ready = false;
   if (!ready && !(ready = allow_smem(gram_f32_kernel, F_SMEM)))
     return fail_code();
   const int nt = (d + TILE - 1) / TILE;
-  gram_f32_kernel<<<nt * (nt + 1) / 2, F_THREADS, F_SMEM,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n_tok, d, ld,
-      nt);
+  gram_f32_kernel<<<dim3(nt * (nt + 1) / 2, n_exp), F_THREADS, F_SMEM,
+                    stream>>>(static_cast<const float*>(x),
+                              static_cast<float*>(out), n_tok, d, ld, nt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same with bf16 activations: x (n_tok, ld) bf16, ld % 8 == 0 (the TMA
-// reads rows whose stride is a multiple of 16 bytes), x 16-byte aligned.
-int gram_xtx_bf16(const void* x, void* out, int n_tok, int d, int ld,
-                  void* stream) {
+// The same with bf16 activations: ld % 8 == 0 (the TMA reads rows whose
+// stride is a multiple of 16 bytes).
+int launch_bf16(const void* x, void* out, int n_exp, int n_tok, int d,
+                int ld, cudaStream_t stream) {
   static bool ready = false;
   if (!ready && !(ready = allow_smem(gram_bf16_kernel, TC_SMEM)))
     return fail_code();
   CUtensorMap tm;
-  if (!tensor_map(&tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, ld, n_tok,
-                  2ull * ld, BKT, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!tensor_map3(&tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, ld, n_tok, n_exp,
+                   2ull * ld, BKT, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nt = (d + TILE - 1) / TILE;
-  gram_bf16_kernel<<<nt * (nt + 1) / 2, TC_THREADS, TC_SMEM,
-                     static_cast<cudaStream_t>(stream)>>>(
-      tm, static_cast<float*>(out), n_tok, d, nt);
+  gram_bf16_kernel<<<dim3(nt * (nt + 1) / 2, n_exp), TC_THREADS, TC_SMEM,
+                     stream>>>(tm, static_cast<float*>(out), n_tok, d, nt);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: (n_exp, n_tok, ld) row-major fp32 with d <= ld, ld % 4 == 0 and x
+// 16-byte aligned; out: (n_exp, d, d) row-major fp32, out[e] overwritten
+// with X_eᵀX_e of the first d columns; one launch, blockIdx.y the expert
+// (n_exp = 1: an unstacked Gram). Returns cudaGetLastError() after the
+// launch.
+int gram_xtx_stacked_f32(const void* x, void* out, int n_exp, int n_tok,
+                         int d, int ld, void* stream) {
+  return launch_f32(x, out, n_exp, n_tok, d, ld,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The same with bf16 activations: x (n_exp, n_tok, ld) bf16, ld % 8 == 0
+// (the TMA reads rows whose stride is a multiple of 16 bytes), x 16-byte
+// aligned.
+int gram_xtx_stacked_bf16(const void* x, void* out, int n_exp, int n_tok,
+                          int d, int ld, void* stream) {
+  return launch_bf16(x, out, n_exp, n_tok, d, ld,
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Hopper building blocks of the kernels that stage tiles by TMA (spmm.cu,
-// gram.cu): shared-memory addresses, mbarriers, 2-D TMA loads, bulk
-// copies, wgmma and, on the host, the tensor-map encoder. Header-only,
+// gram.cu, swap_topk.cu): shared-memory addresses, mbarriers, TMA loads
+// from a matrix (2-D) or a stack of them (3-D: an expert axis), bulk
+// copies, wgmma and, on the host, the tensor-map encoders. Header-only,
 // one copy per translation unit (anonymous namespace).
 
 #pragma once
@@ -56,6 +57,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(bar) : "memory");
+}
+
+// one 3-D TMA box (inner coordinate c0, row c1 of matrix c2 of a stack,
+// tensor_map3) completing on mbarrier bar; the box's parts past a
+// matrix's edges arrive as zeros, never rows of the next matrix
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar) : "memory");
 }
 
 // one contiguous bulk copy (no tensor map) of `bytes` from device memory to
@@ -171,6 +185,26 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over a stack of `depth` row-major (rows, cols) matrices, one
+// after another, with row_bytes per row, read in boxes of (box_rows, 64)
+// elements of one matrix (tma_load3); depth 1 is a single matrix. False
+// if the encoder refuses.
+bool tensor_map3(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                 uint64_t cols, uint64_t rows, uint64_t depth,
+                 uint64_t row_bytes, uint32_t box_rows,
+                 CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {row_bytes, row_bytes * rows};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

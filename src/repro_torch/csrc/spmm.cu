@@ -73,6 +73,19 @@
 // with nothing but the MMAs; PERF.md has the numbers and the designs
 // tried before this one.
 //
+// Stacked weights (MoE experts): spmm_run_stacked takes x (E, T, d_in),
+// values and idx (E, d_out, K) and y (E, T, d_out), and replaces
+// src/repro/kernels/spmm.py::spmm_stacked, a vmap of the kernel over
+// experts. Every kernel takes the expert from blockIdx.z (the fp32 one:
+// z = e; the tensor-core ones: z = e * splits + split), offsets its
+// pointers by it and reads its TMA boxes from 3-D tensor maps whose third
+// coordinate is the expert, so a box never crosses into the next expert's
+// tokens or rows. Every expert runs the split plan of an unstacked call
+// of its shapes, hence the same MMA chains and reduction: each expert's y
+// is bitwise the unstacked call's on its slice, and nm24 == gathered
+// holds per expert. One stacked call is one launch of each kernel (and
+// of the split reduction, over all experts).
+//
 // Split d_in: when the row blocks are too few for one block per SM,
 // d_in is split over blockIdx.z and a second kernel (counted with the
 // first as one launch of spmm) adds the fp32 partials in split order,
@@ -213,6 +226,10 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
   const int t0 = blockIdx.x * TT;
   const int r0 = blockIdx.y * RB;
   const int rw = r0 + warp * RPW;           // this warp's first row
+  x += (size_t)blockIdx.z * n_tok * d_in;   // the expert (0 unstacked)
+  vals += (size_t)blockIdx.z * d_out * K;
+  idx += (size_t)blockIdx.z * d_out * K;
+  y += (size_t)blockIdx.z * n_tok * d_out;
 
   float acc[RPW][TT];
   int cur[RPW];                              // slot of ring entry 0
@@ -321,10 +338,10 @@ spmm_fma_kernel(const TX* __restrict__ x, const TX* __restrict__ vals,
 
 template <int TT, int RPW, int PF, int TD, typename TX, typename TI>
 int launch_tt(const void* x, const void* vals, const void* idx,
-              const void* bias, void* y, int n_tok, int d_in, int d_out,
-              int K, int n, int m, int act, cudaStream_t stream) {
+              const void* bias, void* y, int n_exp, int n_tok, int d_in,
+              int d_out, int K, int n, int m, int act, cudaStream_t stream) {
   constexpr int RB = NW * RPW;
-  dim3 grid((n_tok + TT - 1) / TT, (d_out + RB - 1) / RB);
+  dim3 grid((n_tok + TT - 1) / TT, (d_out + RB - 1) / RB, n_exp);
   spmm_fma_kernel<TT, RPW, PF, TD, TX, TI><<<grid, NT, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(vals),
       static_cast<const TI*>(idx), static_cast<const float*>(bias),
@@ -334,13 +351,15 @@ int launch_tt(const void* x, const void* vals, const void* idx,
 
 template <typename TX, typename TI>
 int launch_fma(const void* x, const void* vals, const void* idx,
-               const void* bias, void* y, int n_tok, int d_in, int d_out,
-               int K, int n, int m, int act, cudaStream_t s) {
+               const void* bias, void* y, int n_exp, int n_tok, int d_in,
+               int d_out, int K, int n, int m, int act, cudaStream_t s) {
   if (n_tok <= 4)        // decode: 4 tokens, more blocks, deep prefetch
-    return launch_tt<4, 2, 8, 2048, TX, TI>(x, vals, idx, bias, y, n_tok,
-                                            d_in, d_out, K, n, m, act, s);
-  return launch_tt<16, 4, 2, 512, TX, TI>(x, vals, idx, bias, y, n_tok,
-                                          d_in, d_out, K, n, m, act, s);
+    return launch_tt<4, 2, 8, 2048, TX, TI>(x, vals, idx, bias, y, n_exp,
+                                            n_tok, d_in, d_out, K, n, m, act,
+                                            s);
+  return launch_tt<16, 4, 2, 512, TX, TI>(x, vals, idx, bias, y, n_exp,
+                                          n_tok, d_in, d_out, K, n, m, act,
+                                          s);
 }
 
 // ---------------------------------------------------------------------------
@@ -392,20 +411,21 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                :: "r"(dst), "l"(src), "r"(n) : "memory");
 }
 
-// Issue the copies of one tile (columns [k0, k0 + NM_BK)) into a stage,
-// by the producer warp: lane 0 sends the TMA boxes of values, positions
-// (idx_tma) and the two halves of x, all completing on the stage's
-// mbarrier; without idx_tma the lanes first copy the positions 8 bytes
-// at a time (zero fill past the edges, as the TMA does), the mbarrier
-// tracking their completion too.
+// Start the copies of one tile (columns [k0, k0 + NM_BK)) of expert e
+// into a stage, by the producer warp (idx: the expert's positions):
+// lane 0 sends the TMA boxes of values, positions (idx_tma) and the two
+// halves of x, all completing on the stage's mbarrier; without idx_tma
+// the lanes first copy the positions 8 bytes at a time (zero fill past
+// the edges, as the TMA does), the mbarrier tracking their completion
+// too.
 template <int BN>
 __device__ __forceinline__ void nm_stage(uint8_t* st, uint32_t bar,
                                          const CUtensorMap* tm_v,
                                          const CUtensorMap* tm_i,
                                          const CUtensorMap* tm_x,
                                          const uint8_t* idx, int r0, int t0,
-                                         int k0, int d_out, int K, int lane,
-                                         bool idx_tma) {
+                                         int k0, int e, int d_out, int K,
+                                         int lane, bool idx_tma) {
   using St = NmStage<BN>;
   const uint32_t sv = smem_addr(st);
   const int s0 = k0 / 2;                 // the tile's first slot
@@ -424,10 +444,10 @@ __device__ __forceinline__ void nm_stage(uint8_t* st, uint32_t bar,
   }
   if (lane == 0) {
     mbar_expect(bar, St::I + (idx_tma ? NM_BM * 64 : 0) + 2 * St::XH);
-    tma_load(sv + St::V, tm_v, s0, r0, bar);
-    if (idx_tma) tma_load(sv + St::I, tm_i, s0, r0, bar);
-    tma_load(sv + St::X, tm_x, k0, t0, bar);
-    tma_load(sv + St::X + St::XH, tm_x, k0 + NM_BK / 2, t0, bar);
+    tma_load3(sv + St::V, tm_v, s0, r0, e, bar);
+    if (idx_tma) tma_load3(sv + St::I, tm_i, s0, r0, e, bar);
+    tma_load3(sv + St::X, tm_x, k0, t0, e, bar);
+    tma_load3(sv + St::X + St::XH, tm_x, k0 + NM_BK / 2, t0, e, bar);
   }
 }
 
@@ -542,7 +562,7 @@ spmm_nm24_kernel(const __grid_constant__ CUtensorMap tm_v,
                  const float* __restrict__ bias,
                  __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
                  int n_tok, int d_in, int d_out, int K, int act,
-                 int tiles_per_split, int idx_tma) {
+                 int tiles_per_split, int idx_tma, int splits) {
   constexpr int MT = WM / 16;
   constexpr int NTL = WN / 8;
   constexpr int CW = nm_warps<BN, WM, WN>();   // multiplying warps
@@ -563,8 +583,11 @@ spmm_nm24_kernel(const __grid_constant__ CUtensorMap tm_v,
   const int r0 = blockIdx.x * NM_BM;
   const int t0 = blockIdx.y * BN;
   const int n_kt = (d_in + NM_BK - 1) / NM_BK;
-  const int kt0 = blockIdx.z * tiles_per_split;
+  const int e = blockIdx.z / splits;         // the expert (0 unstacked)
+  const int kt0 = (blockIdx.z - e * splits) * tiles_per_split;
   const int nt = min(tiles_per_split, n_kt - kt0);
+  idx += (size_t)e * d_out * K;
+  y += (size_t)e * n_tok * d_out;
 
   for (int i = tid; i < NM_BM; i += 32 * (CW + 1)) bad[i] = 0;
   if (tid == 0) {
@@ -584,7 +607,7 @@ spmm_nm24_kernel(const __grid_constant__ CUtensorMap tm_v,
       const int s = i % S;
       if (i >= S) mbar_wait(smem_addr(&empty[s]), (i / S - 1) & 1);
       nm_stage<BN>(ring + s * St::BYTES, smem_addr(&full[s]), &tm_v, &tm_i,
-                   &tm_x, idx, r0, t0, (kt0 + i) * NM_BK, d_out, K, lane,
+                   &tm_x, idx, r0, t0, (kt0 + i) * NM_BK, e, d_out, K, lane,
                    idx_tma);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -902,7 +925,7 @@ spmm_gather_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
                    int n_tok, int d_in, int d_out, int K, int act,
-                   int tiles_per_split) {
+                   int tiles_per_split, int splits) {
   constexpr int MT = WM / 16;
   constexpr int NTL = WN / 8;
   constexpr int URGENT = 1, DONE = 2;    // handoff kinds (else: tile end)
@@ -933,8 +956,12 @@ spmm_gather_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int r0 = blockIdx.x * NM_BM;
   const int t0 = blockIdx.y * BN;
   const int n_kt = (d_in + NM_BK - 1) / NM_BK;
-  const int kt0 = blockIdx.z * tiles_per_split;
+  const int e = blockIdx.z / splits;         // the expert (0 unstacked)
+  const int kt0 = (blockIdx.z - e * splits) * tiles_per_split;
   const int nt = min(tiles_per_split, n_kt - kt0);
+  vals += (size_t)e * d_out * K;
+  idx += (size_t)e * d_out * K;
+  y += (size_t)e * n_tok * d_out;
   const int kstart = kt0 * NM_BK;
   const int kend = (kt0 + nt) * NM_BK;   // the split's end column
   // lane (i, h) of scatter warp w and of copying warp w serve row 16w + i:
@@ -972,8 +999,8 @@ spmm_gather_kernel(const __grid_constant__ CUtensorMap tm_x,
         const uint32_t bar = smem_addr(&full[s]);
         const int k0 = (kt0 + i) * NM_BK;
         mbar_expect(bar, Sm::XS);
-        tma_load(st, &tm_x, k0, t0, bar);
-        tma_load(st + Sm::XH, &tm_x, k0 + NM_BK / 2, t0, bar);
+        tma_load3(st, &tm_x, k0, t0, e, bar);
+        tma_load3(st + Sm::XH, &tm_x, k0 + NM_BK / 2, t0, e, bar);
       }
     }
     return;
@@ -1240,18 +1267,22 @@ spmm_gather_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// y = epilogue(sum of the splits' fp32 partials, in split order).
+// y = epilogue(sum of the splits' fp32 partials, in split order), for
+// each of n_exp experts (expert e's split s at ws + (e * splits + s) *
+// n_tok * d_out, its y at y + e * n_tok * d_out).
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
                                      const float* __restrict__ bias,
                                      __nv_bfloat16* __restrict__ y,
                                      int splits, int n_tok, int d_out,
-                                     int act) {
+                                     int act, int n_exp) {
   const size_t total = (size_t)n_tok * d_out;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float v = ws[i];
-  for (int s = 1; s < splits; ++s) v += ws[(size_t)s * total + i];
-  if (bias != nullptr) v += bias[i % d_out];
+  if (i >= total * n_exp) return;
+  const size_t e = i / total, j = i - e * total;
+  const float* w = ws + e * splits * total + j;
+  float v = w[0];
+  for (int s = 1; s < splits; ++s) v += w[(size_t)s * total];
+  if (bias != nullptr) v += bias[j % d_out];
   y[i] = __float2bfloat16_rn(epilogue(v, act));
 }
 
@@ -1314,18 +1345,18 @@ bool allow_smem(F* kern, int bytes, bool (&done)[64]) {
 }
 
 int launch_reduce(const Plan& p, const float* wsf, const float* bias,
-                  __nv_bfloat16* y, int n_tok, int d_out, int act,
+                  __nv_bfloat16* y, int n_exp, int n_tok, int d_out, int act,
                   cudaStream_t s) {
-  const size_t total = (size_t)n_tok * d_out;
+  const size_t total = (size_t)n_exp * n_tok * d_out;
   splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      wsf, bias, y, p.splits, n_tok, d_out, act);
+      wsf, bias, y, p.splits, n_tok, d_out, act, n_exp);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BN, int WM, int WN, int S>
 int launch_nm24(const Plan& p, const void* x, const void* vals,
                 const void* idx, const void* bias, void* y, void* ws,
-                int n_tok, int d_in, int d_out, int K, int act,
+                int n_exp, int n_tok, int d_in, int d_out, int K, int act,
                 cudaStream_t s) {
   constexpr int SMEM = S * NmStage<BN>::BYTES + 1024;   // + alignment
   static bool done[64] = {false};
@@ -1339,29 +1370,32 @@ int launch_nm24(const Plan& p, const void* x, const void* vals,
       K % 16 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
   CUtensorMap tm_v, tm_i, tm_x;
   memset(&tm_i, 0, sizeof(tm_i));
-  if (!tensor_map(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, vals, K, d_out,
-                  2ull * K, NM_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, d_in, n_tok,
-                  2ull * d_in, BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      (idx_tma && !tensor_map(&tm_i, CU_TENSOR_MAP_DATA_TYPE_UINT8, idx, K,
-                              d_out, K, NM_BM, CU_TENSOR_MAP_SWIZZLE_64B)))
+  if (!tensor_map3(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, vals, K, d_out,
+                   n_exp, 2ull * K, NM_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map3(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, d_in, n_tok,
+                   n_exp, 2ull * d_in, BN, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (idx_tma && !tensor_map3(&tm_i, CU_TENSOR_MAP_DATA_TYPE_UINT8, idx, K,
+                               d_out, n_exp, K, NM_BM,
+                               CU_TENSOR_MAP_SWIZZLE_64B)))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((d_out + NM_BM - 1) / NM_BM, (n_tok + BN - 1) / BN, p.splits);
+  dim3 grid((d_out + NM_BM - 1) / NM_BM, (n_tok + BN - 1) / BN,
+            n_exp * p.splits);
   float* wsf = p.splits > 1 ? static_cast<float*>(ws) : nullptr;
   kern<<<grid, 32 * (nm_warps<BN, WM, WN>() + 1), SMEM, s>>>(
       tm_v, tm_i, tm_x, static_cast<const uint8_t*>(idx),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), wsf,
-      n_tok, d_in, d_out, K, act, p.tiles_per_split, idx_tma);
+      n_tok, d_in, d_out, K, act, p.tiles_per_split, idx_tma, p.splits);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || p.splits == 1) return err;
   return launch_reduce(p, wsf, static_cast<const float*>(bias),
-                       static_cast<__nv_bfloat16*>(y), n_tok, d_out, act, s);
+                       static_cast<__nv_bfloat16*>(y), n_exp, n_tok, d_out,
+                       act, s);
 }
 
 template <int BN, int WM, int WN, int S, int RS>
 int launch_gather(const Plan& p, const void* x, const void* vals,
                   const void* idx, const void* bias, void* y, void* ws,
-                  int n_tok, int d_in, int d_out, int K, int act,
+                  int n_exp, int n_tok, int d_in, int d_out, int K, int act,
                   cudaStream_t s) {
   constexpr int SMEM = GSmem<BN, S, RS>::BYTES + 1024;   // + alignment
   static bool done[64] = {false};
@@ -1371,74 +1405,90 @@ int launch_gather(const Plan& p, const void* x, const void* vals,
     return err != 0 ? err : static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap tm_x;
-  if (!tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, d_in, n_tok,
-                  2ull * d_in, BN, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!tensor_map3(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, d_in, n_tok,
+                   n_exp, 2ull * d_in, BN, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((d_out + NM_BM - 1) / NM_BM, (n_tok + BN - 1) / BN, p.splits);
+  dim3 grid((d_out + NM_BM - 1) / NM_BM, (n_tok + BN - 1) / BN,
+            n_exp * p.splits);
   float* wsf = p.splits > 1 ? static_cast<float*>(ws) : nullptr;
   kern<<<grid, G_THREADS, SMEM, s>>>(
       tm_x, static_cast<const __nv_bfloat16*>(vals),
       static_cast<const int32_t*>(idx), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(y), wsf, n_tok, d_in, d_out, K, act,
-      p.tiles_per_split);
+      p.tiles_per_split, p.splits);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || p.splits == 1) return err;
   return launch_reduce(p, wsf, static_cast<const float*>(bias),
-                       static_cast<__nv_bfloat16*>(y), n_tok, d_out, act, s);
+                       static_cast<__nv_bfloat16*>(y), n_exp, n_tok, d_out,
+                       act, s);
+}
+
+// The launches of spmm_run_stacked below.
+int run(const void* x, const void* vals, const void* idx, const void* bias,
+        void* y, void* ws, int n_exp, int n_tok, int d_in, int d_out, int K,
+        int n, int m, int act, int kind, int bf16, cudaStream_t s) {
+  const Plan p = plan_for(n_tok, d_in, d_out, n, m, kind, bf16);
+  if (p.mma) {
+    if (kind == 0) {
+      if (p.decode)
+        return launch_nm24<8, 16, 8, 4>(p, x, vals, idx, bias, y, ws, n_exp,
+                                        n_tok, d_in, d_out, K, act, s);
+      return launch_nm24<128, 16, 128, 4>(p, x, vals, idx, bias, y, ws, n_exp,
+                                          n_tok, d_in, d_out, K, act, s);
+    }
+    if (p.decode)
+      return launch_gather<8, 16, 8, 4, 184>(p, x, vals, idx, bias, y, ws,
+                                             n_exp, n_tok, d_in, d_out, K,
+                                             act, s);
+    return launch_gather<128, 32, 64, 2, 112>(p, x, vals, idx, bias, y, ws,
+                                              n_exp, n_tok, d_in, d_out, K,
+                                              act, s);
+  }
+  if (bf16) {
+    if (kind == 0)
+      return launch_fma<__nv_bfloat16, uint8_t>(x, vals, idx, bias, y, n_exp,
+                                                n_tok, d_in, d_out, K, n, m,
+                                                act, s);
+    return launch_fma<__nv_bfloat16, int32_t>(x, vals, idx, bias, y, n_exp,
+                                              n_tok, d_in, d_out, K, n, m,
+                                              act, s);
+  }
+  if (kind == 0)
+    return launch_fma<float, uint8_t>(x, vals, idx, bias, y, n_exp, n_tok,
+                                      d_in, d_out, K, n, m, act, s);
+  return launch_fma<float, int32_t>(x, vals, idx, bias, y, n_exp, n_tok, d_in,
+                                    d_out, K, n, m, act, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// fp32 floats of scratch spmm_run needs for these shapes (0: none).
-// kind: 0 nm24, 1 gathered; bf16: 1 when x and values are bf16.
-long long spmm_workspace(int n_tok, int d_in, int d_out, int n, int m,
-                         int kind, int bf16) {
+// fp32 floats of scratch spmm_run_stacked needs for n_exp experts of
+// these shapes (0: none): n_exp times an unstacked call's. kind: 0 nm24,
+// 1 gathered; bf16: 1 when x and values are bf16.
+long long spmm_workspace_stacked(int n_exp, int n_tok, int d_in, int d_out,
+                                 int n, int m, int kind, int bf16) {
   const Plan p = plan_for(n_tok, d_in, d_out, n, m, kind, bf16);
-  return p.mma && p.splits > 1 ? (long long)p.splits * n_tok * d_out : 0;
+  return p.mma && p.splits > 1
+             ? (long long)n_exp * p.splits * n_tok * d_out : 0;
 }
 
-// x: (n_tok, d_in) row-major, 16-byte aligned; vals: (d_out, K)
-// row-major in x's dtype (fp32 or bf16); idx: (d_out, K) uint8
-// within-block positions (kind 0, nm24: K = d_in / m * n) or int32
-// absolute columns (kind 1, gathered); bias: (d_out,) fp32 or NULL;
-// y: (n_tok, d_out) in x's dtype, overwritten; ws: spmm_workspace()
-// floats of scratch (or NULL when it is 0). act: 0 none, 1 silu, 2 gelu
-// (tanh), 3 relu, 4 relu2, 5 sigmoid. Returns cudaGetLastError() after
-// the launches.
-int spmm_run(const void* x, const void* vals, const void* idx,
-             const void* bias, void* y, void* ws, int n_tok, int d_in,
-             int d_out, int K, int n, int m, int act, int kind, int bf16,
-             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = plan_for(n_tok, d_in, d_out, n, m, kind, bf16);
-  if (p.mma) {
-    if (kind == 0) {
-      if (p.decode)
-        return launch_nm24<8, 16, 8, 4>(p, x, vals, idx, bias, y, ws, n_tok,
-                                        d_in, d_out, K, act, s);
-      return launch_nm24<128, 16, 128, 4>(p, x, vals, idx, bias, y, ws, n_tok,
-                                         d_in, d_out, K, act, s);
-    }
-    if (p.decode)
-      return launch_gather<8, 16, 8, 4, 184>(p, x, vals, idx, bias, y, ws,
-                                             n_tok, d_in, d_out, K, act, s);
-    return launch_gather<128, 32, 64, 2, 112>(p, x, vals, idx, bias, y, ws,
-                                              n_tok, d_in, d_out, K, act, s);
-  }
-  if (bf16) {
-    if (kind == 0)
-      return launch_fma<__nv_bfloat16, uint8_t>(x, vals, idx, bias, y, n_tok,
-                                                d_in, d_out, K, n, m, act, s);
-    return launch_fma<__nv_bfloat16, int32_t>(x, vals, idx, bias, y, n_tok,
-                                              d_in, d_out, K, n, m, act, s);
-  }
-  if (kind == 0)
-    return launch_fma<float, uint8_t>(x, vals, idx, bias, y, n_tok, d_in,
-                                      d_out, K, n, m, act, s);
-  return launch_fma<float, int32_t>(x, vals, idx, bias, y, n_tok, d_in,
-                                    d_out, K, n, m, act, s);
+// x: (n_exp, n_tok, d_in) row-major, 16-byte aligned; vals: (n_exp,
+// d_out, K) row-major in x's dtype (fp32 or bf16); idx: (n_exp, d_out, K)
+// uint8 within-block positions (kind 0, nm24: K = d_in / m * n) or int32
+// absolute columns (kind 1, gathered); bias: (d_out,) fp32 shared by the
+// experts, or NULL; y: (n_exp, n_tok, d_out) in x's dtype, overwritten;
+// ws: spmm_workspace_stacked() floats of scratch (or NULL when it is 0).
+// act: 0 none, 1 silu, 2 gelu (tanh), 3 relu, 4 relu2, 5 sigmoid. One
+// launch of each kernel for all experts (n_exp = 1: an unstacked
+// product). Returns cudaGetLastError() after the launches.
+int spmm_run_stacked(const void* x, const void* vals, const void* idx,
+                     const void* bias, void* y, void* ws, int n_exp,
+                     int n_tok, int d_in, int d_out, int K, int n, int m,
+                     int act, int kind, int bf16, void* stream) {
+  return run(x, vals, idx, bias, y, ws, n_exp, n_tok, d_in, d_out, K, n, m,
+             act, kind, bf16, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -11,7 +11,10 @@ Each wrapper checks device, dtype and shapes, allocates its outputs with
 ``LAUNCHES[name]`` counts kernel launches (never plain-version calls), so
 a run can show which kernels its main path went through: one per wrapper
 call that launched. The Gram counts its two input paths apart:
-``gram_xtx`` (fp32, CUDA cores) and ``gram_xtx_bf16`` (tensor cores). An
+``gram_xtx`` (fp32, CUDA cores) and ``gram_xtx_bf16`` (tensor cores), and
+its stacked calls (one launch for every expert of an MoE tap) apart again:
+``gram_xtx_stacked`` and ``gram_xtx_stacked_bf16``; ``spmm_stacked`` counts
+the stacked spmm calls (every expert in one launch). An
 spmm call that splits d_in runs two CUDA kernels
 (the product and the ordered sum of its fp32 partials) and counts one;
 so does a swap_topk call (the Gram's preparation, the p-tiles' search and
@@ -34,8 +37,10 @@ from . import swap_argmin as argmin_mod
 from . import swap_topk as topk_mod
 
 LAUNCHES: dict[str, int] = {"gram_xtx": 0, "gram_xtx_bf16": 0,
+                            "gram_xtx_stacked": 0,
+                            "gram_xtx_stacked_bf16": 0,
                             "swap_topk": 0, "swap_argmin": 0,
-                            "swap_commit": 0, "spmm": 0}
+                            "swap_commit": 0, "spmm": 0, "spmm_stacked": 0}
 
 
 def reset_launches() -> None:
@@ -214,10 +219,73 @@ def gram_xtx(x: torch.Tensor) -> torch.Tensor:
     if x2.numel() == 0:
         return torch.zeros((d, d), dtype=torch.float32, device=x2.device)
     out = torch.empty((d, d), dtype=torch.float32, device=x2.device)
-    gram_mod.launch(x2, out)
+    gram_mod.launch(x2[None], out[None])
     LAUNCHES["gram_xtx_bf16" if x2.dtype == torch.bfloat16
              else "gram_xtx"] += 1
     return out
+
+
+def gram_xtx_stacked(x: torch.Tensor) -> torch.Tensor:
+    """X_eᵀ X_e (fp32) per slice for x: (E, ..., tokens, d), fp32 or bf16
+    -> (E, d, d): one Gram per MoE expert over its capacity buffer (zero
+    slots add nothing). On the card one launch for all E, each slice
+    bitwise ``gram_xtx`` of it and exactly symmetric."""
+    if x.ndim < 2:
+        raise ValueError(f"gram_xtx_stacked takes (E, ..., tokens, d), got "
+                         f"{tuple(x.shape)}")
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+    if x3.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gram_xtx_stacked takes fp32 or bf16, got "
+                         f"{x3.dtype}")
+    if not _on_cuda(x3):
+        return gram_mod.gram_xtx_stacked_plain(x3)
+    E, T, d = x3.shape
+    if x3.numel() == 0:
+        return torch.zeros((E, d, d), dtype=torch.float32, device=x3.device)
+    out = torch.empty((E, d, d), dtype=torch.float32, device=x3.device)
+    gram_mod.launch(x3, out)
+    LAUNCHES["gram_xtx_stacked_bf16" if x3.dtype == torch.bfloat16
+             else "gram_xtx_stacked"] += 1
+    return out
+
+
+def _check_spmm_args(x: torch.Tensor, pw: PackedWeight, bias, act) -> None:
+    """The checks ``spmm`` and ``spmm_stacked`` share (on the last two
+    dims of values and idx)."""
+    if pw.fmt not in ("nm24", "gathered"):
+        raise ValueError(f"unknown packed format {pw.fmt!r}")
+    d_out, k = pw.values.shape[-2:]
+    if pw.idx.shape != pw.values.shape:
+        raise ValueError(f"idx {tuple(pw.idx.shape)} and values "
+                         f"{tuple(pw.values.shape)} differ in shape")
+    if pw.fmt == "nm24" and (pw.d_in % pw.m or k != pw.d_in // pw.m * pw.n):
+        raise ValueError(f"nm24 {pw.n}:{pw.m} over d_in={pw.d_in} needs "
+                         f"k = {pw.d_in // max(pw.m, 1) * pw.n}, got {k}")
+    if x.shape[-1] != pw.d_in:
+        raise ValueError(f"x has {x.shape[-1]} features, the weight {pw.d_in}")
+    if act not in spmm_mod._ACT_CODE:
+        raise ValueError(f"unknown epilogue {act!r} "
+                         f"(want one of {sorted(spmm_mod.EPILOGUES)} or None)")
+    if bias is not None and bias.shape != (d_out,):
+        raise ValueError(f"bias must be ({d_out},), got {tuple(bias.shape)}")
+
+
+def _check_kernel_args(x2: torch.Tensor, pw: PackedWeight) -> None:
+    """What the CUDA kernels take beyond ``_check_spmm_args``."""
+    if x2.dtype not in (torch.float32, torch.bfloat16) or \
+            pw.values.dtype != x2.dtype:
+        raise ValueError(f"the spmm kernel takes fp32 or bf16 x with values "
+                         f"of the same dtype, got {x2.dtype} and "
+                         f"{pw.values.dtype}")
+    want_idx = torch.uint8 if pw.fmt == "nm24" else torch.int32
+    if pw.idx.dtype != want_idx:
+        raise ValueError(f"{pw.fmt} idx must be {want_idx}, got {pw.idx.dtype}")
+    if not (pw.values.is_contiguous() and pw.idx.is_contiguous()):
+        raise ValueError("packed values and idx must be contiguous")
+    if pw.fmt == "nm24" and pw.k % 8 == 0 and (pw.values.data_ptr() % 16
+                                               or pw.idx.data_ptr() % 8):
+        raise ValueError("nm24 values and idx with k % 8 == 0 must start "
+                         "16 and 8 bytes aligned")
 
 
 def spmm(x: torch.Tensor, pw: PackedWeight, *, bias=None,
@@ -234,52 +302,64 @@ def spmm(x: torch.Tensor, pw: PackedWeight, *, bias=None,
     if pw.values.ndim != 2:
         raise ValueError(
             f"spmm wants an unstacked (d_out, k) PackedWeight; got values "
-            f"of shape {tuple(pw.values.shape)} (spmm_stacked is not ported)")
-    if pw.fmt not in ("nm24", "gathered"):
-        raise ValueError(f"unknown packed format {pw.fmt!r}")
-    d_out, k = pw.values.shape
-    if pw.idx.shape != pw.values.shape:
-        raise ValueError(f"idx {tuple(pw.idx.shape)} and values "
-                         f"{tuple(pw.values.shape)} differ in shape")
-    if pw.fmt == "nm24" and (pw.d_in % pw.m or k != pw.d_in // pw.m * pw.n):
-        raise ValueError(f"nm24 {pw.n}:{pw.m} over d_in={pw.d_in} needs "
-                         f"k = {pw.d_in // max(pw.m, 1) * pw.n}, got {k}")
-    if x.shape[-1] != pw.d_in:
-        raise ValueError(f"x has {x.shape[-1]} features, the weight {pw.d_in}")
-    if act not in spmm_mod._ACT_CODE:
-        raise ValueError(f"unknown epilogue {act!r} "
-                         f"(want one of {sorted(spmm_mod.EPILOGUES)} or None)")
-    if bias is not None and bias.shape != (d_out,):
-        raise ValueError(f"bias must be ({d_out},), got {tuple(bias.shape)}")
+            f"of shape {tuple(pw.values.shape)} (a stack of experts goes to "
+            f"spmm_stacked)")
+    _check_spmm_args(x, pw, bias, act)
+    d_out = pw.values.shape[0]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, pw.d_in)
     tensors = (x2, pw.values, pw.idx) + (() if bias is None else (bias,))
     if not _on_cuda(*tensors):
         return spmm_mod.spmm_plain(x2, pw, bias, act).reshape(*lead, d_out)
-    if x2.dtype not in (torch.float32, torch.bfloat16) or \
-            pw.values.dtype != x2.dtype:
-        raise ValueError(f"the spmm kernel takes fp32 or bf16 x with values "
-                         f"of the same dtype, got {x2.dtype} and "
-                         f"{pw.values.dtype}")
-    want_idx = torch.uint8 if pw.fmt == "nm24" else torch.int32
-    if pw.idx.dtype != want_idx:
-        raise ValueError(f"{pw.fmt} idx must be {want_idx}, got {pw.idx.dtype}")
-    if not (pw.values.is_contiguous() and pw.idx.is_contiguous()):
-        raise ValueError("packed values and idx must be contiguous")
+    _check_kernel_args(x2, pw)
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:                 # the kernel loads x 16 B at a time
         x2 = x2.clone()
-    if pw.fmt == "nm24" and k % 8 == 0 and (pw.values.data_ptr() % 16
-                                            or pw.idx.data_ptr() % 8):
-        raise ValueError("nm24 values and idx with k % 8 == 0 must start "
-                         "16 and 8 bytes aligned")
     if bias is not None:
         bias = bias.float().contiguous()
     y = torch.empty((x2.shape[0], d_out), dtype=x2.dtype, device=x2.device)
     if x2.shape[0]:
-        spmm_mod.launch(x2, pw, bias, act, y)
+        spmm_mod.launch(x2[None], pw, bias, act, y[None])
         LAUNCHES["spmm"] += 1
     return y.reshape(*lead, d_out)
+
+
+def spmm_stacked(x: torch.Tensor, pw: PackedWeight, *, bias=None,
+                 act: str | None = None) -> torch.Tensor:
+    """Per-slice ``spmm`` over one stacked leading dim (MoE experts):
+    x (E, ..., d_in), pw values / idx (E, d_out, k) -> (E, ..., d_out),
+    y[e] = act(x[e] @ unpack(pw[e])ᵀ + bias) with one ``bias`` (d_out,)
+    for every slice, as the reference's ``spmm_stacked``. On the card one
+    launch for all E (each kernel takes the expert from its grid), each
+    slice bitwise ``spmm`` of it; a CPU tensor takes
+    ``spmm_stacked_plain``."""
+    if pw.values.ndim != 3:
+        raise ValueError(f"spmm_stacked wants a stacked (E, d_out, k) "
+                         f"PackedWeight; got values of shape "
+                         f"{tuple(pw.values.shape)}")
+    _check_spmm_args(x, pw, bias, act)
+    E, d_out = pw.values.shape[:2]
+    if x.ndim < 2 or x.shape[0] != E:
+        raise ValueError(f"x must be ({E}, ..., {pw.d_in}), got "
+                         f"{tuple(x.shape)}")
+    lead = x.shape[1:-1]
+    x3 = x.reshape(E, -1, pw.d_in)
+    tensors = (x3, pw.values, pw.idx) + (() if bias is None else (bias,))
+    if not _on_cuda(*tensors):
+        return spmm_mod.spmm_stacked_plain(x3, pw, bias, act).reshape(
+            E, *lead, d_out)
+    _check_kernel_args(x3, pw)
+    x3 = x3.contiguous()
+    if x3.data_ptr() % 16:
+        x3 = x3.clone()
+    if bias is not None:
+        bias = bias.float().contiguous()
+    y = torch.empty((E, x3.shape[1], d_out), dtype=x3.dtype,
+                    device=x3.device)
+    if x3.shape[1] and E:
+        spmm_mod.launch(x3, pw, bias, act, y)
+        LAUNCHES["spmm_stacked"] += 1
+    return y.reshape(E, *lead, d_out)
 
 
 def spmm_nm24(x: torch.Tensor, values: torch.Tensor, idx: torch.Tensor, *,

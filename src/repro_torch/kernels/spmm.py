@@ -2,8 +2,10 @@
 its plain PyTorch version, and the epilogue table.
 
 ``y = act(x @ (mask ⊙ W)ᵀ + b)`` from a ``core.packed`` format (nm24 or
-gathered). The kernels (``csrc/spmm.cu``) replace the Pallas TPU kernel
-``src/repro/kernels/spmm.py::_spmm_kernel``; the source's head note
+gathered), for one weight or, stacked, for each of E (x_e, W_e) pairs in
+one launch (MoE experts). The kernels (``csrc/spmm.cu``) replace the
+Pallas TPU kernel ``src/repro/kernels/spmm.py::_spmm_kernel``; the
+source's head note
 gives the design and what bounds it. In short, for bf16: in nm24 (2:4)
 a producer warp streams 128-row x 128-column tiles of packed values,
 positions and x by TMA through a ring of 4 shared-memory stages, and 8
@@ -18,8 +20,13 @@ tiles; one block per SM; scratch no larger than the nm24 weight), and
 run the same MMA chain per output element, so the two packings of one
 2:4 mask give bitwise equal y. Both are bound by the weight bytes they
 stream; 2:4 sparse MMA (``mma.sp``) is not used, since it would break
-that equality. ``repro_torch.kernels.ops.spmm`` (and
-``spmm_nm24``/``spmm_gather``) is the public wrapper.
+that equality. ``launch`` always runs a stack, which replaces the
+reference's ``vmap`` of that kernel (``spmm.py::spmm_stacked``): each
+kernel takes the expert from its grid's z axis and runs it under the
+unstacked call's split plan, so every expert's y is bitwise that of a
+stack of one (an unstacked call) on its slice.
+``repro_torch.kernels.ops.spmm`` (and ``spmm_nm24``/``spmm_gather``) and
+``ops.spmm_stacked`` are the public wrappers.
 
 Both versions compute in fp32 — products, sum, bias and activation —
 and cast once to x's dtype, as the reference's ``_dispatch`` does.
@@ -27,6 +34,7 @@ and cast once to x's dtype, as the reference's ``_dispatch`` does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +85,16 @@ def spmm_plain(x2: torch.Tensor, pw: PackedWeight, bias=None,
     return y.to(x2.dtype)
 
 
+def spmm_stacked_plain(x3: torch.Tensor, pw: PackedWeight, bias=None,
+                       act: str | None = None) -> torch.Tensor:
+    """``spmm_plain`` per slice: x3 (E, T, d_in), pw stacked (E, d_out, k)
+    -> (E, T, d_out); one ``bias`` (d_out,) for every slice."""
+    return torch.stack([
+        spmm_plain(x3[e], dataclasses.replace(pw, values=pw.values[e],
+                                              idx=pw.idx[e]), bias, act)
+        for e in range(x3.shape[0])])
+
+
 _FNS: dict[str, object] = {}
 
 
@@ -89,31 +107,36 @@ def _lib_fn(name: str, argtypes, restype):
     return fn
 
 
-def launch(x2: torch.Tensor, pw: PackedWeight, bias, act: str | None,
+def launch(x3: torch.Tensor, pw: PackedWeight, bias, act: str | None,
            y: torch.Tensor) -> None:
-    """Run the kernel: y = act(x2 @ unpack(pw)ᵀ + bias).
+    """Run the kernels once over a stack: y[e] = act(x3[e] @
+    unpack(pw[e])ᵀ + bias); an unstacked call is a stack of one.
 
-    x2: (T, d_in) contiguous fp32/bf16 CUDA tensor, T > 0, 16-byte
-    aligned; pw.values (d_out, k) contiguous in x2's dtype; pw.idx
-    contiguous uint8 (nm24) or int32 (gathered); bias contiguous fp32
-    (d_out,) or None; y (T, d_out) contiguous in x2's dtype. The caller
-    checks all of it. Split-d_in scratch is allocated here.
+    x3: (E, T, d_in) contiguous fp32/bf16 CUDA tensor, E, T > 0, 16-byte
+    aligned; pw.values (E, d_out, k) (or (d_out, k) when E = 1)
+    contiguous in x3's dtype; pw.idx contiguous uint8 (nm24) or int32
+    (gathered) of the same shape; bias
+    contiguous fp32 (d_out,) or None; y (E, T, d_out) contiguous in x3's
+    dtype. The caller checks all of it. Split-d_in scratch is allocated
+    here.
     """
-    T, d_in = x2.shape
-    d_out, k = pw.values.shape
+    E, T, d_in = x3.shape
+    d_out, k = pw.values.shape[-2:]
     kind = 0 if pw.fmt == "nm24" else 1
-    bf16 = int(x2.dtype == torch.bfloat16)
+    bf16 = int(x3.dtype == torch.bfloat16)
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
-    run = _lib_fn("spmm_run", [c_ptr] * 6 + [c_int] * 9 + [c_ptr], c_int)
-    with torch.cuda.device(x2.device):
-        n_ws = _lib_fn("spmm_workspace", [c_int] * 7, ctypes.c_longlong)(
-            T, d_in, d_out, pw.n, pw.m, kind, bf16)
-        ws = torch.empty(n_ws, dtype=torch.float32, device=x2.device) \
+    run = _lib_fn("spmm_run_stacked", [c_ptr] * 6 + [c_int] * 10 + [c_ptr],
+                  c_int)
+    with torch.cuda.device(x3.device):
+        n_ws = _lib_fn("spmm_workspace_stacked", [c_int] * 8,
+                       ctypes.c_longlong)(E, T, d_in, d_out, pw.n, pw.m, kind,
+                                          bf16)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=x3.device) \
             if n_ws else None
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = run(x2.data_ptr(), pw.values.data_ptr(), pw.idx.data_ptr(),
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+        err = run(x3.data_ptr(), pw.values.data_ptr(), pw.idx.data_ptr(),
                   None if bias is None else bias.data_ptr(), y.data_ptr(),
-                  None if ws is None else ws.data_ptr(), T, d_in, d_out, k,
+                  None if ws is None else ws.data_ptr(), E, T, d_in, d_out, k,
                   pw.n, pw.m, _ACT_CODE[act], kind, bf16, stream)
     if err != 0:
         raise RuntimeError(f"spmm kernel launch failed: CUDA error {err}")

@@ -216,11 +216,11 @@ def _variant_libs(names) -> dict[str, ctypes.CDLL]:
         fmt, cut = name.split(":")
         libs[name] = ctypes.CDLL(str(out / f"spmm_{fmt}_{cut}.so"))
     for lib in libs.values():
-        lib.spmm_run.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
-        lib.spmm_run.restype = ctypes.c_int
-        lib.spmm_workspace.argtypes = [ctypes.c_int] * 7
-        lib.spmm_workspace.restype = ctypes.c_longlong
+        lib.spmm_run_stacked.argtypes = [ctypes.c_void_p] * 6 + \
+            [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.spmm_run_stacked.restype = ctypes.c_int
+        lib.spmm_workspace_stacked.argtypes = [ctypes.c_int] * 8
+        lib.spmm_workspace_stacked.restype = ctypes.c_longlong
     return libs
 
 
@@ -248,15 +248,15 @@ def _runner(lib, x: torch.Tensor, pw, y: torch.Tensor):
     d_out, k = pw.values.shape
     kind = 0 if pw.fmt == "nm24" else 1
     n, m = (2, 4) if kind == 0 else (0, 0)
-    n_ws = lib.spmm_workspace(T, d_in, d_out, n, m, kind, 1)
+    n_ws = lib.spmm_workspace_stacked(1, T, d_in, d_out, n, m, kind, 1)
     ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def run():
-        err = lib.spmm_run(x.data_ptr(), pw.values.data_ptr(),
-                           pw.idx.data_ptr(), None, y.data_ptr(),
-                           ws.data_ptr() if n_ws else None, T, d_in, d_out,
-                           k, n, m, 0, kind, 1, stream)
+        err = lib.spmm_run_stacked(x.data_ptr(), pw.values.data_ptr(),
+                                   pw.idx.data_ptr(), None, y.data_ptr(),
+                                   ws.data_ptr() if n_ws else None, 1, T,
+                                   d_in, d_out, k, n, m, 0, kind, 1, stream)
         if err:
             raise RuntimeError(f"spmm launch failed: CUDA error {err}")
     return run

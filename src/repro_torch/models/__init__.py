@@ -1,4 +1,4 @@
-"""Model registry: ``build(cfg) -> ModelApi``, dense family.
+"""Model registry: ``build(cfg) -> ModelApi``, dense and MoE families.
 
 The surface mirrors the reference's ``ModelApi`` for the calls the pruning
 path makes:
@@ -14,8 +14,10 @@ path makes:
     prefill_window(params, batch, cache, masks=None) -> (logits, cache)
 
 ``prefill_window`` is the chunked-prefill continuation the continuous
-scheduler drives. Rolling caches come with the sliding-window configs;
-the MoE, SSM, RWKV, VLM and encoder-decoder families with their slices.
+scheduler drives. Both families run ``models.transformer`` (an MoE
+config's layers hold the ``models.moe`` block). Rolling caches (the
+reference's long-context serving of sliding-window configs) and the SSM,
+RWKV, VLM and encoder-decoder families come with their slices.
 """
 from __future__ import annotations
 
@@ -42,9 +44,10 @@ class ModelApi:
 
 
 def build(cfg: ArchConfig) -> ModelApi:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the port runs the dense family so far, not {cfg.family!r}")
+            f"the port runs the dense and MoE families so far, not "
+            f"{cfg.family!r} (ROADMAP A4: other families)")
     mod = transformer
     return ModelApi(
         cfg=cfg,
@@ -68,21 +71,29 @@ def build(cfg: ArchConfig) -> ModelApi:
     )
 
 
-def param_count(cfg: ArchConfig) -> int:
+def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
     """Exact parameter count from the initializer's shapes on
     ``device="meta"`` (no memory, no FLOPs): the counterpart of the
-    reference's ``jax.eval_shape`` count. Active-only counts wait for
-    MoE."""
+    reference's ``jax.eval_shape`` count. ``active_only``: an MoE model's
+    expert weights count ``top_k / n_experts`` of theirs (the parameters
+    one token runs through), as the reference counts them."""
     params = build(cfg).init(device="meta")
-    return sum(math.prod(t.shape) for t in _leaves(params))
+    total = sum(math.prod(t.shape) for _, t in _leaves(params))
+    if active_only and cfg.is_moe:
+        expert = sum(math.prod(t.shape) for path, t in _leaves(params)
+                     if "moe" in path and path[-1] in ("w_gate", "w_up",
+                                                       "w_down"))
+        total = total - expert + expert * cfg.top_k // cfg.n_experts
+    return total
 
 
-def _leaves(tree):
+def _leaves(tree, path=()):
+    """(key path, leaf) of a nested dict."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaves(v, (*path, k))
     else:
-        yield tree
+        yield path, tree
 
 
 def embedding_params(cfg: ArchConfig) -> int:

@@ -14,9 +14,11 @@ Cache (single layer; the stacks add a leading L dim):
 
 The port writes the cache in place (the reference returns a new one).
 RoPE is applied at write time with absolute positions, so cached keys
-never need re-rotation. Rolling caches come with the sliding-window
-configs (ROADMAP A4; the dense configs have ``sliding_window = 0``), and
-cross-attention with its families.
+never need re-rotation. A sliding window (mixtral-8x7b's 4096) masks
+keys more than ``sliding_window - 1`` positions back in every path; the
+cache still holds every position (rolling caches, which the reference
+uses for long-context serving, wait for ROADMAP A5), and cross-attention
+comes with its families.
 """
 from __future__ import annotations
 

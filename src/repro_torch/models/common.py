@@ -7,7 +7,9 @@ Conventions (as in the reference package):
   pruning mask and, when given a ``Taps``, accumulates the calibration
   statistics of its input (paper §2.1.2);
 * a ``core.packed.PackedWeight`` leaf (serving a packed sparse model)
-  dispatches to ``kernels.ops.spmm`` with the bias and activation fused;
+  dispatches to ``kernels.ops.spmm`` with the bias and activation fused
+  (a leaf stacked on the expert dim, in ``models.moe``, to
+  ``kernels.ops.spmm_stacked``);
 * the compute dtype follows the params (bf16 on the card); Gram taps and
   norms are fp32.
 
@@ -38,6 +40,8 @@ class TapPolicy:
       values are exact in fp32, so only the order of the fp32 sums is the
       policy's. Calibration installs a policy that sends it to the CUDA
       kernel (``repro_torch.pruning.stats.CalibSpec``).
+    * ``gram_experts(x3)`` — the MoE variant: X_eᵀX_e in fp32 per expert
+      of an expert-major capacity buffer (E, tokens, d), -> (E, d, d).
     """
 
     def fields(self, name: str) -> tuple[str, ...]:
@@ -46,6 +50,10 @@ class TapPolicy:
     def gram(self, x2: torch.Tensor) -> torch.Tensor:
         x = x2.float()
         return x.T @ x
+
+    def gram_experts(self, x3: torch.Tensor) -> torch.Tensor:
+        x = x3.float()
+        return torch.einsum("eti,etj->eij", x, x)
 
 
 DEFAULT_TAP_POLICY = TapPolicy()

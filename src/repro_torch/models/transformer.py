@@ -1,11 +1,15 @@
-"""Decoder-only transformer stack, dense family.
+"""Decoder-only transformer stack, dense and MoE families.
 
 Layout as in the reference: layer params are stacked on a leading L axis;
 pruning masks mirror the stacked param tree (prunable leaves only); Gram
-taps come back stacked per tap site, (L, d, d) fp32, when ``want_taps``.
-A prunable leaf may be a stacked ``core.packed.PackedWeight`` (serving a
-packed model); ``_index`` slices it per layer. Where the reference scans
-over layers, the port loops over them.
+taps come back stacked per tap site, (L, d, d) fp32 — (L, E, d, d) for
+an MoE tap — when ``want_taps``. A prunable leaf may be a stacked
+``core.packed.PackedWeight`` (serving a packed model); ``_index`` slices
+it per layer, leaving an MoE leaf's expert dim. Where the reference scans
+over layers, the port loops over them. An MoE config's layers hold
+``p["moe"]`` (``models.moe``) in place of ``p["mlp"]``; each layer's aux
+loss (load balance + router z-loss) sums into ``forward``'s aux, and
+``loss_fn`` returns ce + aux.
 
 Serving: ``init_decode_cache`` -> ``prefill`` (the prompt; fills the KV
 cache) -> ``decode_step`` per new token. The cache is updated in place.
@@ -28,6 +32,7 @@ from repro_torch.core.packed import PackedWeight
 from . import attention as attn
 from . import common
 from . import mlp as mlp_lib
+from . import moe as moe_lib
 
 
 # ---------------------------------------------------------------------------
@@ -49,12 +54,16 @@ def _apply_norm(p, x, cfg):
 
 
 def init_layer(gen, cfg, *, device) -> dict:
-    return {
+    p = {
         "ln1": _norm_params(cfg, device),
         "attn": attn.init_attn_params(gen, cfg, device=device),
         "ln2": _norm_params(cfg, device),
-        "mlp": mlp_lib.init_mlp_params(gen, cfg, device=device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_lib.init_moe_params(gen, cfg, device=device)
+    else:
+        p["mlp"] = mlp_lib.init_mlp_params(gen, cfg, device=device)
+    return p
 
 
 def _stack(trees: list):
@@ -114,7 +123,8 @@ def decoder_layer(p, x, positions, cfg, *, masks=None, taps=None,
     ``mode`` is "train", "prefill" (writes the prompt's KV into
     ``cache``), "decode" (one token per row at the (B,) positions ``t``
     against ``cache``) or "window" (a chunked-prefill window starting at
-    the () tensor ``t``). Returns x.
+    the () tensor ``t``). Returns (x, aux): the MoE block's aux loss, or
+    None for a dense layer.
     """
     am = None if masks is None else masks.get("attn")
     h = _apply_norm(p["ln1"], x, cfg)
@@ -129,8 +139,12 @@ def decoder_layer(p, x, positions, cfg, *, masks=None, taps=None,
                                    taps=taps, cache=cache, mode=mode)
     x = x + a
     h = _apply_norm(p["ln2"], x, cfg)
+    if cfg.is_moe:
+        mm = None if masks is None else masks.get("moe")
+        f, aux = moe_lib.moe_block(p["moe"], h, cfg, masks=mm, taps=taps)
+        return x + f, aux
     mm = None if masks is None else masks.get("mlp")
-    return x + mlp_lib.mlp_block(p["mlp"], h, cfg, masks=mm, taps=taps)
+    return x + mlp_lib.mlp_block(p["mlp"], h, cfg, masks=mm, taps=taps), None
 
 
 def _layer_cache(kv: attn.KVCache, i: int) -> attn.KVCache:
@@ -141,9 +155,9 @@ def _layer_cache(kv: attn.KVCache, i: int) -> attn.KVCache:
 def _run_layers(params, x, positions, cfg, *, masks, mode, cache, t=None):
     m_layers = None if masks is None else masks["layers"]
     for i in range(cfg.n_layers):
-        x = decoder_layer(_index(params["layers"], i), x, positions, cfg,
-                          masks=_index(m_layers, i), mode=mode,
-                          cache=_layer_cache(cache.kv, i), t=t)
+        x, _ = decoder_layer(_index(params["layers"], i), x, positions, cfg,
+                             masks=_index(m_layers, i), mode=mode,
+                             cache=_layer_cache(cache.kv, i), t=t)
     return x
 
 
@@ -154,7 +168,8 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     autograd on, each layer runs under ``torch.utils.checkpoint``.
 
     Returns (hidden (B, S, D), taps, aux). ``taps`` maps each tap name to
-    {field: stacked (L, ...) tensor}; empty unless ``want_taps``.
+    {field: stacked (L, ...) tensor}; empty unless ``want_taps``. ``aux``
+    is the sum of the layers' aux losses (0 for the dense family).
     """
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -168,20 +183,23 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     # keeps only its input and recomputes the rest in the backward pass
     remat = cfg.remat and not want_taps and torch.is_grad_enabled()
     per_layer = []
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
         taps = common.Taps(tap_policy) if want_taps else None
         lp, lm = _index(params["layers"], i), _index(m_layers, i)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 decoder_layer, lp, x, positions, cfg, masks=lm,
                 use_reentrant=False)
         else:
-            x = decoder_layer(lp, x, positions, cfg, masks=lm, taps=taps)
+            x, a = decoder_layer(lp, x, positions, cfg, masks=lm, taps=taps)
+        if a is not None:
+            aux = aux + a
         if want_taps:
             per_layer.append(taps.entries)
     x = _apply_norm(params["ln_f"], x, cfg)
     taps = _stack(per_layer) if per_layer else {}
-    return x, taps, torch.zeros((), device=x.device)
+    return x, taps, aux
 
 
 def lm_head(params, hidden, cfg):

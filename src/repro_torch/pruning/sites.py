@@ -2,13 +2,18 @@
 
 A *site* is one prunable linear (d_out, d_in) plus its calibration Gram
 statistics; a *SiteGroup* stacks every instance of the same logical site
-across the layer axis, so refinement runs per group and masks write back
-into the tree ``loss(params, batch, masks=...)`` consumes.
+across its stack dims (layers; layers x experts for MoE), so refinement
+runs per group and masks write back into the tree
+``loss(params, batch, masks=...)`` consumes.
 
 The paper prunes all linear layers except the embedding and the head
 (§3). For the dense transformer that is attention wq/wk/wv/wo and MLP
 w_gate/w_up/w_down. wq/wk/wv (and w_gate/w_up) share their input, hence
-their Gram; taps are accumulated per projection name anyway.
+their Gram; taps are accumulated per projection name anyway. An MoE
+transformer has attention and per-expert w_gate/w_up/w_down (the router
+stays dense), each expert with its own Gram over the tokens routed to it
+(taps ``moe_w_up``, shared by w_gate and w_up, and ``moe_w_down``), so an
+expert site has N = L·E instances, labelled ``layers.moe.w_up[l, e]``.
 
 Shape-only views (``SiteSpec``, ``TapSpec``) let the planner resolve a
 recipe and cost a run before any weight exists: ``site_specs`` reads
@@ -86,9 +91,10 @@ class GramBatch:
 class SiteGroup:
     """All instances of one logical prunable site.
 
-    ``weights``: (N, d_out, d_in), N = number of layers; ``gram`` stacks
-    the matching statistics on the same leading N. ``mask_path`` locates
-    the stacked mask leaf in the masks tree.
+    ``weights``: (N, d_out, d_in), N = the product of the stack dims
+    (layers, or layers x experts); ``gram`` stacks the matching statistics
+    on the same leading N. ``mask_path`` locates the stacked mask leaf in
+    the masks tree; ``stack_shape`` restores the stack dims.
     """
 
     name: str                       # e.g. "layers.attn.wq"
@@ -102,7 +108,8 @@ class SiteGroup:
         return self.weights.shape[0]
 
     def labels(self) -> list[str]:
-        """Per-instance labels like 'layers.attn.wq[3]'."""
+        """Per-instance labels like 'layers.attn.wq[3]' or
+        'layers.moe.w_up[1, 5]'."""
         return _instance_labels(self.name, self.stack_shape)
 
     @property
@@ -153,10 +160,17 @@ _MLP_PLAIN = ("w_up", "w_down")
 
 def _table(cfg: ArchConfig):
     """(site name, param path, tap path, n stack dims) per prunable site."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"no site table for family {cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"no site table for family {cfg.family!r} (ROADMAP A4: other "
+            "families)")
     rows = [(f"layers.attn.{k}", ("layers", "attn", k), (k,), 1)
             for k in _ATTN]
+    if cfg.is_moe:
+        for k in _MLP_GATED:
+            tap = "moe_w_down" if k == "w_down" else "moe_w_up"
+            rows.append((f"layers.moe.{k}", ("layers", "moe", k), (tap,), 2))
+        return rows
     mlp = _MLP_GATED if cfg.mlp == "gated" else _MLP_PLAIN
     rows += [(f"layers.mlp.{k}", ("layers", "mlp", k), (k,), 1) for k in mlp]
     return rows
@@ -169,14 +183,18 @@ def _get(tree, path):
 
 
 def _gram_batch(tap_entry: dict) -> GramBatch:
-    """A stacked tap entry {g|d, s, n} (leading layer axis) -> GramBatch."""
+    """A stacked tap entry {g|d, s, n} (leading stack dims: layers, or
+    layers x experts) -> GramBatch, the stack dims flattened into N."""
     s = tap_entry["s"]
+    s = s.reshape(-1, s.shape[-1])
     N = s.shape[0]
     n = tap_entry["n"].reshape(-1).float()
     count = n.expand(N) if n.shape[0] == 1 else n
-    return GramBatch(G=tap_entry.get("g"), count=count,
-                     mean=s / torch.clamp(count, min=1.0)[:, None],
-                     diag=tap_entry.get("d"))
+    g, d = tap_entry.get("g"), tap_entry.get("d")
+    return GramBatch(
+        G=None if g is None else g.reshape(-1, *g.shape[-2:]), count=count,
+        mean=s / torch.clamp(count, min=1.0)[:, None],
+        diag=None if d is None else d.reshape(-1, d.shape[-1]))
 
 
 def enumerate_sites(cfg: ArchConfig, params: dict, taps: dict, *,

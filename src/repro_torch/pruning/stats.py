@@ -129,6 +129,9 @@ class _SpecTapPolicy(common_lib.TapPolicy):
     def gram(self, x2: torch.Tensor) -> torch.Tensor:
         return ops.gram_xtx(x2)
 
+    def gram_experts(self, x3: torch.Tensor) -> torch.Tensor:
+        return ops.gram_xtx_stacked(x3)
+
 
 @dataclasses.dataclass
 class CalibStats:
@@ -174,16 +177,19 @@ def _add_into(acc: dict, new: dict) -> None:
 
 
 def _expected_leaves(api: ModelApi, params, spec: CalibSpec) -> dict:
-    """{leaf path: shape} of the tap tree ``spec`` accumulates."""
+    """{leaf path: shape} of the tap tree ``spec`` accumulates: each
+    field stacked on its sites' stack dims ((L,), or (L, E) for an MoE
+    tap)."""
+    specs = sites_lib.site_specs(api.cfg, params)
+    stack = {s.name: list(s.stack_shape) for s in specs}
     out = {}
-    for tap in sites_lib.tap_specs(api.cfg,
-                                   sites_lib.site_specs(api.cfg, params)):
+    for tap in sites_lib.tap_specs(api.cfg, specs):
         lvl = spec.level(tap.name)
         name = "/".join(tap.path)
+        lead, d = stack[tap.sites[0]], tap.d_in
         for f in _FIELDS[lvl]:
-            out[f"{name}/{f}"] = {"g": [tap.n, tap.d_in, tap.d_in],
-                                  "d": [tap.n, tap.d_in],
-                                  "s": [tap.n, tap.d_in], "n": [tap.n]}[f]
+            out[f"{name}/{f}"] = lead + {"g": [d, d], "d": [d], "s": [d],
+                                         "n": []}[f]
     return out
 
 

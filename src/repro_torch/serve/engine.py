@@ -196,7 +196,7 @@ class ServeEngine:
         cache = self.api.init_cache(self.params, B, next_pow2(S + n_new))
         trace = []
         _sync(self.device)
-        l0 = ops.LAUNCHES["spmm"]
+        l0 = _spmm_launches()
         t0 = time.perf_counter()
         logits, cache = self._prefill(self.params, batch, cache)
         tok = sampling_lib.sample(logits[:, -1], samp, S)
@@ -204,7 +204,7 @@ class ServeEngine:
             trace.append(logits[:, -1].float())
         _sync(self.device)
         t1 = time.perf_counter()
-        l1 = ops.LAUNCHES["spmm"]
+        l1 = _spmm_launches()
         toks = [tok]
         for _ in range(n_new - 1):
             logits, cache = self._decode(self.params, tok[:, None], cache)
@@ -220,7 +220,7 @@ class ServeEngine:
         self.kernel_used["prefill"] = kernel_summary(self.fmt, l1 - l0)
         if n_new > 1:
             self.kernel_used["decode"] = kernel_summary(
-                self.fmt, ops.LAUNCHES["spmm"] - l1)
+                self.fmt, _spmm_launches() - l1)
         logits_trace = torch.stack(trace) if want_logits else None
         return out, logits_trace, t1 - t0, t2 - t1
 
@@ -244,17 +244,20 @@ class ServeEngine:
     @property
     def supports_continuous(self) -> bool:
         """Continuous batching needs the plain decoder-only KV layout:
-        per-token pages and a per-row decode clock (every family the port
-        runs so far)."""
+        per-token pages and a per-row decode clock (the dense family). An
+        MoE model's capacity dispatch groups each prefill's tokens, so
+        chunked and bucketed prefills regroup them: not ported yet
+        (ROADMAP A4)."""
         from repro_torch.models import transformer
-        return (self.api.module is transformer
+        return (self.api.module is transformer and not self.cfg.is_moe
                 and not getattr(self.cfg, "cross_attn_every", 0))
 
     def _require_continuous(self):
         if not self.supports_continuous:
             raise NotImplementedError(
-                f"continuous batching supports plain decoder-only "
-                f"transformers; {self.cfg.name!r} is not one")
+                f"continuous batching supports dense decoder-only "
+                f"transformers; {self.cfg.name!r} is not one (MoE: ROADMAP "
+                f"A4)")
 
     def _scalar(self, n) -> torch.Tensor:
         """A () int64 tensor on the engine's device (no host read of a
@@ -265,12 +268,12 @@ class ServeEngine:
         self._fns.add(key)
         if self.dispatch_hook is not None:
             self.dispatch_hook(phase)
-        return ops.LAUNCHES["spmm"]
+        return _spmm_launches()
 
     def _leave(self, phase: str, launches0: int) -> None:
         _sync(self.device)
         self.kernel_used[phase] = kernel_summary(
-            self.fmt, ops.LAUNCHES["spmm"] - launches0)
+            self.fmt, _spmm_launches() - launches0)
 
     @torch.no_grad()
     def prefill_session(self, tokens: torch.Tensor, n_valid, samp: dict):
@@ -365,6 +368,11 @@ class ServeEngine:
         """The shape keys the scheduler entry points have run, as the
         reference's compiled-function keys."""
         return sorted(self._fns, key=repr)
+
+
+def _spmm_launches() -> int:
+    """spmm kernel launches so far, stacked (MoE experts) included."""
+    return ops.LAUNCHES["spmm"] + ops.LAUNCHES["spmm_stacked"]
 
 
 def kernel_summary(fmt: str, launches: int) -> str:

@@ -64,14 +64,15 @@ K_SWAPS = 1
 # reference fields of families, kernels and training the port does not run
 # yet (grad_accum comes with training, ROADMAP A3)
 NOT_PORTED = {
-    "attn_impl", "attn_q_chunk", "capacity_factor", "cross_attn_every",
+    "attn_impl", "attn_q_chunk", "cross_attn_every",
     "d_frontend", "fsdp_params", "head_chunk", "long_window",
-    "moe_group_size", "moe_parallelism", "n_enc_layers", "n_experts",
-    "n_img_tokens", "n_src_frames", "router_aux_coef",
-    "router_z_coef", "rwkv_chunk", "rwkv_head_dim", "rwkv_lora_decay",
+    "n_enc_layers", "n_img_tokens", "n_src_frames",
+    "rwkv_chunk", "rwkv_head_dim", "rwkv_lora_decay",
     "rwkv_lora_mix", "scan_layers", "shared_attn_every", "ssm_chunk",
-    "ssm_conv", "ssm_expand", "ssm_head_dim", "ssm_state", "top_k",
+    "ssm_conv", "ssm_expand", "ssm_head_dim", "ssm_state",
 }
+# the MoE family, held in test_torch_moe.py
+MOE = ["mixtral-8x7b", "granite-moe-3b-a800m"]
 
 
 def _leaves(tree, prefix=""):
@@ -87,10 +88,11 @@ def _np(tree):
 
 
 def test_registry_holds_the_dense_family():
-    assert list(tconfigs.ARCHS) == [n for n in jconfigs.ARCHS if n in DENSE]
-    assert sorted(tconfigs.ARCHS) == sorted(DENSE)
+    ported = DENSE + MOE
+    assert list(tconfigs.ARCHS) == [n for n in jconfigs.ARCHS if n in ported]
+    assert sorted(tconfigs.ARCHS) == sorted(ported)
     with pytest.raises(KeyError, match="unknown arch"):
-        tconfigs.get("mixtral-8x7b")
+        tconfigs.get("rwkv6-1.6b")
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -19,6 +19,8 @@ spmm 1e-5 of max|y| in fp32 and one bf16 ulp (or 1e-5 of max|y|) in
 bf16 — the kernel and the plain matmul sum in other orders — with the
 nm24 and gathered packings of one 2:4 mask bitwise equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -539,8 +541,11 @@ def test_cuda_kernels_match_plain(cuda, d_out, d_in):
         Gp = gram_mod.gram_xtx_plain(xx)
         assert torch.equal(Gk, Gk.T)                          # exact mirror
         torch.testing.assert_close(Gk, Gp, rtol=1e-5, atol=1e-4)
-    assert ops.LAUNCHES == {"gram_xtx": 1, "gram_xtx_bf16": 1, "swap_topk": 2,
-                            "swap_argmin": 1, "swap_commit": 0, "spmm": 0}
+    assert ops.LAUNCHES == {"gram_xtx": 1, "gram_xtx_bf16": 1,
+                            "gram_xtx_stacked": 0,
+                            "gram_xtx_stacked_bf16": 0, "swap_topk": 2,
+                            "swap_argmin": 1, "swap_commit": 0, "spmm": 0,
+                            "spmm_stacked": 0}
 
 
 # (id, R, d, k, mask): ragged R and d, a small R that only the p-split
@@ -707,6 +712,73 @@ def test_cuda_gram_matches_plain(cuda, T, d):
         assert torch.equal(Gk, Gk.T)
         torch.testing.assert_close(Gk, gram_mod.gram_xtx_plain(xx), rtol=1e-5,
                                    atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,T,d", [
+    (3, 160, 96),     # mixtral's calibration T: a strip past T in each expert
+    (4, 40, 300),     # bf16 rows padded to 304 (a copy)
+    (2, 130, 1024),
+    (5, 1, 130),      # one token an expert, a ragged tile
+])
+def test_cuda_gram_stacked_matches_unstacked(cuda, E, T, d):
+    """The stacked Gram, both input paths, one launch a call: each
+    expert's G bitwise the unstacked kernel on its slice (so exactly
+    symmetric) and within rtol 1e-5 / atol 1e-4 of the plain version;
+    slices of different scales, so a strip that read the next expert's
+    rows would show."""
+    gen = torch.Generator(device=cuda).manual_seed(E * T + d)
+    scale = torch.arange(1, E + 1, device=cuda, dtype=torch.float32)
+    x = torch.randn(E, T, d, generator=gen, device=cuda) * scale[:, None,
+                                                                  None]
+    for xx, name in ((x, "gram_xtx_stacked"),
+                     (x.to(torch.bfloat16), "gram_xtx_stacked_bf16")):
+        ops.reset_launches()
+        Gk = ops.gram_xtx_stacked(xx)
+        assert ops.LAUNCHES[name] == 1 and Gk.shape == (E, d, d)
+        torch.testing.assert_close(Gk, gram_mod.gram_xtx_stacked_plain(xx),
+                                   rtol=1e-5, atol=1e-4)
+        for e in range(E):
+            assert torch.equal(Gk[e], ops.gram_xtx(xx[e])), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,T,d_out,d_in", [
+    (8, 4, 1024, 512),      # decode (the reference's T = capacity x batch)
+    (8, 40, 512, 1024),     # mixtral's prefill T: split d_in, BN = 128
+    (40, 4, 256, 384),      # granite-moe's expert count, 2 row blocks
+    (3, 9, 70, 1200),       # ragged rows and tiles; nm24 positions by cp.async
+])
+def test_cuda_spmm_stacked_matches_unstacked(cuda, dtype, E, T, d_out, d_in):
+    """The stacked spmm in one launch per call, nm24 and gathered (2:4
+    and PerRow(0.6)), with a bias and silu: each expert's y bitwise the
+    unstacked kernel on its slice, within the spmm tolerance of the plain
+    version, and nm24 == gathered bitwise on the 2:4 mask."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(E + T + d_in)
+    w = (torch.randn(E, d_out, d_in, generator=gen, device=cuda)
+         * d_in ** -0.5).to(dt)
+    x = torch.randn(E, T, d_in, generator=gen, device=cuda).to(dt)
+    bias = torch.randn(d_out, generator=gen, device=cuda)
+    scores = torch.rand(E * d_out, d_in, generator=gen, device=cuda)
+    m24 = tmasks.make_mask(scores, tmasks.NM(2, 4)).reshape(w.shape)
+    m60 = tmasks.make_mask(scores, tmasks.PerRow(0.6)).reshape(w.shape)
+    ys = {}
+    for name, fmt, m in (("nm24", "nm24", m24), ("gathered", "gathered", m24),
+                         ("gathered 0.6", "gathered", m60)):
+        pw = tpacked.pack(w, m, fmt)
+        ops.reset_launches()
+        y = ys[name] = ops.spmm_stacked(x, pw, bias=bias, act="silu")
+        assert ops.LAUNCHES["spmm_stacked"] == 1 and ops.LAUNCHES["spmm"] == 0
+        assert y.shape == (E, T, d_out) and y.dtype == dt
+        want = spmm_mod.spmm_stacked_plain(x, pw, bias, "silu")
+        assert _spmm_ok(y.reshape(-1, d_out), want.reshape(-1, d_out)), name
+        for e in range(E):
+            one = dataclasses.replace(pw, values=pw.values[e], idx=pw.idx[e])
+            assert torch.equal(y[e], ops.spmm(x[e], one, bias=bias,
+                                              act="silu")), (name, e)
+    assert torch.equal(ys["nm24"], ys["gathered"])
 
 
 @pytest.mark.gpu

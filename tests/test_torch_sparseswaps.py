@@ -79,8 +79,11 @@ def test_kernel_method_on_cpu_takes_plain_versions():
         b = tss.refine(*args, t_max=20, method="chunked", k_swaps=k,
                        commit_mode=mode)
         assert torch.equal(a.mask, b.mask)
-    assert ops.LAUNCHES == {"gram_xtx": 0, "gram_xtx_bf16": 0, "swap_topk": 0,
-                            "swap_argmin": 0, "swap_commit": 0, "spmm": 0}
+    assert ops.LAUNCHES == {"gram_xtx": 0, "gram_xtx_bf16": 0,
+                            "gram_xtx_stacked": 0,
+                            "gram_xtx_stacked_bf16": 0, "swap_topk": 0,
+                            "swap_argmin": 0, "swap_commit": 0, "spmm": 0,
+                            "spmm_stacked": 0}
     assert tss._pick_method("auto", 32, 12, "cpu") == "dense"
     assert tss._pick_method("auto", 32, 12, "cuda") == "kernel"
     assert tss._pick_method("auto", 1024, 1024, "cpu") == "chunked"

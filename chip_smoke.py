@@ -190,10 +190,13 @@ and its time:
    of 4 x 128 tokens: within 1e-5 of max|G|, every G_e exactly symmetric
    and bitwise ``gram_xtx`` of its slice; ``spmm_stacked`` at the experts'
    w_gate (silu) and w_down of both configs, T = 4 (decode) and 40
-   (mixtral's prefill) an expert, nm24 (2:4) and gathered (PerRow(0.6)
-   and 2:4), fp32 and bf16: phase 3's tolerances, every expert's y
-   bitwise ``spmm`` of its slice, nm24 == gathered bitwise on 2:4. Each
-   timed at mixtral's shapes as phase 3 times: the kernel, the plain
+   (mixtral's prefill) an expert, and the continuous scheduler's T at
+   mixtral's w_gate (8: a decode step of 8 slots; 20: a 64-token prefill
+   window) and granite-moe's prefill T = 32 (phase 9m's serving), nm24
+   (2:4) and gathered (PerRow(0.6) and 2:4), fp32 and bf16: phase 3's
+   tolerances, every expert's y bitwise ``spmm`` of its slice, nm24 ==
+   gathered bitwise on 2:4. Timed as phase 3 times (mixtral at every
+   such T, granite-moe at 4 and 32): the kernel, the plain
    version, ``torch.bmm`` (bf16 in, fp32 out for the Gram, the fp32
    upcast's time printed beside it; on the masked dense weights for spmm;
    ``library_ms``) and the bound (summed over the experts).
@@ -211,6 +214,33 @@ and its time:
    (the masked run's expert ids replayed): every routing decision that
    flips unforced must be a near tie (top-k gap at most twice the
    router-logit difference) and at most ROUTE_FLIPS of them may flip.
+6mc. continuous serving of mixtral-8x7b (after 6m, on its params and
+   its PerRow(0.6) and Wanda 2:4 masks): masked PerRow(0.6), nm24 (2:4),
+   gathered PerRow(0.6) and gathered 2:4 through ``ContinuousScheduler``
+   (phase 6c's shape: 8 slots x 1024 tokens, 16-token pages, decode
+   chunks of 8), every capacity drop counted (``models.moe.count_drops``,
+   no host read): (a) phase 6c's four mixed requests batched == each
+   alone, bitwise; (b) chunked (64-token windows) vs one-shot prefill of
+   100-, 300- and 500-token prompts, tokens and routing teacher-forced
+   (``RouteTape`` cut to the windows): a window dispatches with
+   capacity(64), one-shot prefill with capacity(S_bucket), so where
+   either drops they compute different functions (printed, not gated);
+   the same pair at capacity_factor E / top_k (no group can drop) within
+   SERVE_TOL; a batch of four 32-token prompts vs each alone (the same
+   groups) within SERVE_TOL; every unforced routing flip a near tie, at
+   most ROUTE_FLIPS; the scheduler's greedy streams (chunked vs one-shot
+   where neither drops; vs ``generate``) equal up to the first near-tie
+   of a token or a routing decision; (c) disaggregated == interleaved
+   bitwise, in 64-token windows; nm24 == gathered bitwise on the 2:4
+   masks; (d) nm24 under ``FaultPlan.chaos(0)``; (e) every scheduler run
+   launched spmm 4 and spmm_stacked 3 x layers x dispatches; (f) the
+   first 32 requests of phase 6c's stream at 8/s in 64-token windows:
+   every request completed and no page left, TTFT, per-token latency,
+   goodput and drops printed for masked, nm24 and gathered; nm24 on the
+   first 8 requests under torch.profiler: the device-busy share and
+   spmm's and spmm_stacked's device ms (product kernels matched to their
+   calls in launch order). spmm_stacked's calls are tallied by tokens an
+   expert (T).
 8. full depth, shapes only: every config's ``plan_pruning`` on the
    meta device (nothing allocated), its weight, Gram and calibration
    bytes, and whether the bf16 model and its calibration state fit the
@@ -248,15 +278,33 @@ and its time:
    perplexities, the train-step and recover-step ms (CUDA events, median
    of steps 2-4), peak memory and the phase's wall time beside the card
    line.
+9m. MoE training and recovery, run last: granite-moe-3b-a800m at full
+   width and its own vocabulary 49155, 1 layer (2 layers write 16.7 GB,
+   past the run's 45 GiB budget beside phases 7 and 9), bf16, seed 0,
+   through phase 9's path, with these differences: (a) a second uninterrupted run
+   repeats the first bitwise, and the preempted and resumed runs (and
+   the uninterrupted run they are held to) train under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``: every op
+   it flags is printed and any but cuBLAS's workspace notice fails; (c)
+   all_masked with one checkpoint (step 20: pruned coordinates 0.0 in
+   the weights, m and v), then lora into the same out dir, checkpointed
+   every 10 steps and rerun to resume at step 10 bitwise (lora's
+   checkpoints hold only the adapters: the write budget); (d) the
+   all_masked export served in gathered and nm24, the experts through
+   ``spmm_stacked`` (decode T = 4, prefill T = 32 an expert), packed vs
+   masked with the routing teacher-forced. Every phase prints the bytes
+   it wrote (``wchar``); the run fails past WRITE_BUDGET (45 GiB, where
+   the card's machine would end it).
 10. the kernels line (``spmm``: the nm24 kernel at w_gate T = 128, its
    launches the nm24 engines'; ``spmm_gather``: the gathered kernel at
    w_gate T = 4 on PerRow(0.6), its launches the gathered engines'; the
-   Gram's, swap_topk's and spmm's launches those of phases 4, 6, 6c and
-   9 and of every 4b / 6b / 4m / 6m run; ``gram_xtx_stacked`` at
-   mixtral's moe_w_down, its launches phase 4m's; ``spmm_stacked`` and
-   ``spmm_stacked_gather`` at mixtral's w_gate, nm24 at T = 40 and
-   gathered PerRow(0.6) at T = 4, their launches phase 6m's), the card
-   line, and last {"ok": true, "device": ...}.
+   Gram's, swap_topk's and spmm's launches those of phases 4, 6, 6c, 9
+   and 9m and of every 4b / 6b / 4m / 6m / 6mc run; ``gram_xtx_stacked``
+   at mixtral's moe_w_down, its launches phases 4m's and 9m's;
+   ``spmm_stacked`` and ``spmm_stacked_gather`` at mixtral's w_gate, nm24
+   at T = 40 and gathered PerRow(0.6) at T = 4, their launches phases
+   6m's, 6mc's and 9m's), the card line, and last {"ok": true, "device":
+   ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -304,7 +352,9 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s
 T_MAX = 4                # search passes of the main path (k = 8)
 SERVE_TOL = 0.05         # packed vs masked prefill logits, of max|logits|
 SERVE_GEN = 16           # new tokens per request on the serve path
-ROUTE_FLIPS = 0.01       # an MoE pair's routing decisions that may flip
+ROUTE_FLIPS = 0.01       # mixtral's routing decisions that may flip in a
+                         # pair (other configs: scaled by near_tie_scale)
+WRITE_BUDGET = 45 * 2**30   # bytes a run may write
 # the other dense configs (phases 3b, 4b, 6b) and their shapes new to the
 # kernels
 OTHER_DENSE = ("chatglm3-6b", "granite-34b", "minitron-4b", "internlm2-20b")
@@ -322,8 +372,12 @@ SWAP_SHAPES = [                  # (R, d, site); the first two timed
 # The Gram: (E, T, d, site), T an expert's capacity buffer over a
 # calibration batch of 4 x 128 tokens (mixtral: 4 x capacity(128) = 4 x
 # 40; granite-moe: 4 x capacity(128) = 4 x 32). spmm: (E, d_out, d_in,
-# act, site, timed) at T = 4 (decode: capacity(1) = 1 slot a row) and 40
-# (mixtral's prefill of 4 x 32 tokens: 4 x capacity(32) = 4 x 10).
+# act, site, the T an expert checked, those timed): T = 4 (a decode step
+# of 4 rows: capacity(1) = 1 slot a row), 40 (mixtral's prefill of 4 x 32
+# tokens: 4 x capacity(32) = 4 x 10), and the continuous scheduler's (phase
+# 6mc) 8 (a decode step of 8 slots) and 20 (a 64-token prefill window:
+# capacity(64)); granite-moe's 32 (its prefill of 4 x 32 tokens, phase
+# 9m: 4 x capacity(32) = 4 x 8; 32 tokens are one dispatch group).
 MOE = ("mixtral-8x7b", "granite-moe-3b-a800m")
 GRAM_STACKED = [
     (8, 160, 4096, "mixtral-8x7b moe_w_up"),
@@ -332,10 +386,11 @@ GRAM_STACKED = [
     (40, 128, 512, "granite-moe-3b moe_w_down"),
 ]
 SPMM_STACKED = [
-    (8, 14336, 4096, "silu", "mixtral-8x7b w_gate", True),
-    (8, 4096, 14336, None, "mixtral-8x7b w_down", True),
-    (40, 512, 1536, "silu", "granite-moe-3b w_gate", False),
-    (40, 1536, 512, None, "granite-moe-3b w_down", False),
+    (8, 14336, 4096, "silu", "mixtral-8x7b w_gate", (4, 8, 20, 40),
+     (4, 8, 20, 40)),
+    (8, 4096, 14336, None, "mixtral-8x7b w_down", (4, 40), (4, 40)),
+    (40, 512, 1536, "silu", "granite-moe-3b w_gate", (4, 32, 40), (4, 32)),
+    (40, 1536, 512, None, "granite-moe-3b w_down", (4, 32, 40), (4, 32)),
 ]
 SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
     (4096, 4096, None, True, "chatglm3-6b wq", False),
@@ -364,8 +419,21 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def bytes_written() -> int:
+    """Bytes this process has handed to write calls so far (``wchar`` of
+    /proc/self/io; 0 where the file is missing): the run's disk writes,
+    its checkpoints and out dirs, held under WRITE_BUDGET."""
+    try:
+        for line in Path("/proc/self/io").read_text().splitlines():
+            if line.startswith("wchar:"):
+                return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
 class Phase:
-    """Times a phase and prints its name and wall time."""
+    """Times a phase and prints its name, wall time and bytes written."""
 
     def __init__(self, name: str):
         self.name = name
@@ -373,6 +441,7 @@ class Phase:
     def __enter__(self):
         log(f"== {self.name}")
         self.t0 = time.perf_counter()
+        self.w0 = bytes_written()
         return self
 
     def __exit__(self, *exc):
@@ -380,8 +449,10 @@ class Phase:
 
         torch.cuda.synchronize()
         self.s = time.perf_counter() - self.t0
+        w = bytes_written()
         if exc[0] is None:
-            log(f"   {self.name}: {self.s:.2f} s")
+            log(f"   {self.name}: {self.s:.2f} s, {(w - self.w0) / 1e9:.3f} "
+                f"GB written ({w / 2**30:.2f} GiB in the run so far)")
 
 
 def cuda_ms(fn, *, reps: int, warmup: int = 1) -> float:
@@ -856,15 +927,15 @@ def check_gram_stacked(E: int, T: int, d: int, tag: str) -> dict:
 
 
 def check_spmm_stacked(E: int, d_out: int, d_in: int, act, tag: str, *,
-                       time_it: bool) -> dict:
-    """The stacked spmm at one expert shape, T = 4 and 40 an expert, nm24
-    (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16: one launch a
-    call, within phase 3's tolerances of the plain version, each expert's
-    y bitwise the unstacked kernel on its slice, nm24 == gathered bitwise
-    on the 2:4 mask; bf16 device times with a cold L2 when asked (the
-    kernel, the plain version, ``torch.bmm(x, (W⊙M)ᵀ)`` as
-    ``library_ms``, and the bound summed over the experts). Returns {(T,
-    "nm24" | "gathered" | "gathered 2:4"): timings}."""
+                       Ts=(4, 40), timed=()) -> dict:
+    """The stacked spmm at one expert shape, each T of ``Ts`` an expert,
+    nm24 (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16: one
+    launch a call, within phase 3's tolerances of the plain version, each
+    expert's y bitwise the unstacked kernel on its slice, nm24 == gathered
+    bitwise on the 2:4 mask; at each T of ``timed``, bf16 device times
+    with a cold L2 (the kernel, the plain version, ``torch.bmm(x,
+    (W⊙M)ᵀ)`` as ``library_ms``, and the bound summed over the experts).
+    Returns {(T, "nm24" | "gathered" | "gathered 2:4"): timings}."""
     import dataclasses
 
     import torch
@@ -883,7 +954,7 @@ def check_spmm_stacked(E: int, d_out: int, d_in: int, act, tag: str, *,
     runs = {"nm24": ("nm24", m24), "gathered": ("gathered", m60),
             "gathered 2:4": ("gathered", m24)}
     out = {}
-    for T in (4, 40):
+    for T in Ts:
         x32 = torch.randn(E, T, d_in, generator=gen, device="cuda")
         y24 = {}
         for name, (fmt, mask) in runs.items():
@@ -915,7 +986,7 @@ def check_spmm_stacked(E: int, d_out: int, d_in: int, act, tag: str, *,
                     f") T={T} {name} K={pw.k}: max_abs_err fp32 "
                     f"{errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; "
                     f"every expert bitwise the unstacked kernel")
-            if not time_it:
+            if T not in timed:
                 log(line)
                 continue
             wm = (w * mask).to(torch.bfloat16)
@@ -956,9 +1027,9 @@ def moe_shapes() -> dict:
     grams = {tag: check_gram_stacked(E, T, d, tag)
              for E, T, d, tag in GRAM_STACKED}
     spmm = {}
-    for E, d_out, d_in, act, tag, timed in SPMM_STACKED:
-        spmm[tag] = check_spmm_stacked(E, d_out, d_in, act, tag,
-                                       time_it=timed)
+    for E, d_out, d_in, act, tag, Ts, timed in SPMM_STACKED:
+        spmm[tag] = check_spmm_stacked(E, d_out, d_in, act, tag, Ts=Ts,
+                                       timed=timed)
     return {"gram_xtx_stacked": grams["mixtral-8x7b moe_w_down"],
             "spmm_stacked": spmm["mixtral-8x7b w_gate"][(40, "nm24")],
             "spmm_stacked_gather": spmm["mixtral-8x7b w_gate"][
@@ -998,10 +1069,14 @@ class RouteTape:
     from its own logits at them) and notes each token whose own top-k
     differs (a flip): the recorded run's gap between its k-th and
     (k+1)-th logits there, and the largest router-logit difference
-    between the runs at that token."""
+    between the runs at that token. A run along other shapes (prefill
+    windows, one row of a batch) replays a ``seq`` cut from the record
+    (``windows``, ``row``). ``max_diff`` is the largest router-logit
+    difference over every replayed token."""
 
     def __init__(self):
-        self.calls, self.flips, self.tokens = [], [], 0
+        self.calls, self.flips, self.tokens, self.max_diff = [], [], 0, 0.0
+        self.routing = (8, 2)                  # (experts, top-k) replayed
 
     def _patched(self, fn):
         import contextlib
@@ -1024,22 +1099,74 @@ class RouteTape:
             return logits, ids, gates
         return self._patched(fn)
 
-    def replay(self):
+    def replay(self, seq=None):
         import torch
-        it = iter(self.calls)
+        it = iter(self.calls if seq is None else seq)
 
         def fn(orig, x, router, k):
             logits, ids, _ = orig(x, router, k)
             ref_logits, ref_ids = next(it)
             flip = (ids.sort(-1).values != ref_ids.sort(-1).values).any(-1)
-            top = ref_logits.sort(-1, descending=True).values
-            gap = top[..., k - 1] - top[..., k]
+            gap = topk_gap(ref_logits, k)
             diff = (logits - ref_logits).abs().amax(-1)
             self.flips += list(zip(gap[flip].tolist(), diff[flip].tolist()))
             self.tokens += flip.numel()
+            self.max_diff = max(self.max_diff, float(diff.max()))
+            self.routing = (logits.shape[-1], k)
             return (logits, ref_ids,
                     torch.softmax(logits.gather(-1, ref_ids), dim=-1))
         return self._patched(fn)
+
+    def windows(self, n_layers: int, n_valid: int, window: int) -> list:
+        """The record of a one-shot prefill (its first ``n_layers`` calls)
+        and decode steps, cut for the same run prefilled in
+        ``window``-token windows: each window's layers, in order, then
+        the decode steps' calls as recorded."""
+        pre = self.calls[:n_layers]
+        return [(lg[:, w:w + window], ids[:, w:w + window])
+                for w in range(0, n_valid, window) for lg, ids in pre
+                ] + self.calls[n_layers:]
+
+    def row(self, i: int) -> list:
+        """The record of a batched run, cut to its row ``i``."""
+        return [(lg[i:i + 1], ids[i:i + 1]) for lg, ids in self.calls]
+
+    def check(self, tag: str) -> None:
+        """Fails unless every flip was a near tie (gap at most twice the
+        router-logit difference) and at most ROUTE_FLIPS of the decisions
+        flipped, scaled by ``near_tie_scale`` of the routing replayed."""
+        bound = ROUTE_FLIPS * near_tie_scale(*self.routing)
+        require(all(g <= 2 * d for g, d in self.flips),
+                f"{tag}: a routing decision flips away from a near tie")
+        require(len(self.flips) <= bound * self.tokens,
+                f"{tag}: {len(self.flips)} of {self.tokens} routing "
+                f"decisions flip, more than {bound:.1%}")
+
+    def summary(self) -> str:
+        return (f"{len(self.flips)} of {self.tokens} routing decisions flip "
+                f"unforced, (top-k gap, router-logit difference): "
+                f"{[(round(g, 6), round(d, 6)) for g, d in self.flips[:8]]}")
+
+
+def near_tie_scale(n_experts: int, k: int) -> float:
+    """How much more often a config's routing nearly ties than
+    mixtral-8x7b's (8 experts, top-2), for router logits drawn i.i.d.
+    normal: the expected gap between the k-th and (k+1)-th largest of E
+    is about 1 / (E·φ(Φ⁻¹(1 - k/E))), and the share of decisions an ulp
+    of rounding can flip grows as that gap shrinks (granite-moe-3b's 40
+    experts, top-8: 4.4x)."""
+    from statistics import NormalDist
+
+    nd = NormalDist()
+    gap = lambda e, kk: 1 / (e * nd.pdf(nd.inv_cdf(1 - kk / e)))  # noqa: E731
+    return gap(8, 2) / gap(n_experts, k)
+
+
+def topk_gap(logits, k: int):
+    """(..., E) router logits -> (...) gap between the k-th and (k+1)-th
+    largest: how near a token's routing is to a tie."""
+    top = logits.sort(-1, descending=True).values
+    return top[..., k - 1] - top[..., k]
 
 
 def routed_pair(eng, ref_eng, prompt: dict, tokens, tag: str) -> float:
@@ -1059,14 +1186,8 @@ def routed_pair(eng, ref_eng, prompt: dict, tokens, tag: str) -> float:
     err = float((got - ref).abs().max())
     log(f"   {tag}, routing teacher-forced too: logits max_abs_err "
         f"{err:.4e} ({err / float(ref.abs().max()):.2e} of max|logits|); "
-        f"{len(tape.flips)} of {tape.tokens} routing decisions flip "
-        f"unforced, (top-k gap, router-logit difference): "
-        f"{[(round(g, 6), round(d, 6)) for g, d in tape.flips[:8]]}")
-    require(all(g <= 2 * d for g, d in tape.flips),
-            f"{tag}: a routing decision flips away from a near tie")
-    require(len(tape.flips) <= ROUTE_FLIPS * tape.tokens,
-            f"{tag}: {len(tape.flips)} of {tape.tokens} routing decisions "
-            f"flip, more than {ROUTE_FLIPS:.0%}")
+        f"{tape.summary()}")
+    tape.check(tag)
     return err
 
 
@@ -1126,6 +1247,16 @@ def serve_bench(engines: dict, prompt: dict, launches: dict) -> dict:
     return warm
 
 
+def spmm_sites(cfg, params) -> dict:
+    """A served model's packed sites by kernel: {"spmm": the unstacked
+    ones, "spmm_stacked": an MoE model's expert sites}; each launches its
+    kernel once a layer and dispatch."""
+    from repro_torch.pruning import sites
+
+    stacks = [len(s.stack_shape) for s in sites.site_specs(cfg, params)]
+    return {"spmm": stacks.count(1), "spmm_stacked": stacks.count(2)}
+
+
 def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
                bench: bool = True):
     """Phase 6 (and 6b, 6m with ``bench=False``: no timed runs or
@@ -1133,15 +1264,13 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
     calls, "spmm_stacked": stacked ones (an MoE model's experts)}."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.pruning import sites
     from repro_torch.serve import ServeEngine
 
     specs = {"dense": (None, "dense"), "masked_0.6": (masks60, "masked"),
              "gathered_0.6": (masks60, "gathered"),
              "masked_2:4": (masks24, "masked"), "nm24_2:4": (masks24, "nm24"),
              "gathered_2:4": (masks24, "gathered")}
-    stacks = [len(s.stack_shape) for s in sites.site_specs(api.cfg, params)]
-    n_sites = {"spmm": stacks.count(1), "spmm_stacked": stacks.count(2)}
+    n_sites = spmm_sites(api.cfg, params)
     engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
                for name, (m, fmt) in specs.items()}
     for name, eng in engines.items():
@@ -1226,26 +1355,52 @@ def token_ids(n: int, seed: int, vocab: int):
         np.int32)
 
 
-def sched_run(eng, reqs, n_sites: int, **kw):
+def sched_traffic(vocab: int):
+    """Phases 6c's and 6mc's requests, (prompt, max_new, SamplingParams):
+    (mixed: the reference test's four greedy and sampled requests; longs:
+    {S: prompt} of CHUNK_PROMPTS, held chunked vs one-shot; short: four
+    32-token prompts, phase 6's shape; disagg: mixed, a long sampled
+    request and a one-token one)."""
+    from repro_torch.serve import GREEDY, SamplingParams
+
+    ids = lambda n, seed: token_ids(n, seed, vocab)  # noqa: E731
+    mixed = [(ids(7, 1), 6, GREEDY),
+             (ids(12, 2), 9, SamplingParams(temperature=0.8, seed=4)),
+             (ids(5, 3), 3, SamplingParams(temperature=1.2, top_p=0.9,
+                                           top_k=32, seed=5)),
+             (ids(9, 4), 7, GREEDY)]
+    longs = {S: ids(S, 10 + S) for S in CHUNK_PROMPTS}
+    short = [ids(32, 20 + i) for i in range(4)]
+    disagg = mixed + [(longs[300], 8, SamplingParams(temperature=0.9,
+                                                     top_p=0.95, seed=9)),
+                      (ids(20, 5), 1, GREEDY)]
+    return mixed, longs, short, disagg
+
+
+def sched_run(eng, reqs, n_sites: dict, **kw):
     """Serve ``reqs`` — (prompt, max_new, SamplingParams) — through one
     ``ContinuousScheduler`` (``CONT``, plus ``kw``) until idle. Checks that
-    the pools end empty and, phase 6c (e), that the engine launched spmm
-    sites x layers x (prefill dispatches + decode steps) times, counted
-    from the scheduler's own dispatches (none for dense and masked).
-    Returns (tokens per request, scheduler, spmm launches)."""
+    the pools end empty and, phase 6c (e), that the engine launched each
+    spmm kernel of ``n_sites`` ({"spmm": unstacked sites, "spmm_stacked":
+    an MoE model's expert sites}) sites x layers x (prefill dispatches +
+    decode steps) times, counted from the scheduler's own dispatches (none
+    for dense and masked, nor off the card). Returns (tokens per request,
+    scheduler, {kernel: launches})."""
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import CONT
     from repro_torch.serve import ContinuousScheduler
 
-    before = ops.LAUNCHES["spmm"]
+    before = {k: ops.LAUNCHES[k] for k in n_sites}
     sch = ContinuousScheduler(eng, **CONT, **kw)
     rids = [sch.submit(p, n, sampling=s) for p, n, s in reqs]
     done = sch.run_until_idle()
-    n = ops.LAUNCHES["spmm"] - before
+    n = {k: ops.LAUNCHES[k] - v for k, v in before.items()}
     d = sch.dispatches
-    want = (n_sites * eng.cfg.n_layers * (d["prefill"] + d["decode_steps"])
-            if eng.fmt in ("nm24", "gathered") else 0)
-    require(n == want, f"{eng.fmt}: {n} spmm launches for {d}, want {want}")
+    per = (eng.cfg.n_layers * (d["prefill"] + d["decode_steps"])
+           if eng.fmt in ("nm24", "gathered") and eng.device.type == "cuda"
+           else 0)
+    want = {k: v * per for k, v in n_sites.items()}
+    require(n == want, f"{eng.fmt}: spmm launches {n} for {d}, want {want}")
     require(sch.pool.used_bytes == 0 and (
         sch.prefill_pool is None or sch.prefill_pool.used_bytes == 0),
         f"{eng.fmt}: pages leaked")
@@ -1323,22 +1478,25 @@ def check_cross(name: str, what: str, r: dict) -> None:
     flips = (f"{r['flips']} of {r['n']} greedy tokens flip, at top-2 gaps "
              f"<= {r['gap']:.4e}" if r["flips"] else
              f"all {r['n']} greedy tokens agree")
-    log(f"   6c (b) {name} {what}: max |dK| {r['dk']:.3e} |dV| "
+    log(f"   {name} {what}: max |dK| {r['dk']:.3e} |dV| "
         f"{r['dv']:.3e} over valid positions; teacher-forced logits "
         f"max_abs_err {r['err']:.4e} ({rel:.2e} of max|logits| "
         f"{r['scale']:.3f}); {flips}")
     require(math.isfinite(r["err"]) and r["err"] <= SERVE_TOL * r["scale"],
-            f"6c (b) {name} {what}: logits beyond {SERVE_TOL} of max|logits|")
+            f"{name} {what}: logits beyond {SERVE_TOL} of max|logits|")
 
 
-def check_streams(name: str, what: str, got, want, ref, err: float) -> str:
+def check_streams(name: str, what: str, got, want, ref, err: float,
+                  route_near: int | None = None) -> str:
     """Phase 6c (b)'s token gate across shapes: the greedy streams ``got``
     and ``want`` (n tokens each) must agree up to the first near-tie, a
     step whose reference logits ``ref`` (n, V; fed ``want``'s tokens)
-    have a top-2 gap within twice ``err``. The scheduler decodes at still
-    other shapes (8 rows over 1024 slots) than the forced pair that
-    measured ``err``, so ``err`` is that pair's largest logits error, not
-    its error at the step. Returns a summary."""
+    have a top-2 gap within twice ``err``, or (MoE) the first token a
+    routing near-tie may change (``route_near``, from
+    ``first_route_near``). The scheduler decodes at still other shapes (8
+    rows over 1024 slots) than the forced pair that measured ``err``, so
+    ``err`` is that pair's largest logits error, not its error at the
+    step. Returns a summary."""
     import numpy as np
 
     got, want = np.asarray(got), np.asarray(want)
@@ -1347,15 +1505,17 @@ def check_streams(name: str, what: str, got, want, ref, err: float) -> str:
     first_diff = int(differ[0]) if differ.size else n
     near = np.flatnonzero((top2_gap(ref[:n]) <= 2 * err).cpu().numpy())
     first_near = int(near[0]) if near.size else n
+    if route_near is not None:
+        first_near = min(first_near, route_near)
     require(first_diff >= first_near,
-            f"6c (b) {name} {what}: greedy tokens differ at step "
-            f"{first_diff}, before the first near-tie (step {first_near}, "
-            f"top-2 gap <= {2 * err:.4e})")
+            f"{name} {what}: greedy tokens differ at step {first_diff}, "
+            f"before the first near-tie (step {first_near}, top-2 gap <= "
+            f"{2 * err:.4e})")
     return f"{first_diff}/{n} (near-tie at {first_near})"
 
 
 def cross_shape_checks(eng, name: str, longs: dict, short: list,
-                       n_sites: int) -> int:
+                       n_sites: dict) -> int:
     """Phase 6c (b): comparisons across shapes, where the card's matmuls
     (cuBLAS, spmm's split plan) may round a row otherwise: chunked
     (CHUNK_W-token windows) vs one-shot prefill of each long prompt into
@@ -1387,12 +1547,14 @@ def cross_shape_checks(eng, name: str, longs: dict, short: list,
         one = forced_run(eng, toks, S, sb, n_new)
         r = cross_shape(one, forced_run(eng, toks, S, sb, one[2],
                                         window=CHUNK_W))
-        check_cross(name, f"S={S} chunked W={CHUNK_W} vs one-shot", r)
+        check_cross(f"6c (b) {name}", f"S={S} chunked W={CHUNK_W} vs "
+                    f"one-shot", r)
         feed = torch.as_tensor(np.asarray(want[:n_new - 1]),
                                device=dev)[None]
         ref = forced_run(eng, toks, S, sb, feed)[0][:, 0]
-        agree.append(check_streams(name, f"S={S} scheduler chunked vs "
-                                   f"one-shot", got, want, ref, r["err"]))
+        agree.append(check_streams(f"6c (b) {name}", f"S={S} scheduler "
+                                   f"chunked vs one-shot", got, want, ref,
+                                   r["err"]))
     S = len(short[0])
     toks = torch.from_numpy(np.stack(short).astype(np.int64)).to(dev)
     cap = next_pow2(S + SERVE_GEN)
@@ -1405,16 +1567,18 @@ def cross_shape_checks(eng, name: str, longs: dict, short: list,
             tuple(torch.cat([r[1][j] for r in solo], dim=1)
                   for j in range(2)), feed)
     r = cross_shape(batch, solo)
-    check_cross(name, f"batch {len(short)} x S={S} prefill vs each alone", r)
+    check_cross(f"6c (b) {name}", f"batch {len(short)} x S={S} prefill vs "
+                f"each alone", r)
     sched, _, n3 = sched_run(eng, [(p, SERVE_GEN, GREEDY) for p in short],
                              n_sites, bucket_batch=False)
-    vs_gen = [check_streams(name, f"request {i} scheduler vs generate",
-                            got, want.cpu(), batch[0][:, i], r["err"])
+    vs_gen = [check_streams(f"6c (b) {name}", f"request {i} scheduler vs "
+                            f"generate", got, want.cpu(), batch[0][:, i],
+                            r["err"])
               for i, (got, want) in enumerate(zip(sched, fixed))]
     log(f"   6c (b) {name}: scheduler greedy tokens equal before the first "
         f"difference, chunked vs one-shot {agree}; scheduler vs generate "
         f"{vs_gen}")
-    return n1 + n2 + n3
+    return n1["spmm"] + n2["spmm"] + n3["spmm"]
 
 
 def continuous_path(api, params, masks60: dict, masks24: dict) -> dict:
@@ -1428,49 +1592,38 @@ def continuous_path(api, params, masks60: dict, masks24: dict) -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import CONT, LOAD_OUTPUT, LOAD_PROMPT
-    from repro_torch.pruning import sites
-    from repro_torch.serve import (GREEDY, FaultPlan, SamplingParams,
-                                   ServeEngine, loadgen)
+    from repro_torch.serve import FaultPlan, ServeEngine, loadgen
 
     vocab = api.cfg.vocab_size
-    n_sites = len(sites.site_specs(api.cfg, params))
+    n_sites = spmm_sites(api.cfg, params)
     specs = {"dense": (None, "dense"), "masked": (masks60, "masked"),
              "nm24": (masks24, "nm24"), "gathered": (masks60, "gathered")}
     engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
                for name, (m, fmt) in specs.items()}
-    ids = lambda n, seed: token_ids(n, seed, vocab)
-    # (a): the reference test's four mixed requests
-    mixed = [(ids(7, 1), 6, GREEDY),
-             (ids(12, 2), 9, SamplingParams(temperature=0.8, seed=4)),
-             (ids(5, 3), 3, SamplingParams(temperature=1.2, top_p=0.9,
-                                           top_k=32, seed=5)),
-             (ids(9, 4), 7, GREEDY)]
-    longs = {S: ids(S, 10 + S) for S in CHUNK_PROMPTS}
-    short = [ids(32, 20 + i) for i in range(4)]    # phase 6's prompt shape
-    # (c): the mixed requests, a long sampled one and a one-token one
-    disagg = mixed + [(longs[300], 8, SamplingParams(temperature=0.9,
-                                                     top_p=0.95, seed=9)),
-                      (ids(20, 5), 1, GREEDY)]
+    mixed, longs, short, disagg = sched_traffic(vocab)
     launches = {name: 0 for name in engines}
     ops.reset_launches()
     for name, eng in engines.items():
         t0 = time.perf_counter()
         # (a) batched == solo, bitwise, at the pinned width
-        toks, _, n = sched_run(eng, mixed, n_sites, bucket_batch=False)
-        launches[name] += n
+        toks, _, n = sched_run(eng, mixed, n_sites,
+                               bucket_batch=False)
+        launches[name] += n["spmm"]
         for i, req in enumerate(mixed):
-            solo, _, n = sched_run(eng, [req], n_sites, bucket_batch=False)
-            launches[name] += n
+            solo, _, n = sched_run(eng, [req], n_sites,
+                                   bucket_batch=False)
+            launches[name] += n["spmm"]
             require(np.array_equal(toks[i], solo[0]),
                     f"6c (a) {name}: request {i} batched != solo")
         # (b) across shapes: chunked vs one-shot, batch 4 vs alone
         launches[name] += cross_shape_checks(eng, name, longs, short,
                                              n_sites)
         # (c) disaggregated == interleaved, bitwise, same width
-        inter, _, n1 = sched_run(eng, disagg, n_sites, bucket_batch=False)
-        dis, sch, n2 = sched_run(eng, disagg, n_sites, bucket_batch=False,
-                                 disaggregate=True)
-        launches[name] += n1 + n2
+        inter, _, n1 = sched_run(eng, disagg, n_sites,
+                                 bucket_batch=False)
+        dis, sch, n2 = sched_run(eng, disagg, n_sites,
+                                 bucket_batch=False, disaggregate=True)
+        launches[name] += n1["spmm"] + n2["spmm"]
         require(all(np.array_equal(a, b) for a, b in zip(inter, dis)),
                 f"6c (c) {name}: disaggregated tokens differ")
         pages = sum(sch.pool.pages_for(len(p)) for p, n, _ in disagg
@@ -1509,7 +1662,7 @@ def continuous_path(api, params, masks60: dict, masks24: dict) -> dict:
             _, sch, n = sched_run(engines[name], mixed, n_sites,
                                   bucket_batch=False)
             wall = time.perf_counter() - t0
-        launches[name] += n
+        launches[name] += n["spmm"]
         dev_ms = spmm = 0.0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
@@ -1566,6 +1719,397 @@ def continuous_path(api, params, masks60: dict, masks24: dict) -> dict:
             f"{1e3 * r['p99_tok_latency_s']:.2f} ms, wasted "
             f"{r['wasted_decode_tokens']} tokens [{r['kernel_used']}]")
     return {"spmm": launches["nm24"], "spmm_gather": launches["gathered"]}
+
+
+# phase 6mc: continuous serving of mixtral-8x7b. The load rows serve the
+# first MOE_LOAD_REQUESTS requests of phase 6c's stream at its lower rate,
+# in CHUNK_W-token prefill windows.
+MOE_LOAD_REQUESTS, PROFILED_REQUESTS = 32, 8
+
+
+def sync(cuda: bool) -> None:
+    import torch
+
+    if cuda:
+        torch.cuda.synchronize()
+
+
+class SpmmCalls:
+    """The packed products launched while entered, in launch order: each
+    ``ops.spmm`` ("spmm") and ``ops.spmm_stacked`` ("spmm_stacked") call
+    that launched its kernel, and per stacked shape (experts, tokens an
+    expert, d_out, d_in, format) the calls made at it (``stacked``). A
+    call launches one product kernel (and, split, one reduction after
+    it), so the order tells a profiler's product kernels apart: the
+    stacked calls run the same kernels as the unstacked ones."""
+
+    def __init__(self):
+        import collections
+
+        self.order, self.stacked = [], collections.Counter()
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._orig = ops.spmm, ops.spmm_stacked
+        plain, stacked = self._orig
+
+        def spmm(x, pw, **kw):
+            if x.numel():
+                self.order.append("spmm")
+            return plain(x, pw, **kw)
+
+        def spmm_stacked(x, pw, **kw):
+            if x.numel():
+                self.order.append("spmm_stacked")
+                self.stacked[(x.shape[0], x[0].numel() // pw.d_in,
+                              pw.values.shape[-2], pw.d_in, pw.fmt)] += 1
+            return stacked(x, pw, **kw)
+
+        ops.spmm, ops.spmm_stacked = spmm, spmm_stacked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.spmm, ops.spmm_stacked = self._orig
+
+
+def device_split(prof, order: list) -> dict:
+    """A profiled run's device time in ms: every kernel and copy
+    ("device"), and the packed products with their split reductions by
+    the call that launched them ("spmm", "spmm_stacked"), matched in
+    launch order to ``SpmmCalls.order``; None for those two when the
+    trace lost a product kernel."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    out = {"device": sum(e.time_range.elapsed_us() for e in evs) / 1e3,
+           "spmm": 0.0, "spmm_stacked": 0.0}
+    calls, kind = iter(order), None
+    products = 0
+    for e in evs:
+        ms = e.time_range.elapsed_us() / 1e3
+        if "spmm_" in e.name:
+            kind = next(calls, None)
+            products += 1
+        elif "splitk_reduce" not in e.name:
+            continue
+        if kind is not None:
+            out[kind] += ms
+    if products != len(order):
+        out["spmm"] = out["spmm_stacked"] = None
+    return out
+
+
+def first_route_near(calls: list, n_layers: int, n_valid: int, k: int,
+                     thr: float) -> int:
+    """The first generated token a routing near-tie (a top-k gap within
+    ``thr``) may change, from a forced run's record (``RouteTape.calls``:
+    its prefill's layers, then each decode step's): 0 where any prompt
+    position ties, else 1 + the first decode step that does."""
+    def ties(chunk, n=None):
+        return any(bool((topk_gap(lg[:, :n], k) <= thr).any())
+                   for lg, _ in chunk)
+
+    if ties(calls[:n_layers], n_valid):
+        return 0
+    dec = calls[n_layers:]
+    for i in range(0, len(dec), n_layers):
+        if ties(dec[i:i + n_layers]):
+            return i // n_layers + 1
+    return len(dec) // n_layers + 1
+
+
+def moe_cross_shape(eng, name: str, longs: dict, short: list,
+                    n_sites: dict) -> dict:
+    """Phase 6mc (b): phase 6c (b)'s comparisons across shapes on an MoE
+    model, the routing teacher-forced with the tokens (``RouteTape``) and
+    the capacity drops counted (``models.moe.count_drops``). A W-token
+    window dispatches with capacity(W), a one-shot prefill with
+    capacity(S_bucket): where either drops an assignment the two compute
+    different functions (printed, not gated), so the chunked vs one-shot
+    pair also runs at capacity_factor E / top_k, where no group can drop,
+    and is gated there within SERVE_TOL. The batch-4 prefill vs each row
+    alone dispatches the same groups (one a row), so its drops are equal
+    and it is gated. Every unforced routing flip must be a near tie, at
+    most ROUTE_FLIPS of them. The scheduler's greedy streams (chunked vs
+    one-shot where neither dropped; the scheduler vs ``generate``) agree
+    up to the first near-tie of a token or of a routing decision. Returns
+    the spmm launches of its scheduler runs."""
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.models import moe
+    from repro_torch.serve import GREEDY
+    from repro_torch.serve.engine import next_pow2
+
+    cfg, dev = eng.cfg, eng.device
+    L, k = cfg.n_layers, cfg.top_k
+    tag = f"6mc (b) {name}"
+    no_drop = types.SimpleNamespace(
+        api=models.build(cfg.replace(capacity_factor=cfg.n_experts / k)),
+        params=eng.params, masks=eng.masks, device=dev)
+    n_new = 8
+    reqs = [(p, n_new, GREEDY) for p in longs.values()]
+    sch_one, _, n1 = sched_run(eng, reqs, n_sites, bucket_batch=False)
+    sch_chunk, _, n2 = sched_run(eng, reqs, n_sites, bucket_batch=False,
+                                 prefill_chunk=CHUNK_W)
+    agree = []
+    for (S, p), got, want in zip(longs.items(), sch_chunk, sch_one):
+        sb = next_pow2(S)
+        toks = torch.zeros((1, sb), dtype=torch.int64)
+        toks[0, :S] = torch.from_numpy(p.astype(np.int64))
+        toks = toks.to(dev)
+        for e in (eng, no_drop):
+            tape = RouteTape()
+            with tape.record(), moe.count_drops() as d_one:
+                one = forced_run(e, toks, S, sb, n_new)
+            with tape.replay(tape.windows(L, S, CHUNK_W)), \
+                    moe.count_drops() as d_chunk:
+                chunk = forced_run(e, toks, S, sb, one[2], window=CHUNK_W)
+            r = cross_shape(one, chunk)
+            drops = (d_one.total(), d_chunk.total())
+            what = (f"S={S} chunked W={CHUNK_W} vs one-shot, capacity_factor"
+                    f" {e.api.cfg.capacity_factor:g}, routing forced "
+                    f"({tape.summary()}); drops one-shot {drops[0]}, chunked "
+                    f"{drops[1]} of {d_one.assignments} assignments")
+            if any(drops):
+                log(f"   {tag} {what}: different functions where a group "
+                    f"drops (not gated): teacher-forced logits max_abs_err "
+                    f"{r['err']:.4e} ({r['err'] / r['scale']:.2e} of "
+                    f"max|logits|), max |dK| {r['dk']:.3e}")
+            else:
+                check_cross(tag, what, r)
+                tape.check(f"{tag} S={S}")
+            if e is eng:
+                eng_drops, err, rdiff = drops, r["err"], tape.max_diff
+        feed = torch.as_tensor(np.asarray(want[:n_new - 1]),
+                               device=dev)[None]
+        rec = RouteTape()
+        with rec.record():
+            ref = forced_run(eng, toks, S, sb, feed)[0][:, 0]
+        if any(eng_drops):
+            differ = np.flatnonzero(np.asarray(got) != np.asarray(want))
+            agree.append(f"{differ[0] if differ.size else n_new}/{n_new} "
+                         f"(drops: not gated)")
+        else:
+            agree.append(check_streams(
+                tag, f"S={S} scheduler chunked vs one-shot", got, want, ref,
+                err, first_route_near(rec.calls, L, S, k, 2 * rdiff)))
+    S = len(short[0])
+    toks = torch.from_numpy(np.stack(short).astype(np.int64)).to(dev)
+    cap = next_pow2(S + SERVE_GEN)
+    fixed = eng.generate({"tokens": toks}, SERVE_GEN).tokens
+    feed = fixed[:, :SERVE_GEN - 1]
+    tape = RouteTape()
+    with tape.record(), moe.count_drops() as d_batch:
+        batch = forced_run(eng, toks, S, cap, feed)
+    solo = []
+    with moe.count_drops() as d_solo:
+        for i in range(len(short)):
+            with tape.replay(tape.row(i)):
+                solo.append(forced_run(eng, toks[i:i + 1], S, cap,
+                                       feed[i:i + 1]))
+    solo = (torch.cat([r[0] for r in solo], dim=1),
+            tuple(torch.cat([r[1][j] for r in solo], dim=1)
+                  for j in range(2)), feed)
+    r = cross_shape(batch, solo)
+    require(d_batch.total() == d_solo.total(),
+            f"{tag}: the batch dropped {d_batch.total()} assignments, its "
+            f"rows alone {d_solo.total()}")
+    check_cross(tag, f"batch {len(short)} x S={S} prefill vs each alone, "
+                f"routing forced ({tape.summary()}); drops "
+                f"{d_batch.total()} of {d_batch.assignments} in both", r)
+    tape.check(f"{tag} batch vs alone")
+    sched, _, n3 = sched_run(eng, [(p, SERVE_GEN, GREEDY) for p in short],
+                             n_sites, bucket_batch=False)
+    vs_gen = [check_streams(tag, f"request {i} scheduler vs generate", got,
+                            want.cpu(), batch[0][:, i], r["err"],
+                            first_route_near(tape.row(i), L, S, k,
+                                             2 * tape.max_diff))
+              for i, (got, want) in enumerate(zip(sched, fixed))]
+    log(f"   {tag}: scheduler greedy tokens equal before the first "
+        f"difference, chunked vs one-shot {agree}; scheduler vs generate "
+        f"{vs_gen}")
+    return {kk: n1[kk] + n2[kk] + n3[kk] for kk in n_sites}
+
+
+def moe_continuous_path(api, params, masks60: dict, masks24: dict,
+                        device="cuda"):
+    """Phase 6mc: an MoE model through ``ContinuousScheduler`` (``CONT``:
+    8 slots of 1024 tokens, 16-token pages, decode chunks of 8) in masked
+    PerRow(0.6), nm24 (2:4), gathered PerRow(0.6) and gathered 2:4, with
+    every capacity drop counted. (a) The four mixed requests batched ==
+    each alone, bitwise at the pinned width (a decode row is its own
+    dispatch group). (b) ``moe_cross_shape``. (c) Disaggregated ==
+    interleaved bitwise, both in CHUNK_W-token windows. nm24 == gathered
+    bitwise on the 2:4 masks (streams and forced logits). (d) nm24 under
+    ``FaultPlan.chaos(0)``. (e) Every scheduler run launched spmm 4 and
+    spmm_stacked 3 x layers x dispatches. (f) The load rows: the first
+    MOE_LOAD_REQUESTS requests of phase 6c's stream at LOAD_RATES[0] in
+    CHUNK_W-token windows, every request completed and no page left, in
+    masked, nm24 and gathered PerRow(0.6); then nm24 on the first
+    PROFILED_REQUESTS under torch.profiler: the device-busy share and the
+    device ms of spmm and spmm_stacked. Returns ({"spmm", "spmm_gather",
+    "spmm_stacked", "spmm_stacked_gather"} launches, the stacked calls
+    by shape)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import CONT, LOAD_OUTPUT, LOAD_PROMPT
+    from repro_torch.models import moe
+    from repro_torch.serve import FaultPlan, ServeEngine, loadgen
+
+    vocab = api.cfg.vocab_size
+    n_sites = spmm_sites(api.cfg, params)
+    specs = {"masked": (masks60, "masked"), "nm24": (masks24, "nm24"),
+             "gathered": (masks60, "gathered"),
+             "gathered_2:4": (masks24, "gathered")}
+    t0 = time.perf_counter()
+    engines = {name: ServeEngine(api, params, masks=m, fmt=fmt,
+                                 device=device)
+               for name, (m, fmt) in specs.items()}
+    cuda = engines["nm24"].device.type == "cuda"
+    log(f"   6mc: {len(engines)} engines in {time.perf_counter() - t0:.2f} s")
+    mixed, longs, short, disagg = sched_traffic(vocab)
+    launches = {name: dict.fromkeys(n_sites, 0) for name in engines}
+
+    def add(name, n):
+        for kk, v in n.items():
+            launches[name][kk] += v
+
+    streams = {}
+    calls = SpmmCalls()
+    with calls:
+        for name, eng in engines.items():
+            t0 = time.perf_counter()
+            with moe.count_drops() as drops:
+                toks, _, n = sched_run(eng, mixed, n_sites,
+                                       bucket_batch=False)
+                add(name, n)
+                for i, req in enumerate(mixed):
+                    solo, _, n = sched_run(eng, [req], n_sites,
+                                           bucket_batch=False)
+                    add(name, n)
+                    require(np.array_equal(toks[i], solo[0]),
+                            f"6mc (a) {name}: request {i} batched != solo")
+                inter, _, n1 = sched_run(eng, disagg, n_sites,
+                                         bucket_batch=False,
+                                         prefill_chunk=CHUNK_W)
+                dis, sch, n2 = sched_run(eng, disagg, n_sites,
+                                         bucket_batch=False,
+                                         disaggregate=True,
+                                         prefill_chunk=CHUNK_W)
+                add(name, n1)
+                add(name, n2)
+                require(all(np.array_equal(a, b)
+                            for a, b in zip(inter, dis)),
+                        f"6mc (c) {name}: disaggregated tokens differ")
+            streams[name] = toks + inter
+            log(f"   6mc {name}: (a) 4 requests batched == solo bitwise; "
+                f"(c) disaggregated == interleaved bitwise in {CHUNK_W}-token"
+                f" windows, {sch.shipped_bytes} B shipped; "
+                f"{drops.total()} of {drops.assignments} assignments dropped"
+                f"; {time.perf_counter() - t0:.2f} s")
+            if name != "gathered_2:4":          # nm24's, bitwise (below)
+                t0 = time.perf_counter()
+                add(name, moe_cross_shape(eng, name, longs, short, n_sites))
+                log(f"   6mc (b) {name}: {time.perf_counter() - t0:.2f} s")
+        require(all(np.array_equal(a, b) for a, b in
+                    zip(streams["nm24"], streams["gathered_2:4"])),
+                "6mc: nm24 and gathered differ on the 2:4 masks")
+        p = longs[CHUNK_PROMPTS[-1]]
+        toks = torch.zeros((1, 512), dtype=torch.int64)
+        toks[0, :len(p)] = torch.from_numpy(p.astype(np.int64))
+        toks = toks.to(device)
+        runs = [forced_run(engines[nm], toks, len(p), 512, 8, window=CHUNK_W)
+                for nm in ("nm24", "gathered_2:4")]
+        require(torch.equal(runs[0][0], runs[1][0]),
+                "6mc: nm24 and gathered logits differ on the 2:4 masks")
+        log("   6mc nm24 == gathered (2:4 masks): scheduler streams and "
+            f"chunked-prefill logits (S={len(p)}) bitwise equal")
+        # (d) chaos, nm24
+        work = loadgen.make_workload(loadgen.LoadConfig(
+            arrival_rate=64.0, duration_s=0.5, prompt_len=(16, 128),
+            output_len=(8, 48), vocab_size=vocab))
+        before = {kk: ops.LAUNCHES[kk] for kk in n_sites}
+        t0 = time.perf_counter()
+        res = loadgen.run_chaos(engines["nm24"], work, FaultPlan.chaos(0),
+                                prefill_chunk=CHUNK_W, **CONT)
+        add("nm24", {kk: ops.LAUNCHES[kk] - v for kk, v in before.items()})
+        require(res["leaked_bytes"] == 0 and res["stream_mismatches"] == 0
+                and res["ok"] and res["faults_fired"],
+                f"6mc (d) nm24: chaos verdict {res}")
+        log(f"   6mc (d) nm24 chaos [{res['plan']}]: "
+            f"{res['completed_faulted']}/{res['n_requests']} completed, "
+            f"leaked 0 B, 0 mismatches, fired {res['faults_fired']}, "
+            f"counters {res['counters']}; {time.perf_counter() - t0:.2f} s")
+        # (f) the load rows, then a profiled pass of each packed format
+        wl = loadgen.make_workload(loadgen.LoadConfig(
+            arrival_rate=LOAD_RATES[0],
+            duration_s=LOAD_REQUESTS / LOAD_RATES[0],
+            prompt_len=LOAD_PROMPT, output_len=LOAD_OUTPUT, seed=0,
+            vocab_size=vocab))[:MOE_LOAD_REQUESTS]
+        asked = sum(r.max_new for r in wl)
+        for name in ("masked", "nm24", "gathered"):
+            before = {kk: ops.LAUNCHES[kk] for kk in n_sites}
+            t0 = time.perf_counter()
+            with moe.count_drops() as drops:
+                r = loadgen.run_continuous(engines[name], wl, warmup=False,
+                                           prefill_chunk=CHUNK_W, **CONT)
+            add(name, {kk: ops.LAUNCHES[kk] - v for kk, v in before.items()})
+            require(r["completed"] == len(wl) and r["leaked_bytes"] == 0,
+                    f"6mc (f) {name}: {r['completed']} of {len(wl)} "
+                    f"completed, {r['leaked_bytes']} B left in the pools")
+            log(f"   6mc (f) {name:8s} {len(wl)} requests at "
+                f"{LOAD_RATES[0]}/s ({asked} tokens asked): "
+                f"{r['completed']} done, 0 B left, makespan "
+                f"{r['makespan_s']:.3f} s, goodput "
+                f"{r['goodput_tok_s']:.1f} tok/s, TTFT p50 "
+                f"{1e3 * r['p50_ttft_s']:.1f} p99 "
+                f"{1e3 * r['p99_ttft_s']:.1f} ms, per-token p50 "
+                f"{1e3 * r['p50_tok_latency_s']:.2f} p99 "
+                f"{1e3 * r['p99_tok_latency_s']:.2f} ms, wasted "
+                f"{r['wasted_decode_tokens']} tokens; {drops.total()} of "
+                f"{drops.assignments} assignments dropped; "
+                f"{time.perf_counter() - t0:.2f} s")
+        # the profiled pass takes the first PROFILED_REQUESTS: the trace's
+        # post-processing grows with its ~200k kernel records
+        before = {kk: ops.LAUNCHES[kk] for kk in n_sites}
+        calls.order.clear()
+        acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
+        with profile(activities=acts) as prof:
+            sync(cuda)
+            t0 = time.perf_counter()
+            r = loadgen.run_continuous(engines["nm24"],
+                                       wl[:PROFILED_REQUESTS], warmup=False,
+                                       prefill_chunk=CHUNK_W, **CONT)
+            sync(cuda)
+            wall = 1e3 * (time.perf_counter() - t0)
+        add("nm24", {kk: ops.LAUNCHES[kk] - v for kk, v in before.items()})
+        split = device_split(prof, calls.order)
+        fmt = lambda v: "not measured (lost records)" if v is None \
+            else f"{v:.2f} ms"  # noqa: E731
+        log(f"   6mc (f) nm24, the first {PROFILED_REQUESTS} requests under "
+            f"torch.profiler: wall {wall:.2f} ms, device busy "
+            f"{split['device']:.2f} ms ({100 * split['device'] / wall:.1f}%"
+            f"), spmm {fmt(split['spmm'])}, spmm_stacked "
+            f"{fmt(split['spmm_stacked'])} ({calls.order.count('spmm')} + "
+            f"{calls.order.count('spmm_stacked')} calls); goodput "
+            f"{r['goodput_tok_s']:.1f} tok/s")
+    del engines
+    torch.cuda.empty_cache()
+    nm, ga, ga24 = (launches[k] for k in ("nm24", "gathered", "gathered_2:4"))
+    return ({"spmm": nm["spmm"], "spmm_gather": ga["spmm"] + ga24["spmm"],
+             "spmm_stacked": nm["spmm_stacked"],
+             "spmm_stacked_gather": ga["spmm_stacked"]
+             + ga24["spmm_stacked"]}, calls.stacked)
 
 
 def other_shapes(clock_mhz: float) -> None:
@@ -1696,16 +2240,18 @@ def other_config(name: str) -> dict:
 
 
 def moe_config(name: str, *, serve: bool) -> dict:
-    """Phases 4m (and 6m with ``serve``) for one MoE config at full width,
-    2 layers, bf16, random weights from seed 0: phase 4's prune_model with
-    its gates (``check_pruned``: an MoE tap's Gram one stacked launch a
-    layer and batch; swap_topk once per instance and search pass, every
-    expert of a layer an instance), time, peak memory and a masks digest;
-    then phase 6's serving without the timed runs: dense, masked, nm24 and
-    gathered on the PerRow(0.6) and Wanda 2:4 masks, attention through
-    spmm and the experts through spmm_stacked (sites x layers x 16
-    launches each a packed generate), nm24 == gathered bitwise, packed vs
-    masked logits within SERVE_TOL. Returns the launches of both paths."""
+    """Phases 4m (and 6m, 6mc with ``serve``) for one MoE config at full
+    width, 2 layers, bf16, random weights from seed 0: phase 4's
+    prune_model with its gates (``check_pruned``: an MoE tap's Gram one
+    stacked launch a layer and batch; swap_topk once per instance and
+    search pass, every expert of a layer an instance), time, peak memory
+    and a masks digest; then phase 6's serving without the timed runs:
+    dense, masked, nm24 and gathered on the PerRow(0.6) and Wanda 2:4
+    masks, attention through spmm and the experts through spmm_stacked
+    (sites x layers x 16 launches each a packed generate), nm24 ==
+    gathered bitwise, packed vs masked logits within SERVE_TOL; then the
+    continuous scheduler on the same masks (``moe_continuous_path``).
+    Returns the launches of each path and the stacked calls by shape."""
     import torch
     from repro_torch import configs, models, pruning
     from repro_torch.core import masks
@@ -1767,6 +2313,14 @@ def moe_config(name: str, *, serve: bool) -> dict:
             out["serve"] = serve_path(api, params, _tree_to(masks60, dev),
                                       rep24.masks, pipe.get(0), bench=False)
             log(f"   {name}: spmm launches {out['serve']}")
+        torch.cuda.empty_cache()
+        with Phase(f"6mc {name}: continuous serving: scheduler, chunked "
+                   "prefill, disaggregation, chaos, load"):
+            out["continuous"], out["stacked_calls"] = moe_continuous_path(
+                api, params, _tree_to(masks60, dev), rep24.masks)
+            log(f"   {name}: spmm launches {out['continuous']}; "
+                f"spmm_stacked calls by (E, T, d_out, d_in, format): "
+                f"{dict(sorted(out['stacked_calls'].items()))}")
             del rep24
     del params, masks60, batches
     torch.cuda.empty_cache()
@@ -1997,6 +2551,12 @@ P9_LAYERS, P9_VOCAB = 1, 32000
 TRAIN_STEPS, TRAIN_CKPT = 8, 4
 RECOVER_STEPS, RECOVER_CKPT = 20, 10
 TIMED_STEPS = 4          # CUDA-event timed steps; the median skips the first
+# phase 9m: granite-moe-3b-a800m at full width and its own vocabulary
+# 49155. At 2 layers (0.35 B params, a 3.5 GB TrainState: bf16 params,
+# fp32 m and v) the phase writes 16.7 GB, which with phases 7 (8.3 GB)
+# and 9 (24.0 GB) would pass the 45 GiB budget; at 1 layer (0.25 B
+# params, 2.5 GB) 9.9 GB
+P9M_LAYERS = 1
 
 
 def event_ms(step, state, *args, n: int = TIMED_STEPS) -> float:
@@ -2041,11 +2601,54 @@ def equal_trees(a, b) -> bool:
         torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
 
 
-def train_recover_path(cfg, smi: str, device="cuda") -> dict:
-    """Phase 9 on ``cfg`` (registered under its name for the launchers):
-    train -> prune the trained checkpoint -> recover (resumed) -> export
-    -> serve the export. Returns the kernel launches of its prune and
-    serve runs ({gram_xtx, swap_topk, spmm, spmm_gather})."""
+def deterministic_mode(seen: set):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` while
+    entered: every op without a deterministic implementation warns
+    instead of running as it would, and each distinct warning text is
+    added to ``seen``."""
+    import contextlib
+    import warnings
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    yield
+                finally:
+                    seen.update(str(w.message) for w in caught)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return ctx()
+
+
+# each recovery run of phases 9 and 9m, into one out dir: (selection, its
+# checkpoint period in steps (0: none), rerun to resume). Phase 9 resumes
+# all_masked; 9m checkpoints all_masked once (its m and v are read there)
+# and resumes lora, whose checkpoints hold only the adapters: the write
+# budget.
+RECOVERIES_9 = (("all_masked", RECOVER_CKPT, True), ("norms", 0, False))
+RECOVERIES_9M = (("all_masked", RECOVER_STEPS, False),
+                 ("lora", RECOVER_CKPT, True))
+
+
+def train_recover_path(cfg, smi: str, device="cuda", *,
+                       recoveries=RECOVERIES_9, deterministic=False,
+                       tag: str = "9") -> dict:
+    """Phase 9 (and 9m) on ``cfg`` (registered under its name for the
+    launchers): train -> prune the trained checkpoint -> recover each of
+    ``recoveries`` into one out dir (a rerun of the resumed one) -> export
+    the first -> serve the export. With ``deterministic``, a second
+    uninterrupted run must repeat the first bitwise, and the preempted
+    and resumed runs (and the uninterrupted run they are held to) train
+    under ``deterministic_mode``: every op it flags is printed, and any
+    but cuBLAS's workspace notice fails the phase. Returns the kernel
+    launches of its prune and serve runs."""
+    import contextlib
     import importlib
     import os
     import shutil
@@ -2061,7 +2664,6 @@ def train_recover_path(cfg, smi: str, device="cuda") -> dict:
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.optim import adamw
-    from repro_torch.pruning import sites
     from repro_torch.serve import ServeEngine
     from repro_torch.train import steps as steps_lib
 
@@ -2070,14 +2672,23 @@ def train_recover_path(cfg, smi: str, device="cuda") -> dict:
     configs.ARCHS[cfg.name] = cfg
     arch, n_layers = cfg.name, cfg.n_layers
     api = models.build(cfg)
-    n_sites = len(sites.site_specs(cfg, api.init(device="meta")))
-    totals = {"gram_xtx": 0, "swap_topk": 0, "spmm": 0, "spmm_gather": 0}
+    n_sites = spmm_sites(cfg, api.init(device="meta"))
+    totals = dict.fromkeys(("gram_xtx", "gram_xtx_stacked", "swap_topk",
+                            "spmm", "spmm_gather", "spmm_stacked",
+                            "spmm_stacked_gather"), 0)
     pattern = masks.PerRow(0.6)
     common = dict(arch=arch, tiny=False, device=device)
 
     def count(launches):
         totals["gram_xtx"] += launches["gram_xtx"] + launches["gram_xtx_bf16"]
+        totals["gram_xtx_stacked"] += (launches["gram_xtx_stacked"]
+                                       + launches["gram_xtx_stacked_bf16"])
         totals["swap_topk"] += launches["swap_topk"]
+
+    def count_spmm(fmt, before):
+        suffix = "" if fmt == "nm24" else "_gather"
+        for k, v in before.items():
+            totals[k + suffix] += ops.LAUNCHES[k] - v
 
     def sigterm_after(n: int):
         """A make_train_step whose step sends this process SIGTERM after
@@ -2120,24 +2731,40 @@ def train_recover_path(cfg, smi: str, device="cuda") -> dict:
                 f"step 0's {losses[0]}")
         params1 = full["state"].params
         del full
-        kw.update(ckpt_dir=str(tdir), ckpt_every=TRAIN_CKPT)
-        real_make = steps_lib.make_train_step
-        steps_lib.make_train_step = sigterm_after(TRAIN_CKPT)
-        try:
+        flagged = set()
+        if deterministic:
+            again, _ = echo_run(launch_train.train, **kw)
+            require(again["losses"] == losses
+                    and equal_trees(again["state"].params, params1),
+                    "two uninterrupted runs differ: the backward is not "
+                    "deterministic")
+            del again
+        with (deterministic_mode(flagged) if deterministic
+              else contextlib.nullcontext()):
+            if deterministic:
+                ref, _ = echo_run(launch_train.train, **kw)
+                same = (ref["losses"] == losses
+                        and equal_trees(ref["state"].params, params1))
+                losses, params1 = ref["losses"], ref["state"].params
+                del ref
+            kw.update(ckpt_dir=str(tdir), ckpt_every=TRAIN_CKPT)
+            real_make = steps_lib.make_train_step
+            steps_lib.make_train_step = sigterm_after(TRAIN_CKPT)
+            try:
+                t0 = time.perf_counter()
+                cut, text = echo_run(launch_train.train, **kw)
+                t_cut = time.perf_counter() - t0
+            finally:
+                steps_lib.make_train_step = real_make
+            require("preempted at step 3" in text
+                    and cut["final_step"] == TRAIN_CKPT
+                    and ckpt.steps(tdir) == [TRAIN_CKPT],
+                    f"SIGTERM did not stop the run at step {TRAIN_CKPT} with "
+                    f"one checkpoint: {ckpt.steps(tdir)}")
+            del cut
             t0 = time.perf_counter()
-            cut, text = echo_run(launch_train.train, **kw)
-            t_cut = time.perf_counter() - t0
-        finally:
-            steps_lib.make_train_step = real_make
-        require("preempted at step 3" in text
-                and cut["final_step"] == TRAIN_CKPT
-                and ckpt.steps(tdir) == [TRAIN_CKPT],
-                f"SIGTERM did not stop the run at step {TRAIN_CKPT} with one "
-                f"checkpoint: {ckpt.steps(tdir)}")
-        del cut
-        t0 = time.perf_counter()
-        run2, _ = echo_run(launch_train.train, **kw)
-        t_run2 = time.perf_counter() - t0
+            run2, _ = echo_run(launch_train.train, **kw)
+            t_run2 = time.perf_counter() - t0
         require(run2["start_step"] == TRAIN_CKPT
                 and run2["final_step"] == TRAIN_STEPS,
                 f"resume ran {run2['start_step']}..{run2['final_step']}")
@@ -2147,11 +2774,19 @@ def train_recover_path(cfg, smi: str, device="cuda") -> dict:
         require(equal_trees(run2["state"].params, params1),
                 "the resumed run's params differ from the uninterrupted "
                 "run's")
-        log(f"   (a) train: losses {[round(x, 4) for x in losses]}; "
+        log(f"   ({tag}a) train: losses {[round(x, 4) for x in losses]}; "
             f"{t_full:.2f} s for {TRAIN_STEPS} steps; with checkpoints "
             f"{t_cut:.2f} s to the SIGTERM and its step-{TRAIN_CKPT} "
             f"checkpoint, {t_run2:.2f} s resumed to the end: losses and "
             "params bitwise the uninterrupted run's")
+        if deterministic:
+            log(f"   ({tag}a) two uninterrupted runs bitwise equal; under "
+                f"deterministic algorithms (the preempted and resumed runs "
+                f"and the run they match) the losses and params "
+                f"{'equal' if same else 'DIFFER from'} the default mode's; "
+                f"ops flagged: {sorted(m[:160] for m in flagged) or 'none'}")
+            require(all("CuBLAS" in m for m in flagged),
+                    f"a nondeterministic op in the train step: {flagged}")
         pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
                                       4, 128, split="train", device=device)
         step = steps_lib.make_train_step(api, adamw.AdamWConfig())
@@ -2160,138 +2795,143 @@ def train_recover_path(cfg, smi: str, device="cuda") -> dict:
         trained = run2["state"].params
         del run2, params1, step
 
-        # (b) prune the trained checkpoint, (c) recover all_masked, resumed
+        # (b) prune the trained checkpoint, (c) each recovery into the same
+        # out dir (the first run computes every group, later ones restore)
         pdir = work / "prune"
+        rdir = pdir / "prune_ckpt" / "recover"
         pkw = dict(common, pattern="0.6", warmstart="wanda",
                    method="sparseswaps", k_swaps=8, t_max=T_MAX, n_calib=16,
                    calib_seq=128, calib_batch=4, seed=0, out_dir=str(pdir),
-                   calib_ckpt_every=RECOVER_CKPT, from_ckpt=str(tdir),
-                   recover="all_masked", recover_steps=RECOVER_STEPS)
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        resA, _ = echo_run(launch_prune.prune, **pkw)
-        t_prune = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        count(launches)
-        rep, ex = resA["report"], resA["executor"]
-        require(equal_trees(ex.params, trained),
-                "--from-ckpt did not prune the trained params")
-        check_pruned(api, ex.params, rep, launches, 4, pattern,
-                     resA["dense"], resA["pruned"])
-        rr = resA["recover_result"]
-        rdir = pdir / "prune_ckpt" / "recover"
-        require(rr.steps_run == RECOVER_STEPS and not rr.diverged
-                and all(math.isfinite(c) for c in rr.ce_history),
-                f"recovery CE not finite at every step: {rr.ce_history}")
-        require(ckpt.steps(rdir) == [RECOVER_CKPT, RECOVER_STEPS],
-                f"recovery checkpoints {ckpt.steps(rdir)}")
-        flat_masks = dict(rec_mod._flat_leaves(rep.masks))
-        flat_rec = dict(rec_mod._flat_leaves(rep.updated_params))
-        for name, m in flat_masks.items():
-            require(not bool(flat_rec[name][m == 0].any()),
-                    f"{name}: a pruned weight is nonzero after recovery")
-        saved, _ = ckpt.restore(rdir, RECOVER_STEPS,
-                                [f".opt/.{p}/{n}" for p in "mv"
-                                 for n in flat_masks])
-        for path, arr in saved.items():
-            m = flat_masks[path.split("/")[-1]]
-            require(not bool(ckpt.to_tensor(arr, device)[m == 0].any()),
-                    f"{path}: a moment is nonzero at a pruned coordinate")
-        del saved
-        log(f"   (b) prune --from-ckpt: {t_prune:.2f} s with recovery, "
-            f"launches {launches}; dense ppl "
-            f"{resA['dense']['perplexity']:.4f}, pruned ppl "
-            f"{resA['pruned']['perplexity']:.4f}, error reduction "
-            f"{100 * rep.mean_error_reduction():.3f}%; masks digest "
-            f"{digest(mask_leaves(rep.masks))}")
-        log(f"   (c) recover all_masked: CE {rr.ce_history[0]:.4f} -> "
-            f"{rr.ce_history[-1]:.4f} over {rr.steps_run} steps, trainable "
-            f"{rr.trainable_count} of {rr.total_count} "
-            f"({100 * rr.trainable_frac:.3f}%), recovered ppl "
-            f"{resA['recovered']['perplexity']:.4f}; pruned coordinates "
-            "0.0 in the weights, m and v")
-        recovered = rep.updated_params
-        shutil.rmtree(rdir / f"step_{RECOVER_STEPS:08d}")
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        resB, text = echo_run(launch_prune.prune, **pkw)
-        t_resume = time.perf_counter() - t0
-        count(dict(ops.LAUNCHES))
-        rr2 = resB["recover_result"]
-        require(f"recover: resumed at step {RECOVER_CKPT}" in text,
-                "the rerun did not resume the recovery")
-        require(rr2.start_step == RECOVER_CKPT
-                and rr2.steps_run == RECOVER_STEPS - RECOVER_CKPT,
-                f"the rerun ran {rr2.start_step} + {rr2.steps_run} steps")
-        require(equal_trees(resB["report"].updated_params, recovered),
-                "the resumed recovery's params differ from the "
-                "uninterrupted run's")
-        require(rr2.ce_history == rr.ce_history[RECOVER_CKPT:],
-                "the resumed recovery's CE differs")
-        log(f"   (c) rerun: {t_resume:.2f} s, resumed at step "
-            f"{rr2.start_step}, ran {rr2.steps_run} steps: recovered "
-            "params and CE bitwise the uninterrupted run's")
-        sel = rec_mod.build_selection(trained, rep.masks, rr.spec)
-        rstep = rec_mod._make_step(api, rep.masks, sel, rr.spec.opt_config())
-        rstate = steps_lib.TrainState(sel.trainable,
-                                      adamw.init(sel.trainable))
+                   from_ckpt=str(tdir), recover_steps=RECOVER_STEPS)
         batch = pipe.get(1)
-        rec_ms = (event_ms(rstep, rstate, trained, batch) if cuda
-                  else float("nan"))
-        del sel, rstep, rstate
+        step_ms, first = {}, None
+        for select, every, resumed in recoveries:
+            rkw = dict(pkw, recover=select, calib_ckpt_every=every)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res, _ = echo_run(launch_prune.prune, **rkw)
+            t_run = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            count(launches)
+            rep, ex = res["report"], res["executor"]
+            if first is None:
+                require(equal_trees(ex.params, trained),
+                        "--from-ckpt did not prune the trained params")
+                check_pruned(api, ex.params, rep, launches, 4, pattern,
+                             res["dense"], res["pruned"])
+                log(f"   ({tag}b) prune --from-ckpt: {t_run:.2f} s with "
+                    f"recovery, launches {launches}; dense ppl "
+                    f"{res['dense']['perplexity']:.4f}, pruned ppl "
+                    f"{res['pruned']['perplexity']:.4f}, error reduction "
+                    f"{100 * rep.mean_error_reduction():.3f}%; masks digest "
+                    f"{digest(mask_leaves(rep.masks))}")
+            rr = res["recover_result"]
+            require(rr.steps_run == RECOVER_STEPS and not rr.diverged
+                    and all(math.isfinite(c) for c in rr.ce_history),
+                    f"{select} recovery CE not finite at every step: "
+                    f"{rr.ce_history}")
+            notes = ""
+            if select in ("all_masked", "lora"):
+                flat_masks = dict(rec_mod._flat_leaves(rep.masks))
+                flat_rec = dict(rec_mod._flat_leaves(rep.updated_params))
+                for name, m in flat_masks.items():
+                    require(not bool(flat_rec[name][m == 0].any()),
+                            f"{select} {name}: a pruned weight is nonzero "
+                            "after recovery")
+                notes = "; pruned coordinates 0.0 in the weights"
+            if every:
+                want = list(range(every, RECOVER_STEPS + 1, every))[-2:]
+                require(ckpt.steps(rdir) == want,
+                        f"{select} recovery checkpoints {ckpt.steps(rdir)}, "
+                        f"want {want}")
+            if select == "all_masked" and every:
+                saved, _ = ckpt.restore(rdir, RECOVER_STEPS,
+                                        [f".opt/.{p}/{n}" for p in "mv"
+                                         for n in flat_masks])
+                for path, arr in saved.items():
+                    m = flat_masks[path.split("/")[-1]]
+                    require(not bool(ckpt.to_tensor(arr, device)[m == 0]
+                                     .any()),
+                            f"{path}: a moment is nonzero at a pruned "
+                            "coordinate")
+                del saved
+                notes += ", m and v"
+            if select == "norms":
+                base = dict(rec_mod._flat_leaves(trained))
+                notes = "; norm scale elements changed: " + str(
+                    {n: f"{int((a != base[n]).sum())}/{a.numel()} {a.dtype}"
+                     for n, a in rec_mod._flat_leaves(rr.trainable)})
+            log(f"   ({tag}c) recover {select}: {t_run:.2f} s, CE "
+                f"{rr.ce_history[0]:.4f} -> {rr.ce_history[-1]:.4f} over "
+                f"{rr.steps_run} steps, trainable {rr.trainable_count} of "
+                f"{rr.total_count} ({100 * rr.trainable_frac:.4f}%), "
+                f"recovered ppl {res['recovered']['perplexity']:.4f}{notes}")
+            if resumed:
+                recovered = rep.updated_params
+                shutil.rmtree(rdir / f"step_{RECOVER_STEPS:08d}")
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                res, text = echo_run(launch_prune.prune, **rkw)
+                t_resume = time.perf_counter() - t0
+                count(dict(ops.LAUNCHES))
+                rr2 = res["recover_result"]
+                back = RECOVER_STEPS - every
+                require(f"recover: resumed at step {back}" in text,
+                        f"the {select} rerun did not resume the recovery")
+                require(rr2.start_step == back
+                        and rr2.steps_run == RECOVER_STEPS - back,
+                        f"the {select} rerun ran {rr2.start_step} + "
+                        f"{rr2.steps_run} steps")
+                require(equal_trees(res["report"].updated_params, recovered),
+                        f"the resumed {select} recovery's params differ from "
+                        "the uninterrupted run's")
+                require(rr2.ce_history == rr.ce_history[back:],
+                        f"the resumed {select} recovery's CE differs")
+                log(f"   ({tag}c) {select} rerun: {t_resume:.2f} s, resumed "
+                    f"at step {rr2.start_step}, ran {rr2.steps_run} steps: "
+                    "recovered params and CE bitwise the uninterrupted run's")
+                del recovered
+            sel = rec_mod.build_selection(trained, rep.masks, rr.spec)
+            rstep = rec_mod._make_step(api, rep.masks, sel,
+                                       rr.spec.opt_config())
+            rstate = steps_lib.TrainState(sel.trainable,
+                                          adamw.init(sel.trainable))
+            step_ms[select] = (event_ms(rstep, rstate, trained, batch)
+                               if cuda else float("nan"))
+            del sel, rstep, rstate
+            if first is None:
+                first = res
+            del res
 
-        # (c) norms, into the same out dir (groups restored, no checkpoints)
-        ops.reset_launches()
-        resN, _ = echo_run(launch_prune.prune, **dict(
-            pkw, recover="norms", calib_ckpt_every=0))
-        count(dict(ops.LAUNCHES))
-        rn = resN["recover_result"]
-        require(rn.steps_run == RECOVER_STEPS
-                and all(math.isfinite(c) for c in rn.ce_history),
-                "norms recovery CE not finite")
-        base = dict(rec_mod._flat_leaves(trained))
-        moved = {n: f"{int((a != base[n]).sum())}/{a.numel()} {a.dtype}"
-                 for n, a in rec_mod._flat_leaves(rn.trainable)}
-        log(f"   (c) recover norms: CE {rn.ce_history[0]:.4f} -> "
-            f"{rn.ce_history[-1]:.4f}, trainable {rn.trainable_count} "
-            f"({100 * rn.trainable_frac:.4f}%), recovered ppl "
-            f"{resN['recovered']['perplexity']:.4f}; norm scale elements "
-            f"changed: {moved}")
-        sel = rec_mod.build_selection(trained, rep.masks, rn.spec)
-        rstep = rec_mod._make_step(api, rep.masks, sel, rn.spec.opt_config())
-        rstate = steps_lib.TrainState(sel.trainable,
-                                      adamw.init(sel.trainable))
-        norms_ms = (event_ms(rstep, rstate, trained, batch) if cuda
-                    else float("nan"))
-        del sel, rstep, rstate, resN, resA
-
-        # (d) export and serve: PerRow(0.6) gathered; a 2:4 run for nm24
+        # (d) export and serve the first recovery: PerRow(0.6) gathered;
+        # a 2:4 run for nm24
         prompt = synthetic.DataPipeline(
             synthetic.CorpusConfig(cfg.vocab_size, seed=0), 4, 32,
             split="val", device=device).get(0)
-        ex, rep = resB["executor"], resB["report"]
+        ex, rep = first["executor"], first["report"]
         ops.reset_launches()
         res24, _ = echo_run(launch_prune.prune, **dict(
-            pkw, pattern="2:4", out_dir=None, calib_ckpt_every=0))
+            pkw, recover=recoveries[0][0], pattern="2:4", out_dir=None,
+            calib_ckpt_every=0))
         count(dict(ops.LAUNCHES))
+        want_n = {k: v * n_layers * SERVE_GEN if cuda else 0
+                  for k, v in n_sites.items()}
         for fmt, (exe, rp) in (("gathered", (ex, rep)),
                                ("nm24", (res24["executor"],
                                          res24["report"]))):
             out = exe.export_packed(work / f"export_{fmt}", fmt)
-            first = ops.LAUNCHES["spmm"]
+            first_n = {k: ops.LAUNCHES[k] for k in n_sites}
             want = ServeEngine(api, rp.updated_params, masks=rp.masks,
                                fmt=fmt, device=device)
-            key = "spmm" if fmt == "nm24" else "spmm_gather"
-            before = ops.LAUNCHES["spmm"]
+            before = {k: ops.LAUNCHES[k] for k in n_sites}
             served, _ = echo_run(
                 launch_serve.serve, **dict(
                     common, batch=4, prompt_len=32,
                     gen=SERVE_GEN, masks_from=str(out), fmt=fmt, seed=0,
                     from_ckpt=str(tdir), verbose=False))
-            n = ops.LAUNCHES["spmm"] - before
-            require(n == n_sites * n_layers * SERVE_GEN,
-                    f"{fmt}: serving the export launched spmm {n} times, "
-                    f"want {n_sites * n_layers * SERVE_GEN}")
+            n = {k: ops.LAUNCHES[k] - v for k, v in before.items()}
+            require(n == want_n, f"{fmt}: serving the export launched {n}, "
+                    f"want {want_n}")
             direct = want.generate(prompt, SERVE_GEN)
             require(torch.equal(served["tokens"], direct.tokens),
                     f"{fmt}: the export's greedy tokens differ from the "
@@ -2306,36 +2946,41 @@ def train_recover_path(cfg, smi: str, device="cuda") -> dict:
                                  fmt="masked", device=device)
             ref = masked.logits_trace(prompt, SERVE_GEN)
             toks = masked.generate(prompt, SERVE_GEN).tokens
-            err = float((forced_logits(want, prompt, toks) - ref).abs().max())
+            if cfg.is_moe:
+                err = routed_pair(want, masked, prompt, toks,
+                                  f"({tag}d) {fmt} vs masked")
+            else:
+                err = float((forced_logits(want, prompt, toks) - ref)
+                            .abs().max())
             scale = float(ref.abs().max())
             require(math.isfinite(err) and err <= SERVE_TOL * scale,
                     f"{fmt} vs masked beyond {SERVE_TOL} of max|logits|")
-            totals[key] += ops.LAUNCHES["spmm"] - first
-            log(f"   (d) {fmt}: launch.serve --masks-from the export: "
+            count_spmm(fmt, first_n)
+            log(f"   ({tag}d) {fmt}: launch.serve --masks-from the export: "
                 f"tokens and logits bitwise the in-process recovered "
                 f"model's, spmm launches {n}; vs masked (fed its tokens) "
                 f"{err / scale:.2e} of max|logits| {scale:.3f}")
             del want, via, masked
         groups = pdir / "prune_ckpt"
-        before = ops.LAUNCHES["spmm"]
+        before = {k: ops.LAUNCHES[k] for k in n_sites}
         served, _ = echo_run(launch_serve.serve, **dict(
             common, batch=4, prompt_len=32, gen=SERVE_GEN,
             masks_from=str(groups), fmt="gathered", seed=0,
             from_ckpt=str(tdir), verbose=False))
         want = ServeEngine(api, trained, masks=rep.masks, fmt="gathered",
                            device=device).generate(prompt, SERVE_GEN)
-        totals["spmm_gather"] += ops.LAUNCHES["spmm"] - before
+        count_spmm("gathered", before)
         require(torch.equal(served["tokens"], want.tokens),
                 "serving prune_ckpt/groups differs from the run's masks")
-        log("   (d) launch.serve --masks-from prune_ckpt (groups/): tokens "
-            "bitwise the pruned model's")
-        del resB, res24, ex, rep, trained, recovered
+        log(f"   ({tag}d) launch.serve --masks-from prune_ckpt (groups/): "
+            "tokens bitwise the pruned model's")
+        del first, res24, ex, rep, trained
     peak = (torch.cuda.max_memory_allocated() / 2**30 if cuda
             else float("nan"))
-    log(f"   train step {train_ms:.2f} ms, recover step all_masked "
-        f"{rec_ms:.2f} ms, norms {norms_ms:.2f} ms (CUDA events, median "
-        f"of steps 2-{TIMED_STEPS}); peak memory {peak:.2f} GiB; phase "
-        f"{time.perf_counter() - t_phase:.2f} s; {smi}")
+    log(f"   train step {train_ms:.2f} ms, recover steps "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items())
+        + f" (CUDA events, median of steps 2-{TIMED_STEPS}); peak memory "
+        f"{peak:.2f} GiB; phase {time.perf_counter() - t_phase:.2f} s; {smi}")
     return totals
 
 
@@ -2571,32 +3216,51 @@ def main() -> int:
             f"{P9_LAYERS}, vocabulary {P9_VOCAB} (the write budget)")
         rec_launches = train_recover_path(cfg9, smi)
         log(f"   launches {rec_launches}")
+    torch.cuda.empty_cache()
+    with Phase("9m MoE training and recovery: train, prune --from-ckpt, "
+               "recover all_masked and lora, export, serve the export"):
+        moe9 = configs.get(MOE[1])
+        cfg9m = moe9.replace(name=f"{moe9.name}-L{P9M_LAYERS}",
+                             n_layers=P9M_LAYERS)
+        log(f"   config: {cfg9m.name}: {moe9.name} at full width, its "
+            f"vocabulary {moe9.vocab_size}, depth {P9M_LAYERS} (the write "
+            f"budget); {cfg9m.n_params()} params")
+        with SpmmCalls() as calls:
+            moe_rec = train_recover_path(cfg9m, smi,
+                                         recoveries=RECOVERIES_9M,
+                                         deterministic=True, tag="9m")
+        log(f"   launches {moe_rec}; spmm_stacked calls by (E, T, d_out, "
+            f"d_in, format): {dict(sorted(calls.stacked.items()))}")
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o.get("serve"))
         for o in (*other.values(), *moe.values())]
     served = [s for _, s in runs if s is not None]
+    # the continuous runs (6c, 6mc) and the served exports (9, 9m)
+    later = [cont_launches, rec_launches, moe_rec] + [
+        o["continuous"] for o in moe.values() if "continuous" in o]
+    more = lambda k: sum(x.get(k, 0) for x in later)  # noqa: E731
     launches = {"gram_xtx": sum(p["gram_xtx_bf16"] + p["gram_xtx"]
-                                for p, _ in runs) + rec_launches["gram_xtx"],
+                                for p, _ in runs) + more("gram_xtx"),
                 "gram_xtx_stacked": sum(p["gram_xtx_stacked_bf16"]
                                         + p["gram_xtx_stacked"]
-                                        for p, _ in runs),
+                                        for p, _ in runs)
+                + more("gram_xtx_stacked"),
                 "swap_topk": sum(p["swap_topk"] for p, _ in runs)
-                + rec_launches["swap_topk"],
+                + more("swap_topk"),
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches,
                 "spmm": sum(s["nm24_2:4"]["spmm"] for s in served)
-                + cont_launches["spmm"] + rec_launches["spmm"],
+                + more("spmm"),
                 "spmm_gather": sum(s["gathered_0.6"]["spmm"]
                                    + s["gathered_2:4"]["spmm"]
-                                   for s in served)
-                + cont_launches["spmm_gather"]
-                + rec_launches["spmm_gather"],
+                                   for s in served) + more("spmm_gather"),
                 "spmm_stacked": sum(s["nm24_2:4"]["spmm_stacked"]
-                                    for s in served),
+                                    for s in served) + more("spmm_stacked"),
                 "spmm_stacked_gather": sum(
                     s["gathered_0.6"]["spmm_stacked"]
-                    + s["gathered_2:4"]["spmm_stacked"] for s in served)}
+                    + s["gathered_2:4"]["spmm_stacked"] for s in served)
+                + more("spmm_stacked_gather")}
     rows = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]
@@ -2606,7 +3270,12 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
-    log(f"   total {time.perf_counter() - t_start:.1f} s")
+    written = bytes_written()
+    log(f"   total {time.perf_counter() - t_start:.1f} s, "
+        f"{written / 2**30:.2f} GiB written")
+    require(written <= WRITE_BUDGET,
+            f"the run wrote {written / 2**30:.2f} GiB, more than "
+            f"{WRITE_BUDGET / 2**30:.0f}")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,29 @@ indexed copies through one extra row: dropped assignments write it (and
 it is cut off) and read it as zeros in the combine, so nothing reads the
 device from the host.
 
+The backward adds no gradient in an order the device chooses: the
+dispatch copies each token to its k assignments by a broadcast, whose
+backward sums the k rows in a fixed order (an ``index_select`` by token
+would backpropagate through an atomic ``index_add``), and the
+``index_copy_`` into the buffer backpropagates as a gather. The combine's
+``index_select`` backpropagates through an ``index_add`` into the buffer,
+but every kept slot has exactly one reader, so each sum there has one
+term; only the discarded drop row takes many. Training therefore resumes
+bitwise on the card.
+
+``count_drops()`` counts the assignments capacity dispatch drops, summed
+on the device (no host read while it runs), for callers that need to
+know whether a prefill dropped tokens: a chunked prefill's windows
+compete for capacity(W) slots, not capacity(S), so where a group drops,
+chunked and one-shot prefill compute different functions.
+
 Expert weights are ``(E, d_ff, d)`` / ``(E, d, d_ff)``, prunable per
 expert; each expert's calibration Gram comes from exactly the tokens
 routed to it (empty slots are zero and add nothing).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -101,9 +119,10 @@ def _dispatch(x2: torch.Tensor, dest: torch.Tensor, *, n_experts: int,
     rows = (dest // cap) * (NG * cap) + g * cap + dest % cap
     n_slots = n_experts * NG * cap
     rows = torch.where(dest < n_experts * cap, rows, n_slots).reshape(-1)
-    tok = torch.arange(x2.shape[0], device=x2.device).repeat_interleave(k)
+    # each token to its k assignments by a broadcast (module docstring)
+    src = x2[:, None].expand(-1, k, -1).reshape(-1, x2.shape[1])
     buf = x2.new_zeros((n_slots + 1, x2.shape[1]))
-    buf.index_copy_(0, rows, x2.index_select(0, tok))
+    buf.index_copy_(0, rows, src)
     return buf[:n_slots].view(n_experts, NG * cap, -1), rows
 
 
@@ -118,6 +137,40 @@ def _combine_group(out_buf: torch.Tensor, rows: torch.Tensor,
     got = padded.index_select(0, rows) * gates.reshape(-1, 1).to(
         out_buf.dtype)
     return got.reshape(-1, top_k, d).sum(1)
+
+
+class DropCount:
+    """Capacity drops of the ``moe_block`` calls made while it counts,
+    summed on the device (``total()`` reads them back), beside the
+    assignments dispatched (``assignments``, from shapes)."""
+
+    def __init__(self):
+        self._dropped = None
+        self.assignments = 0
+
+    def _add(self, dest: torch.Tensor, full: int) -> None:
+        n = (dest == full).sum()
+        self._dropped = n if self._dropped is None else self._dropped + n
+        self.assignments += dest.numel()
+
+    def total(self) -> int:
+        """Dropped assignments so far (a host read)."""
+        return 0 if self._dropped is None else int(self._dropped)
+
+
+_COUNTERS: list[DropCount] = []
+
+
+@contextlib.contextmanager
+def count_drops():
+    """``with count_drops() as c: ...`` counts the assignments every
+    ``moe_block`` call inside drops (``c.total()``, ``c.assignments``)."""
+    c = DropCount()
+    _COUNTERS.append(c)
+    try:
+        yield c
+    finally:
+        _COUNTERS.remove(c)
 
 
 def moe_block(p, x: torch.Tensor, cfg, *, masks=None,
@@ -143,6 +196,8 @@ def moe_block(p, x: torch.Tensor, cfg, *, masks=None,
 
     logits, ids, gates = route(x, p["router"], k)
     dest = _dispatch_group(ids.reshape(B * ng, gs, k), n_experts=e, cap=cap)
+    for c in _COUNTERS:
+        c._add(dest, e * cap)
     buf, rows = _dispatch(x.reshape(B * S, d), dest, n_experts=e, cap=cap)
 
     n_e = None

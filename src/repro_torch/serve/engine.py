@@ -244,20 +244,38 @@ class ServeEngine:
     @property
     def supports_continuous(self) -> bool:
         """Continuous batching needs the plain decoder-only KV layout:
-        per-token pages and a per-row decode clock (the dense family). An
-        MoE model's capacity dispatch groups each prefill's tokens, so
-        chunked and bucketed prefills regroup them: not ported yet
-        (ROADMAP A4)."""
+        per-token pages and a per-row decode clock, which every model of
+        ``models.transformer`` has, dense or MoE (recurrent, cross-
+        attention and encoder-decoder families, not ported, would not).
+
+        An MoE block dispatches per batch row (``models.moe``: groups of
+        ``moe_group_size`` positions where that divides the row, else the
+        whole row), so under the scheduler:
+
+        * a decode step is one token a row: its group gets capacity(1) = 1
+          slot an expert and never drops (a token's top-k experts are
+          distinct); the buffer is (E, bucket, d) and inactive rows route
+          on their own, so a row's result does not depend on its
+          neighbours;
+        * ``prefill_session`` pads to S_bucket and dispatches with
+          capacity(S_bucket), or in groups of ``moe_group_size`` where that
+          divides S_bucket; ``prefill_chunk`` dispatches each W-token
+          window with capacity(W); ``generate`` with capacity(S);
+        * padding sits after the real tokens and the stable sort ranks it
+          last, so padding never takes a real token's slot.
+
+        Where a group drops tokens (``models.moe.count_drops``), chunked
+        and one-shot prefill therefore compute different functions, as in
+        the reference."""
         from repro_torch.models import transformer
-        return (self.api.module is transformer and not self.cfg.is_moe
+        return (self.api.module is transformer
                 and not getattr(self.cfg, "cross_attn_every", 0))
 
     def _require_continuous(self):
         if not self.supports_continuous:
             raise NotImplementedError(
-                f"continuous batching supports dense decoder-only "
-                f"transformers; {self.cfg.name!r} is not one (MoE: ROADMAP "
-                f"A4)")
+                f"continuous batching supports plain decoder-only "
+                f"transformers; {self.cfg.name!r} is not one")
 
     def _scalar(self, n) -> torch.Tensor:
         """A () int64 tensor on the engine's device (no host read of a

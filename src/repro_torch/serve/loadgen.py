@@ -97,7 +97,7 @@ def make_workload(cfg: LoadConfig) -> list:
 
 def _metrics(workload, first_t, done_t, done_new, arrivals, makespan, *,
              start_t=None, wasted: int = 0, shipped: int = 0,
-             counters: dict | None = None):
+             counters: dict | None = None, leaked: int = 0):
     """Fold raw timestamps into the bench-row metric dict.
 
     ``start_t`` stamps when each request's prefill began, splitting TTFT
@@ -110,6 +110,8 @@ def _metrics(workload, first_t, done_t, done_new, arrivals, makespan, *,
     pools (0 outside disaggregated mode). ``counters`` carries the
     scheduler's robustness tallies (shed / expired / cancelled /
     evicted) — zeros for drivers that have none (fixed batch).
+    ``leaked`` counts KV bytes left in the pools after the run (0 for a
+    run that freed every page; the fixed path has no pools).
     """
     start_t = start_t or {}
     c = counters or {}
@@ -146,6 +148,7 @@ def _metrics(workload, first_t, done_t, done_new, arrivals, makespan, *,
         "expired": int(c.get("expired", 0)),
         "cancelled": int(c.get("cancelled", 0)),
         "evicted": int(c.get("evicted", 0)),
+        "leaked_bytes": int(leaked),
     }
 
 
@@ -221,9 +224,12 @@ def run_continuous(engine: ServeEngine, workload: list, *,
                 # timeline, which may run ahead of the decode clock
                 done_t[c.rid] = max(now, first_t.get(c.rid, now))
                 done_new[c.rid] = c.n_new
+        leaked = sch.pool.used_bytes + (
+            sch.prefill_pool.used_bytes if sch.prefill_pool else 0)
         return _metrics(workload, first_t, done_t, done_new, arrivals,
                         max(now, p_now), start_t=start_t, wasted=wasted,
-                        shipped=sch.shipped_bytes, counters=sch.counters)
+                        shipped=sch.shipped_bytes, counters=sch.counters,
+                        leaked=leaked)
 
     if warmup:
         one_pass()                               # warm-up pass

@@ -1,7 +1,7 @@
 """Shared driver of the continuous-serving tests: one workload through the
 reference's ``ContinuousScheduler`` and through the port's, step for
-step, on tiny llama31-8b in fp32 (params from the reference, carried over
-by ``convert``).
+step, on a TINY config in fp32 (llama31-8b unless ``build_world`` is given
+another arch; params from the reference, carried over by ``convert``).
 
 ``drive`` submits requests on a fixed schedule, steps until the
 scheduler is idle (or drained after a preemption signal) and records per
@@ -27,14 +27,15 @@ ARCH = "llama31-8b"
 REF, PORT = jserve, tserve
 
 
-def build_world() -> dict:
-    jcfg = jconfigs.get_tiny(ARCH)
+def build_world(arch: str = ARCH) -> dict:
+    jcfg = jconfigs.get_tiny(arch)
     japi = jmodels.build(jcfg)
     jparams = japi.init(jax.random.key(0))
-    tcfg = tconfigs.get_tiny(ARCH)
+    tcfg = tconfigs.get_tiny(arch)
     tapi = tmodels.build(tcfg)
     tparams = convert.from_numpy(jax.tree.map(np.asarray, jparams))
-    return dict(cfg=tcfg, api=tapi, params=tparams,
+    return dict(cfg=tcfg, api=tapi, params=tparams, japi=japi,
+                jparams=jparams,
                 engines={REF: jserve.ServeEngine(japi, jparams, fmt="dense"),
                          PORT: tserve.ServeEngine(tapi, tparams, fmt="dense",
                                                   device="cpu")})

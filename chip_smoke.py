@@ -126,7 +126,8 @@ and its time:
    the greedy tokens that flip (at near ties) printed; then the
    scheduler's greedy tokens, chunked vs one-shot and against
    ``generate``, equal up to the first near-tie (a step whose top-2
-   logit gap is within twice the forced pair's largest logits error);
+   logit gap is within twice the forced pair's largest logits error),
+   with how many streams the gate held past step 0 printed;
    (c) disaggregated (two pools, page shipping) == interleaved bitwise,
    with shipped bytes = shipped pages x page bytes; (d) ``run_chaos``
    under ``FaultPlan.chaos(0)``: no leaked bytes, no stream mismatches,
@@ -229,8 +230,12 @@ and its time:
    SERVE_TOL; a batch of four 32-token prompts vs each alone (the same
    groups) within SERVE_TOL; every unforced routing flip a near tie, at
    most ROUTE_FLIPS; the scheduler's greedy streams (chunked vs one-shot
-   where neither drops; vs ``generate``) equal up to the first near-tie
-   of a token or a routing decision; (c) disaggregated == interleaved
+   where neither drops, and through a scheduler at capacity_factor E /
+   top_k; vs ``generate``) equal up to the first near-tie of a token or
+   of a routing decision the two runs route differently (a near-tie both
+   resolve alike voids nothing), how many streams the gate held past
+   step 0 printed, and the phase fails if it held none of the scheduler
+   vs ``generate`` streams; (c) disaggregated == interleaved
    bitwise, in 64-token windows; nm24 == gathered bitwise on the 2:4
    masks; (d) nm24 under ``FaultPlan.chaos(0)``; (e) every scheduler run
    launched spmm 4 and spmm_stacked 3 x layers x dispatches; (f) the
@@ -241,6 +246,27 @@ and its time:
    spmm's and spmm_stacked's device ms (product kernels matched to their
    calls in launch order). spmm_stacked's calls are tallied by tokens an
    expert (T).
+3z / 4z / 6z. zamba2-7b (after 3m, before 4m): 3z every kernel of its path at its
+   shapes new to the kernels, held and timed as phase 3 holds and times
+   them: the bf16 Gram at T = 512, d = 3584 and 7168; swap_topk (k = 8)
+   and the commit at in_proj (14576 x 3584: 16 x 911 rows, a ragged
+   last row block) and the shared wq (7168 x 7168), the search bitwise
+   on the first 128 rows and the last 128-row block, the commit on every
+   row; spmm (nm24, gathered PerRow(0.6) and 2:4; fp32 and bf16; T = 4
+   and 128) at in_proj and the shared gelu w_gate (14336 x 7168). 4z and
+   6z on zamba2-7b at full width, 7 layers (the shared block at layers 0
+   and 6), bf16, seed 0: the shared Gram against the sum of its two
+   sites' Grams taken one by one (1e-5 of max|G|); ``prune_model`` at
+   PerRow(0.6) and 2:4 (Wanda, SparseSwaps k = 8, t_max = 4) with phase
+   4's gates (a shared tap one Gram a site and batch; no swap_topk for
+   2:4: the N:M search is plain ops in both packages), time, peak memory
+   and digests; the candidate commit (phase 5's gates) on layer 0's
+   in_proj and the shared wq; then phase 6's serving, (2 x 7 + 7 x 2) x
+   16 = 448 spmm launches a packed generate, nm24 == gathered bitwise,
+   packed vs masked logits printed (bf16 rounding alone carries these 7
+   random layers past SERVE_TOL); then the same six engines at float32
+   (the fp32 spmm kernel): 448 launches a packed generate again, nm24 ==
+   gathered bitwise, packed vs masked logits within SERVE_TOL.
 8. full depth, shapes only: every config's ``plan_pruning`` on the
    meta device (nothing allocated), its weight, Gram and calibration
    bytes, and whether the bf16 model and its calibration state fit the
@@ -303,8 +329,9 @@ and its time:
    at mixtral's moe_w_down, its launches phases 4m's and 9m's;
    ``spmm_stacked`` and ``spmm_stacked_gather`` at mixtral's w_gate, nm24
    at T = 40 and gathered PerRow(0.6) at T = 4, their launches phases
-   6m's, 6mc's and 9m's), the card line, and last {"ok": true, "device":
-   ...}.
+   6m's, 6mc's and 9m's; the zamba phases' Gram, swap_topk, swap_commit
+   and spmm launches among them), the card line, and last {"ok": true,
+   "device": ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -392,6 +419,19 @@ SPMM_STACKED = [
     (40, 512, 1536, "silu", "granite-moe-3b w_gate", (4, 32, 40), (4, 32)),
     (40, 1536, 512, None, "granite-moe-3b w_down", (4, 32, 40), (4, 32)),
 ]
+# zamba2-7b (phases 3z, 4z, 6z): its shapes new to the kernels — the Gram
+# at d = 3584 and 7168; the swap search and commit at in_proj (14576 rows,
+# 16 x 911: a ragged last 32- and 128-row block) and shared.attn.wq; spmm
+# at in_proj (PerRow(0.6) keeps 1434 of 3584: k % 16 != 0) and the shared
+# MLP's gelu w_gate — and the depth its paths run at: 7, so the shared
+# block runs at layers 0 and 6 and its Gram sums two sites.
+ZAMBA = "zamba2-7b"
+ZAMBA_LAYERS = 7
+ZAMBA_GRAM_DS = (3584, 7168)
+ZAMBA_SWAPS = [(14576, 3584, "zamba2-7b in_proj"),
+               (7168, 7168, "zamba2-7b shared.attn.wq")]
+ZAMBA_SPMM = [(14576, 3584, None, "zamba2-7b in_proj"),
+              (14336, 7168, "gelu", "zamba2-7b shared.mlp.w_gate")]
 SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
     (4096, 4096, None, True, "chatglm3-6b wq", False),
     (256, 4096, None, True, "chatglm3-6b wk", False),
@@ -1072,10 +1112,15 @@ class RouteTape:
     between the runs at that token. A run along other shapes (prefill
     windows, one row of a batch) replays a ``seq`` cut from the record
     (``windows``, ``row``). ``max_diff`` is the largest router-logit
-    difference over every replayed token."""
+    difference over every replayed token. ``own`` keeps, per replayed
+    call, the (logits, expert ids) the replaying run would have taken on
+    its own there (``unwindow`` puts a windowed run's back into the
+    one-shot layout), so ``first_route_split`` can tell the near-ties the
+    two runs resolve alike from those they split on."""
 
     def __init__(self):
         self.calls, self.flips, self.tokens, self.max_diff = [], [], 0, 0.0
+        self.own = []
         self.routing = (8, 2)                  # (experts, top-k) replayed
 
     def _patched(self, fn):
@@ -1112,6 +1157,7 @@ class RouteTape:
             self.flips += list(zip(gap[flip].tolist(), diff[flip].tolist()))
             self.tokens += flip.numel()
             self.max_diff = max(self.max_diff, float(diff.max()))
+            self.own.append((logits.clone(), ids.clone()))
             self.routing = (logits.shape[-1], k)
             return (logits, ref_ids,
                     torch.softmax(logits.gather(-1, ref_ids), dim=-1))
@@ -1130,6 +1176,20 @@ class RouteTape:
     def row(self, i: int) -> list:
         """The record of a batched run, cut to its row ``i``."""
         return [(lg[i:i + 1], ids[i:i + 1]) for lg, ids in self.calls]
+
+    def unwindow(self, n_layers: int, n_valid: int, window: int) -> list:
+        """``own`` of a replay of ``windows(n_layers, n_valid, window)``,
+        back in the one-shot layout: each layer's windows joined along
+        the positions (the valid ones, ``n_valid``), then the decode
+        steps' calls."""
+        import torch
+
+        n_pre = n_layers * -(-n_valid // window)
+        pre = self.own[:n_pre]
+        return [tuple(torch.cat([pre[w + l][j] for w in range(0, n_pre,
+                                                                n_layers)],
+                                dim=1)[:, :n_valid] for j in range(2))
+                for l in range(n_layers)] + self.own[n_pre:]
 
     def check(self, tag: str) -> None:
         """Fails unless every flip was a near tie (gap at most twice the
@@ -1247,21 +1307,38 @@ def serve_bench(engines: dict, prompt: dict, launches: dict) -> dict:
     return warm
 
 
+def shared_sites(cfg) -> int:
+    """How many times a forward runs a hybrid model's shared block (its
+    invocation sites: every ``shared_attn_every`` layers); 0 without one."""
+    from repro_torch.models import zamba
+
+    return zamba.n_sites(cfg) if cfg.family == "hybrid" else 0
+
+
 def spmm_sites(cfg, params) -> dict:
-    """A served model's packed sites by kernel: {"spmm": the unstacked
-    ones, "spmm_stacked": an MoE model's expert sites}; each launches its
-    kernel once a layer and dispatch."""
+    """A served model's spmm launches a forward (a prefill, a decode
+    step, a scheduler dispatch), by kernel: {"spmm": the unstacked sites,
+    each once a layer (a shared block's once a site it runs at),
+    "spmm_stacked": an MoE model's expert sites, once a layer}."""
     from repro_torch.pruning import sites
 
     stacks = [len(s.stack_shape) for s in sites.site_specs(cfg, params)]
-    return {"spmm": stacks.count(1), "spmm_stacked": stacks.count(2)}
+    return {"spmm": stacks.count(1) * cfg.n_layers
+            + stacks.count(0) * shared_sites(cfg),
+            "spmm_stacked": stacks.count(2) * cfg.n_layers}
 
 
 def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
-               bench: bool = True):
+               bench: bool = True, gate: bool = True):
     """Phase 6 (and 6b, 6m with ``bench=False``: no timed runs or
     profiles). Returns the spmm launches of each engine's first generate, {"spmm": unstacked
-    calls, "spmm_stacked": stacked ones (an MoE model's experts)}."""
+    calls, "spmm_stacked": stacked ones (an MoE model's experts)}.
+
+    ``gate=False`` (6z's bf16 engines) prints the packed vs masked logits
+    without holding them to SERVE_TOL: bf16 rounding alone carries a model
+    of many recurrent layers past it (zamba2-7b at 7 random layers: masked
+    and packed bf16 each 8-19% of max|logits| from the masked model in
+    fp32), so 6z holds the same engines built at float32 instead."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
@@ -1284,7 +1361,7 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
         n = serve_launches[name] = {k: ops.LAUNCHES[k] - v
                                     for k, v in before.items()}
         packed = specs[name][1] in ("nm24", "gathered")
-        want = {k: v * api.cfg.n_layers * SERVE_GEN if packed else 0
+        want = {k: v * SERVE_GEN if packed else 0
                 for k, v in n_sites.items()}
         require(n == want, f"{name}: spmm launches {n}, want {want}")
     warm = (serve_bench(engines, prompt, {k: sum(v.values()) for k, v in
@@ -1323,7 +1400,8 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
             err = routed_pair(engines[packed_name], engines[masked_name],
                               prompt, toks[masked_name][0],
                               f"{packed_name} vs {masked_name}")
-        require(math.isfinite(err) and err <= SERVE_TOL * scale,
+        require(not gate or (math.isfinite(err)
+                             and err <= SERVE_TOL * scale),
                 f"{packed_name} vs {masked_name} beyond {SERVE_TOL} of "
                 "max|logits|")
     require(engines["nm24_2:4"].weight_bytes()
@@ -1381,10 +1459,10 @@ def sched_run(eng, reqs, n_sites: dict, **kw):
     """Serve ``reqs`` — (prompt, max_new, SamplingParams) — through one
     ``ContinuousScheduler`` (``CONT``, plus ``kw``) until idle. Checks that
     the pools end empty and, phase 6c (e), that the engine launched each
-    spmm kernel of ``n_sites`` ({"spmm": unstacked sites, "spmm_stacked":
-    an MoE model's expert sites}) sites x layers x (prefill dispatches +
-    decode steps) times, counted from the scheduler's own dispatches (none
-    for dense and masked, nor off the card). Returns (tokens per request,
+    spmm kernel of ``n_sites`` (``spmm_sites``: its launches a forward)
+    times (prefill dispatches + decode steps), counted from the
+    scheduler's own dispatches (none for dense and masked, nor off the
+    card). Returns (tokens per request,
     scheduler, {kernel: launches})."""
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import CONT
@@ -1396,7 +1474,7 @@ def sched_run(eng, reqs, n_sites: dict, **kw):
     done = sch.run_until_idle()
     n = {k: ops.LAUNCHES[k] - v for k, v in before.items()}
     d = sch.dispatches
-    per = (eng.cfg.n_layers * (d["prefill"] + d["decode_steps"])
+    per = (d["prefill"] + d["decode_steps"]
            if eng.fmt in ("nm24", "gathered") and eng.device.type == "cuda"
            else 0)
     want = {k: v * per for k, v in n_sites.items()}
@@ -1487,16 +1565,17 @@ def check_cross(name: str, what: str, r: dict) -> None:
 
 
 def check_streams(name: str, what: str, got, want, ref, err: float,
-                  route_near: int | None = None) -> str:
+                  route_near: int | None = None) -> tuple[str, bool]:
     """Phase 6c (b)'s token gate across shapes: the greedy streams ``got``
     and ``want`` (n tokens each) must agree up to the first near-tie, a
     step whose reference logits ``ref`` (n, V; fed ``want``'s tokens)
     have a top-2 gap within twice ``err``, or (MoE) the first token a
-    routing near-tie may change (``route_near``, from
-    ``first_route_near``). The scheduler decodes at still other shapes (8
-    rows over 1024 slots) than the forced pair that measured ``err``, so
-    ``err`` is that pair's largest logits error, not its error at the
-    step. Returns a summary."""
+    routing near-tie the two runs split on may change (``route_near``,
+    from ``first_route_split``). The scheduler decodes at still other
+    shapes (8 rows over 1024 slots) than the forced pair that measured
+    ``err``, so ``err`` is that pair's largest logits error, not its
+    error at the step. Returns a summary and whether the gate held any
+    token (its first near-tie past step 0)."""
     import numpy as np
 
     got, want = np.asarray(got), np.asarray(want)
@@ -1511,7 +1590,15 @@ def check_streams(name: str, what: str, got, want, ref, err: float,
             f"{name} {what}: greedy tokens differ at step {first_diff}, "
             f"before the first near-tie (step {first_near}, top-2 gap <= "
             f"{2 * err:.4e})")
-    return f"{first_diff}/{n} (near-tie at {first_near})"
+    return f"{first_diff}/{n} (near-tie at {first_near})", first_near > 0
+
+
+def gated_line(tag: str, pairs: dict) -> None:
+    """Prints how many of each pair's streams the gate held past step 0
+    (``check_streams``' second value)."""
+    log(f"   {tag}: streams gated past step 0: " + ", ".join(
+        f"{what} {sum(g for _, g in res)} of {len(res)}"
+        for what, res in pairs.items()))
 
 
 def cross_shape_checks(eng, name: str, longs: dict, short: list,
@@ -1575,9 +1662,11 @@ def cross_shape_checks(eng, name: str, longs: dict, short: list,
                             f"generate", got, want.cpu(), batch[0][:, i],
                             r["err"])
               for i, (got, want) in enumerate(zip(sched, fixed))]
+    gated_line(f"6c (b) {name}", {"chunked vs one-shot": agree,
+                                  "scheduler vs generate": vs_gen})
     log(f"   6c (b) {name}: scheduler greedy tokens equal before the first "
-        f"difference, chunked vs one-shot {agree}; scheduler vs generate "
-        f"{vs_gen}")
+        f"difference, chunked vs one-shot {[a for a, _ in agree]}; "
+        f"scheduler vs generate {[v for v, _ in vs_gen]}")
     return n1["spmm"] + n2["spmm"] + n3["spmm"]
 
 
@@ -1804,46 +1893,56 @@ def device_split(prof, order: list) -> dict:
     return out
 
 
-def first_route_near(calls: list, n_layers: int, n_valid: int, k: int,
-                     thr: float) -> int:
-    """The first generated token a routing near-tie (a top-k gap within
-    ``thr``) may change, from a forced run's record (``RouteTape.calls``:
-    its prefill's layers, then each decode step's): 0 where any prompt
-    position ties, else 1 + the first decode step that does."""
-    def ties(chunk, n=None):
-        return any(bool((topk_gap(lg[:, :n], k) <= thr).any())
-                   for lg, _ in chunk)
+def first_route_split(ref: list, own: list, n_layers: int, n_valid: int,
+                      k: int, thr: float) -> int:
+    """The first generated token a routing near-tie may change: a
+    decision whose top-k gap in ``ref`` is within ``thr`` and that the
+    two runs resolve differently (their expert sets differ). ``ref`` and
+    ``own`` are two runs' (logits, expert ids) records in the one-shot
+    layout (``RouteTape.calls``; a replay's ``own``, ``unwindow``-ed for
+    a windowed run): the prefill's layers, then each decode step's.
+    Returns 0 where a prompt position splits, else 1 + the first decode
+    step that does; a near-tie both runs resolved alike voids nothing."""
+    def splits(a, b, n=None):
+        (lg, ids), (_, ids2) = a, b
+        differ = (ids[:, :n].sort(-1).values
+                  != ids2[:, :n].sort(-1).values).any(-1)
+        return bool((differ & (topk_gap(lg[:, :n], k) <= thr)).any())
 
-    if ties(calls[:n_layers], n_valid):
+    if any(splits(a, b, n_valid) for a, b in zip(ref[:n_layers],
+                                                 own[:n_layers])):
         return 0
-    dec = calls[n_layers:]
+    dec, dec_own = ref[n_layers:], own[n_layers:]
     for i in range(0, len(dec), n_layers):
-        if ties(dec[i:i + n_layers]):
+        if any(splits(a, b) for a, b in zip(dec[i:i + n_layers],
+                                            dec_own[i:i + n_layers])):
             return i // n_layers + 1
     return len(dec) // n_layers + 1
 
 
-def moe_cross_shape(eng, name: str, longs: dict, short: list,
-                    n_sites: dict) -> dict:
+def moe_cross_shape(eng, no_drop, name: str, longs: dict, short: list,
+                    n_sites: dict) -> tuple[dict, int]:
     """Phase 6mc (b): phase 6c (b)'s comparisons across shapes on an MoE
     model, the routing teacher-forced with the tokens (``RouteTape``) and
     the capacity drops counted (``models.moe.count_drops``). A W-token
     window dispatches with capacity(W), a one-shot prefill with
     capacity(S_bucket): where either drops an assignment the two compute
     different functions (printed, not gated), so the chunked vs one-shot
-    pair also runs at capacity_factor E / top_k, where no group can drop,
-    and is gated there within SERVE_TOL. The batch-4 prefill vs each row
-    alone dispatches the same groups (one a row), so its drops are equal
-    and it is gated. Every unforced routing flip must be a near tie, at
-    most ROUTE_FLIPS of them. The scheduler's greedy streams (chunked vs
-    one-shot where neither dropped; the scheduler vs ``generate``) agree
-    up to the first near-tie of a token or of a routing decision. Returns
-    the spmm launches of its scheduler runs."""
-    import types
-
+    pair also runs at capacity_factor E / top_k, where no group can drop
+    (``no_drop``: the same weights and masks served at that factor), and
+    is gated there within SERVE_TOL, its logits and, through the
+    scheduler at that factor too, its greedy streams. The batch-4 prefill
+    vs each row alone dispatches the same groups (one a row), so its
+    drops are equal and it is gated. Every unforced routing flip must be
+    a near tie, at most ROUTE_FLIPS of them. The scheduler's greedy
+    streams (chunked vs one-shot where neither dropped; the scheduler vs
+    ``generate``) agree up to the first near-tie of a token or of a
+    routing decision the two runs split on (``first_route_split``: a
+    near-tie both resolve alike voids nothing). Returns the spmm
+    launches of its scheduler runs and how many scheduler vs
+    ``generate`` streams the gate held past step 0."""
     import numpy as np
     import torch
-    from repro_torch import models
     from repro_torch.models import moe
     from repro_torch.serve import GREEDY
     from repro_torch.serve.engine import next_pow2
@@ -1851,21 +1950,32 @@ def moe_cross_shape(eng, name: str, longs: dict, short: list,
     cfg, dev = eng.cfg, eng.device
     L, k = cfg.n_layers, cfg.top_k
     tag = f"6mc (b) {name}"
-    no_drop = types.SimpleNamespace(
-        api=models.build(cfg.replace(capacity_factor=cfg.n_experts / k)),
-        params=eng.params, masks=eng.masks, device=dev)
     n_new = 8
     reqs = [(p, n_new, GREEDY) for p in longs.values()]
-    sch_one, _, n1 = sched_run(eng, reqs, n_sites, bucket_batch=False)
-    sch_chunk, _, n2 = sched_run(eng, reqs, n_sites, bucket_batch=False,
-                                 prefill_chunk=CHUNK_W)
-    agree = []
-    for (S, p), got, want in zip(longs.items(), sch_chunk, sch_one):
+    launches = dict.fromkeys(n_sites, 0)
+
+    def sched(e, rs, **kw):
+        toks, _, n = sched_run(e, rs, n_sites, bucket_batch=False, **kw)
+        for kk, v in n.items():
+            launches[kk] += v
+        return toks
+
+    streams = {}                    # engine -> (one-shot, chunked) streams
+    for e in (eng, no_drop):
+        with moe.count_drops() as d:
+            streams[e] = (sched(e, reqs),
+                          sched(e, reqs, prefill_chunk=CHUNK_W))
+        require(e is eng or d.total() == 0,
+                f"{tag}: {d.total()} drops at capacity_factor "
+                f"{e.cfg.capacity_factor:g}")
+    agree = {eng: [], no_drop: []}
+    for i, (S, p) in enumerate(longs.items()):
         sb = next_pow2(S)
         toks = torch.zeros((1, sb), dtype=torch.int64)
         toks[0, :S] = torch.from_numpy(p.astype(np.int64))
         toks = toks.to(dev)
         for e in (eng, no_drop):
+            cf = f"capacity_factor {e.cfg.capacity_factor:g}"
             tape = RouteTape()
             with tape.record(), moe.count_drops() as d_one:
                 one = forced_run(e, toks, S, sb, n_new)
@@ -1874,33 +1984,37 @@ def moe_cross_shape(eng, name: str, longs: dict, short: list,
                 chunk = forced_run(e, toks, S, sb, one[2], window=CHUNK_W)
             r = cross_shape(one, chunk)
             drops = (d_one.total(), d_chunk.total())
-            what = (f"S={S} chunked W={CHUNK_W} vs one-shot, capacity_factor"
-                    f" {e.api.cfg.capacity_factor:g}, routing forced "
-                    f"({tape.summary()}); drops one-shot {drops[0]}, chunked "
-                    f"{drops[1]} of {d_one.assignments} assignments")
+            what = (f"S={S} chunked W={CHUNK_W} vs one-shot, {cf}, routing "
+                    f"forced ({tape.summary()}); drops one-shot {drops[0]}, "
+                    f"chunked {drops[1]} of {d_one.assignments} assignments")
+            want, got = streams[e][0][i], streams[e][1][i]
             if any(drops):
                 log(f"   {tag} {what}: different functions where a group "
                     f"drops (not gated): teacher-forced logits max_abs_err "
                     f"{r['err']:.4e} ({r['err'] / r['scale']:.2e} of "
                     f"max|logits|), max |dK| {r['dk']:.3e}")
-            else:
-                check_cross(tag, what, r)
-                tape.check(f"{tag} S={S}")
-            if e is eng:
-                eng_drops, err, rdiff = drops, r["err"], tape.max_diff
-        feed = torch.as_tensor(np.asarray(want[:n_new - 1]),
-                               device=dev)[None]
-        rec = RouteTape()
-        with rec.record():
-            ref = forced_run(eng, toks, S, sb, feed)[0][:, 0]
-        if any(eng_drops):
-            differ = np.flatnonzero(np.asarray(got) != np.asarray(want))
-            agree.append(f"{differ[0] if differ.size else n_new}/{n_new} "
-                         f"(drops: not gated)")
-        else:
-            agree.append(check_streams(
-                tag, f"S={S} scheduler chunked vs one-shot", got, want, ref,
-                err, first_route_near(rec.calls, L, S, k, 2 * rdiff)))
+                differ = np.flatnonzero(np.asarray(got) != np.asarray(want))
+                agree[e].append((f"{differ[0] if differ.size else n_new}/"
+                                 f"{n_new} (drops: not gated)", False))
+                continue
+            check_cross(tag, what, r)
+            tape.check(f"{tag} S={S} {cf}")
+            # the stream's own pair: one-shot fed the one-shot stream,
+            # recorded; chunked fed the same, replaying it (its own
+            # decisions kept for first_route_split)
+            feed = torch.as_tensor(np.asarray(want[:n_new - 1]),
+                                   device=dev)[None]
+            rec = RouteTape()
+            with rec.record():
+                ref = forced_run(e, toks, S, sb, feed)[0][:, 0]
+            with rec.replay(rec.windows(L, S, CHUNK_W)):
+                forced_run(e, toks, S, sb, feed, window=CHUNK_W)
+            split = first_route_split(rec.calls, rec.unwindow(L, S, CHUNK_W),
+                                      L, S, k,
+                                      2 * max(tape.max_diff, rec.max_diff))
+            agree[e].append(check_streams(
+                tag, f"S={S} scheduler chunked vs one-shot, {cf}", got, want,
+                ref, r["err"], split))
     S = len(short[0])
     toks = torch.from_numpy(np.stack(short).astype(np.int64)).to(dev)
     cap = next_pow2(S + SERVE_GEN)
@@ -1926,17 +2040,23 @@ def moe_cross_shape(eng, name: str, longs: dict, short: list,
                 f"routing forced ({tape.summary()}); drops "
                 f"{d_batch.total()} of {d_batch.assignments} in both", r)
     tape.check(f"{tag} batch vs alone")
-    sched, _, n3 = sched_run(eng, [(p, SERVE_GEN, GREEDY) for p in short],
-                             n_sites, bucket_batch=False)
-    vs_gen = [check_streams(tag, f"request {i} scheduler vs generate", got,
-                            want.cpu(), batch[0][:, i], r["err"],
-                            first_route_near(tape.row(i), L, S, k,
-                                             2 * tape.max_diff))
-              for i, (got, want) in enumerate(zip(sched, fixed))]
+    sched_short = sched(eng, [(p, SERVE_GEN, GREEDY) for p in short])
+    n_calls = len(tape.calls)          # row i's replay: own[i * n_calls:]
+    vs_gen = [check_streams(
+        tag, f"request {i} scheduler vs generate", got, want.cpu(),
+        batch[0][:, i], r["err"],
+        first_route_split(tape.row(i),
+                          tape.own[i * n_calls:(i + 1) * n_calls], L, S, k,
+                          2 * tape.max_diff))
+        for i, (got, want) in enumerate(zip(sched_short, fixed))]
+    pairs = {f"chunked vs one-shot at capacity_factor "
+             f"{e.cfg.capacity_factor:g}": agree[e] for e in (eng, no_drop)}
+    pairs["scheduler vs generate"] = vs_gen
+    gated_line(tag, pairs)
     log(f"   {tag}: scheduler greedy tokens equal before the first "
-        f"difference, chunked vs one-shot {agree}; scheduler vs generate "
-        f"{vs_gen}")
-    return {kk: n1[kk] + n2[kk] + n3[kk] for kk in n_sites}
+        f"difference, " + "; ".join(
+            f"{what} {[a for a, _ in res]}" for what, res in pairs.items()))
+    return launches, sum(g for _, g in vs_gen)
 
 
 def moe_continuous_path(api, params, masks60: dict, masks24: dict,
@@ -1961,6 +2081,7 @@ def moe_continuous_path(api, params, masks60: dict, masks24: dict,
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import models
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_serve import CONT, LOAD_OUTPUT, LOAD_PROMPT
     from repro_torch.models import moe
@@ -1968,6 +2089,8 @@ def moe_continuous_path(api, params, masks60: dict, masks24: dict,
 
     vocab = api.cfg.vocab_size
     n_sites = spmm_sites(api.cfg, params)
+    no_drop_api = models.build(api.cfg.replace(
+        capacity_factor=api.cfg.n_experts / api.cfg.top_k))
     specs = {"masked": (masks60, "masked"), "nm24": (masks24, "nm24"),
              "gathered": (masks60, "gathered"),
              "gathered_2:4": (masks24, "gathered")}
@@ -1985,6 +2108,7 @@ def moe_continuous_path(api, params, masks60: dict, masks24: dict,
             launches[name][kk] += v
 
     streams = {}
+    vs_gen_gated = 0        # scheduler vs generate streams gated past 0
     calls = SpmmCalls()
     with calls:
         for name, eng in engines.items():
@@ -2019,8 +2143,18 @@ def moe_continuous_path(api, params, masks60: dict, masks24: dict,
                 f"; {time.perf_counter() - t0:.2f} s")
             if name != "gathered_2:4":          # nm24's, bitwise (below)
                 t0 = time.perf_counter()
-                add(name, moe_cross_shape(eng, name, longs, short, n_sites))
+                m, fmt = specs[name]
+                no_drop = ServeEngine(no_drop_api, params, masks=m, fmt=fmt,
+                                      device=device)
+                n, held = moe_cross_shape(eng, no_drop, name, longs, short,
+                                          n_sites)
+                del no_drop
+                add(name, n)
+                vs_gen_gated += held
                 log(f"   6mc (b) {name}: {time.perf_counter() - t0:.2f} s")
+        require(vs_gen_gated > 0,
+                "6mc (b): the scheduler vs generate gate held no stream "
+                "past step 0")
         require(all(np.array_equal(a, b) for a, b in
                     zip(streams["nm24"], streams["gathered_2:4"])),
                 "6mc: nm24 and gathered differ on the 2:4 masks")
@@ -2327,14 +2461,241 @@ def moe_config(name: str, *, serve: bool) -> dict:
     return out
 
 
+def zamba_shapes(clock_mhz: float) -> None:
+    """Phase 3z: every kernel of zamba2-7b's path at its shapes new to the
+    kernels, held against its plain version as phase 3 holds it and timed
+    beside its bound and the one PyTorch call: the bf16 Gram at T = 512,
+    d = ZAMBA_GRAM_DS; swap_topk (k = 8) and the commit at ZAMBA_SWAPS on
+    all rows, the search held bitwise on the first 128 rows and the last
+    128-row block (the ragged tail), the commit on every row; spmm (nm24
+    on 2:4, gathered on PerRow(0.6) and 2:4; fp32 and bf16; T = 4 and
+    128) at ZAMBA_SPMM."""
+    import torch
+    from repro_torch.launch import profile_swap
+
+    for d in ZAMBA_GRAM_DS:
+        check_gram(512, d, dtypes=("bf16",))
+    for i, (R, d, site) in enumerate(ZAMBA_SWAPS):
+        w, m, c, G = profile_swap.problem(R, d, 100 + i)
+        tag = f"R={R} d={d} ({site})"
+        rows = torch.unique(torch.cat([torch.arange(min(R, 128)),
+                                       torch.arange((R - 1) // 128 * 128,
+                                                    R)])).cuda()
+        check_swaps(w, m, c, G, 8, tag, names=("swap_topk",),
+                    timed=("swap_topk",), clock_mhz=clock_mhz, rows=rows)
+        check_commit(w, m, c, G, 8, tag)
+        del w, m, c, G
+        torch.cuda.empty_cache()
+    for d_out, d_in, act, site in ZAMBA_SPMM:
+        check_spmm(d_out, d_in, act, site)
+    torch.cuda.empty_cache()
+
+
+def check_shared_gram(api, params, batches) -> None:
+    """Phase 4z: the shared block's Gram as calibration accumulates it
+    (one ``Taps`` summing the block's sites, ``models.zamba``) against
+    the sum of its sites' Grams taken one by one (a ``TapPolicy`` that
+    keeps each site's Gram apart, through the same kernel), within 1e-5
+    of max|G| per tap: the same fp32 partial sums, added in another
+    order."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import common
+    from repro_torch.pruning import sites
+
+    n = shared_sites(api.cfg)
+    shared = {t.name for t in sites.tap_specs(api.cfg, sites.site_specs(
+        api.cfg, params)) if t.path[0] == "shared"}
+
+    class BySite(common.TapPolicy):
+        """Every tap at gram level; a shared tap's Gram also kept per
+        site (the block's calls come in site order each forward)."""
+
+        def __init__(self):
+            self.name, self.calls, self.sites = None, {}, {}
+
+        def fields(self, name):
+            self.name = name
+            return ("g", "s", "n")
+
+        def gram(self, x2):
+            g = ops.gram_xtx(x2)
+            if self.name in shared:
+                i = self.calls.get(self.name, 0)
+                self.calls[self.name] = i + 1
+                per = self.sites.setdefault(self.name, [None] * n)
+                per[i % n] = g.clone() if per[i % n] is None \
+                    else per[i % n] + g
+            return g
+
+    pol, acc = BySite(), {}
+    with torch.no_grad():
+        for b in batches:
+            _, aux = api.loss(params, b, want_taps=True, tap_policy=pol)
+            for name, ent in aux["taps"]["shared"].items():
+                acc[name] = ent["g"] + acc[name] if name in acc else ent["g"]
+    require(set(acc) == shared and all(
+        pol.calls[nm] == n * len(batches) for nm in shared),
+        f"4z: shared taps {sorted(acc)}, calls {pol.calls}")
+    for name in sorted(shared):
+        want = sum(pol.sites[name][1:], pol.sites[name][0])
+        err = float((acc[name] - want).abs().max())
+        rel = err / float(want.abs().max())
+        share = [float(g.diagonal().sum() / want.diagonal().sum())
+                 for g in pol.sites[name]]
+        require(rel <= 1e-5, f"4z: shared {name} Gram off its sites' sum "
+                f"by {rel:.2e} of max|G|")
+        log(f"   4z shared {name}: Gram (d = {want.shape[0]}) == the sum of "
+            f"its {n} sites' Grams taken one by one, max_abs_err {err:.3e}"
+            f" ({rel:.2e} of max|G|); trace shares by site "
+            f"{[round(x, 4) for x in share]}")
+    del pol, acc
+    torch.cuda.empty_cache()
+
+
+def zamba_config(cfg=None, device="cuda") -> dict:
+    """Phases 4z and 6z: zamba2-7b at full width, depth ZAMBA_LAYERS (the
+    shared block at layers 0 and 6), bf16, random weights from seed 0.
+    4z: ``check_shared_gram``; ``prune_model`` at PerRow(0.6) and at 2:4
+    (Wanda warmstart, SparseSwaps k = 8, t_max = T_MAX) with phase 4's
+    gates (``check_pruned``: a shared tap's Gram one launch a site it
+    runs at and batch), time, peak memory and a masks digest each; then
+    ``refine(commit_mode="candidates")`` on layer 0's in_proj and on the
+    shared wq with their calibration Grams, so the commit kernel runs on
+    the zamba path (its rows and d new to it): phase 5's gates, one
+    swap_commit launch a pass. 6z: phase 6's serving (dense, masked, nm24
+    and gathered on the PerRow(0.6) masks and on the 2:4 ones, batch 4 x
+    prompt 32 + SERVE_GEN new tokens, timed), spmm launches (2 x layers +
+    7 x sites) x SERVE_GEN forwards a packed generate, nm24 == gathered
+    bitwise, packed vs masked logits printed (bf16 rounding carries this
+    model past SERVE_TOL by itself); then the same six engines built at
+    float32 (the fp32 spmm kernel): the same launches, nm24 == gathered
+    bitwise, and packed vs masked logits within SERVE_TOL. Returns the
+    launches of each path. ``cfg`` and ``device`` rehearse it elsewhere
+    (a TINY config on the CPU, where no launch counts hold)."""
+    import torch
+    from repro_torch import configs, models, pruning
+    from repro_torch.core import masks, sparseswaps
+    from repro_torch.core.warmstart import warmstart_mask
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    dev = torch.device(device)
+    full = configs.get(ZAMBA)
+    cfg = cfg or full.replace(n_layers=ZAMBA_LAYERS)
+    api = models.build(cfg)
+    params = api.init(seed=0, device=dev)
+    batches = list(pruning.calibration_batches(
+        cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=dev))
+    n_sites = shared_sites(cfg)
+    out = {"prune": {}, "swap_commit": 0}
+    reports = {}
+    with Phase(f"4z {ZAMBA}: prune_model + perplexity, the shared Gram"):
+        log(f"   config: {ZAMBA} full width (d_model {cfg.d_model}, "
+            f"d_inner {cfg.d_inner}, {cfg.n_ssm_heads} SSM heads of "
+            f"{cfg.ssm_head_dim}, ssm_state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}; the shared block {cfg.n_heads} heads x "
+            f"{cfg.head_dim} on 2 x d_model, d_ff {cfg.d_ff} {cfg.act}, "
+            f"every {cfg.shared_attn_every} layers: {n_sites} sites), "
+            f"n_layers {cfg.n_layers} (reduced from {full.n_layers}), "
+            f"{cfg.dtype}; {cfg.n_params()} params")
+        check_shared_gram(api, params, batches)
+        for tag, pattern in (("0.6", masks.PerRow(0.6)),
+                             ("2:4", masks.NM(2, 4))):
+            ops.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            report = pruning.prune_model(api, params, batches, pattern,
+                                         warmstart="wanda",
+                                         method="sparseswaps", t_max=T_MAX)
+            torch.cuda.synchronize()
+            t_prune = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            dense = pruning.evaluate(api, params, seed=0, device=dev)
+            pruned = pruning.evaluate(api, params, masks=report.masks, seed=0,
+                                      device=dev)
+            log(report.summary())
+            log(f"   {ZAMBA} {tag}: prune_model {t_prune:.2f} s, max memory "
+                f"{peak / 2**30:.2f} GiB; dense ppl {dense['perplexity']:.4f}"
+                f", pruned ppl {pruned['perplexity']:.4f}; mean error "
+                f"reduction {100 * report.mean_error_reduction():.3f}%")
+            log(f"   {ZAMBA} {tag}: launches {launches}")
+            log(f"   {ZAMBA} {tag}: masks digest "
+                f"{digest(mask_leaves(report.masks))}")
+            check_pruned(api, params, report, launches, len(batches),
+                         pattern, dense, pruned)
+            for k, v in launches.items():
+                out["prune"][k] = out["prune"].get(k, 0) + v
+            reports[tag] = report
+        taps = pruning.accumulate(api, params, batches)
+        pattern = masks.PerRow(0.6)
+        for site, W, G in (
+                ("layers.mamba.in_proj[0]",
+                 params["layers"]["mamba"]["in_proj"][0],
+                 taps["mamba"]["in_proj"]["g"][0]),
+                ("shared.attn.wq", params["shared"]["attn"]["wq"],
+                 taps["shared"]["wq"]["g"])):
+            m0 = warmstart_mask(W.float(), G, pattern, "wanda")
+            before = ops.LAUNCHES["swap_commit"]
+            t0 = time.perf_counter()
+            with sparseswaps.count_search_passes() as cnt:
+                r = sparseswaps.refine(W, G, m0, pattern, k_swaps=8,
+                                       commit_mode="candidates", t_max=T_MAX)
+            torch.cuda.synchronize()
+            n = ops.LAUNCHES["swap_commit"] - before
+            check_refined(W, G, r, pattern, f"4z {site} candidates")
+            require(n == cnt.passes > 0,
+                    f"4z {site}: swap_commit launched {n} times in "
+                    f"{cnt.passes} passes")
+            out["swap_commit"] += n
+            log(f"   4z {site} ({W.shape[0]} x {W.shape[1]}) "
+                f"refine(commit_mode=candidates): passes {cnt.passes}, "
+                f"swaps {int(r.swaps.sum())}, error reduction "
+                f"{100 * float(r.error_reduction.mean()):.3f}%, swap_commit "
+                f"launches {n}, {time.perf_counter() - t0:.3f} s; digest of "
+                f"masks, swaps, losses "
+                f"{digest([r.mask > 0.5, r.swaps, r.loss_final])}")
+        del taps, G, W, m0, r
+        torch.cuda.empty_cache()
+    with Phase(f"6z {ZAMBA}: serve dense / masked / nm24 / gathered"):
+        per = spmm_sites(cfg, params)["spmm"]
+        log(f"   spmm launches a packed generate: (2 mamba sites x "
+            f"{cfg.n_layers} layers + 7 shared sites x {n_sites} sites) x "
+            f"{SERVE_GEN} forwards (1 prefill + {SERVE_GEN - 1} decode "
+            f"steps) = {per * SERVE_GEN}")
+        require(per == 2 * cfg.n_layers + 7 * n_sites,
+                f"6z: {per} spmm launches a forward")
+        pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                      4, 32, split="val", device=dev)
+        prompt = pipe.get(0)
+        bf16 = serve_path(api, params, reports["0.6"].masks,
+                          reports["2:4"].masks, prompt, gate=False)
+        torch.cuda.empty_cache()
+        log("   the same engines at float32 (the fp32 spmm kernel), packed "
+            f"vs masked within {SERVE_TOL} of max|logits|:")
+        up = lambda t: ({k: up(v) for k, v in t.items()}  # noqa: E731
+                        if isinstance(t, dict) else t.float())
+        fp32 = serve_path(models.build(cfg.replace(dtype="float32")),
+                          up(params), up(reports["0.6"].masks),
+                          up(reports["2:4"].masks), prompt, bench=False)
+        out["serve"] = {name: {k: v + fp32[name][k] for k, v in n.items()}
+                        for name, n in bf16.items()}
+        log(f"   {ZAMBA}: spmm launches {out['serve']}")
+    del params, reports, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_pruned(api, params, report, launches: dict, n_batches: int,
                  pattern, dense: dict, pruned: dict) -> None:
-    """Phases 4, 4b and 4m: every Gram launch on the bf16 path, one per
-    tap, layer and batch, an MoE tap's (every expert's Gram) one stacked
-    launch; swap_topk once per site instance and pass: T_MAX passes each
-    (taps, sites and instances from ``pruning.sites``; an expert of a
-    layer is an instance); exact per-row sparsity, monotone row losses, a positive mean error
-    reduction, finite perplexities."""
+    """Phases 4, 4b, 4m and 4z: every Gram launch on the bf16 path, one
+    per tap, layer and batch, an MoE tap's (every expert's Gram) one
+    stacked launch, a shared block's tap one a site it runs at; swap_topk
+    once per site instance and pass: T_MAX passes each (taps, sites and
+    instances from ``pruning.sites``; an expert of a layer is an
+    instance), none for an N:M pattern; exact per-row sparsity, monotone
+    row losses, a positive mean error reduction, finite perplexities."""
     from repro_torch.core import masks
     from repro_torch.pruning import sites
 
@@ -2342,14 +2703,18 @@ def check_pruned(api, params, report, launches: dict, n_batches: int,
     specs = sites.site_specs(cfg, params)
     stack = {s.name: len(s.stack_shape) for s in specs}
     taps = [stack[t.sites[0]] for t in sites.tap_specs(cfg, specs)]
-    n_gram = taps.count(1) * cfg.n_layers * n_batches
+    n_gram = (taps.count(1) * cfg.n_layers
+              + taps.count(0) * shared_sites(cfg)) * n_batches
     n_stacked = taps.count(2) * cfg.n_layers * n_batches
     require(launches["gram_xtx_bf16"] == n_gram and launches["gram_xtx"] == 0
             and launches["gram_xtx_stacked_bf16"] == n_stacked
             and launches["gram_xtx_stacked"] == 0,
             f"{cfg.name}: the Gram launches were not {n_gram} unstacked and "
             f"{n_stacked} stacked, all on the bf16 path")
-    n_topk = sum(s.n_instances for s in specs) * T_MAX
+    # an N:M search runs swap_math.topk_swaps_nm, plain ops in both
+    # packages (the reference's is jnp, no Pallas kernel)
+    n_topk = (0 if isinstance(pattern, masks.NM)
+              else sum(s.n_instances for s in specs) * T_MAX)
     require(launches["swap_topk"] == n_topk,
             f"{cfg.name}: swap_topk launched {launches['swap_topk']} times, "
             f"want {n_topk}")
@@ -2914,7 +3279,7 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
             pkw, recover=recoveries[0][0], pattern="2:4", out_dir=None,
             calib_ckpt_every=0))
         count(dict(ops.LAUNCHES))
-        want_n = {k: v * n_layers * SERVE_GEN if cuda else 0
+        want_n = {k: v * SERVE_GEN if cuda else 0
                   for k, v in n_sites.items()}
         for fmt, (exe, rp) in (("gathered", (ex, rep)),
                                ("nm24", (res24["executor"],
@@ -3196,6 +3561,12 @@ def main() -> int:
     with Phase("3m kernel checks at the MoE experts' shapes: stacked Gram "
                "and spmm"):
         results.update(moe_shapes())
+    # before the MoE phases: the profiler loses records late in a long
+    # process (3z's timed spmm calls lost some after 6mc)
+    with Phase("3z kernel checks at zamba2-7b's shapes: Gram, swap search "
+               "and commit, spmm"):
+        zamba_shapes(clock)
+    zamba = zamba_config()
     moe = {name: moe_config(name, serve=name == "mixtral-8x7b")
            for name in MOE}
     with Phase("8 full depth, shapes only: plan_pruning on the meta device"):
@@ -3234,7 +3605,7 @@ def main() -> int:
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o.get("serve"))
-        for o in (*other.values(), *moe.values())]
+        for o in (*other.values(), *moe.values(), zamba)]
     served = [s for _, s in runs if s is not None]
     # the continuous runs (6c, 6mc) and the served exports (9, 9m)
     later = [cont_launches, rec_launches, moe_rec] + [
@@ -3249,7 +3620,7 @@ def main() -> int:
                 "swap_topk": sum(p["swap_topk"] for p, _ in runs)
                 + more("swap_topk"),
                 "swap_argmin": argmin_launches,
-                "swap_commit": commit_launches,
+                "swap_commit": commit_launches + zamba["swap_commit"],
                 "spmm": sum(s["nm24_2:4"]["spmm"] for s in served)
                 + more("spmm"),
                 "spmm_gather": sum(s["gathered_0.6"]["spmm"]

@@ -2,14 +2,16 @@
 
 ``ArchConfig`` keeps the field names and defaults of the reference schema
 for every field the dense and MoE transformers read, so a config written
-for one package reads the same in the other. Family-specific fields the
-port does not run yet (SSM, RWKV, cross-attention, encoder-decoder) are
-left out until their slice lands. Of the execution knobs the port keeps
-the two training reads, ``remat`` (recompute each layer's activations in
-the backward pass) and ``grad_accum`` (microbatches per train step), and
-the MoE block's two: ``moe_group_size`` (dispatch-group tokens) and
-``moe_parallelism``, where on one device "tp" and "local" run the same
-code and "ep" (experts sharded over devices) raises (ROADMAP A5).
+for one package reads the same in the other, the hybrid family's SSM
+fields (zamba2-7b's Mamba2 mixer and its shared attention block)
+included. Family-specific fields the port does not run yet (RWKV,
+cross-attention, encoder-decoder) are left out until their slice lands.
+Of the execution knobs the port keeps the two training reads, ``remat``
+(recompute each layer's activations in the backward pass) and
+``grad_accum`` (microbatches per train step), and the MoE block's two:
+``moe_group_size`` (dispatch-group tokens) and ``moe_parallelism``, where
+on one device "tp" and "local" run the same code and "ep" (experts
+sharded over devices) raises (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -44,6 +46,13 @@ class ArchConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     router_z_coef: float = 1e-3
+    # --- SSM (mamba2 / zamba hybrid) ---
+    ssm_state: int = 0                 # d_state
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_chunk: int = 64                # SSD chunk length (matmul form)
+    shared_attn_every: int = 0         # zamba: shared attn block cadence
     remat: bool = True                 # per-layer activation checkpointing
     grad_accum: int = 1                # microbatches per step (train memory)
     dtype: str = "bfloat16"            # compute/param dtype ("float32" on CPU tests)
@@ -59,6 +68,15 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def n_params(self) -> int:
         """Total parameter count (embeddings included)."""

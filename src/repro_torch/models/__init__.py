@@ -14,10 +14,12 @@ path makes:
     prefill_window(params, batch, cache, masks=None) -> (logits, cache)
 
 ``prefill_window`` is the chunked-prefill continuation the continuous
-scheduler drives. Both families run ``models.transformer`` (an MoE
-config's layers hold the ``models.moe`` block). Rolling caches (the
-reference's long-context serving of sliding-window configs) and the SSM,
-RWKV, VLM and encoder-decoder families come with their slices.
+scheduler drives. The dense and MoE families run ``models.transformer``
+(an MoE config's layers hold the ``models.moe`` block); the hybrid family
+(zamba2-7b) runs ``models.zamba``, which has no ``prefill_window``: the
+continuous scheduler refuses it, as the reference does. Rolling caches
+(the reference's long-context serving) and the RWKV, VLM and
+encoder-decoder families come with their slices.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ArchConfig
 
-from . import transformer
+from . import transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +46,11 @@ class ModelApi:
 
 
 def build(cfg: ArchConfig) -> ModelApi:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
-            f"the port runs the dense and MoE families so far, not "
+            f"the port runs the dense, MoE and hybrid families so far, not "
             f"{cfg.family!r} (ROADMAP A4: other families)")
-    mod = transformer
+    mod = zamba if cfg.family == "hybrid" else transformer
     return ModelApi(
         cfg=cfg,
         init=lambda seed=0, device="cuda": mod.init_params(
@@ -66,8 +68,9 @@ def build(cfg: ArchConfig) -> ModelApi:
         decode_step=lambda p, tok, cache, masks=None: mod.decode_step(
             p, tok, cfg, cache, masks=masks),
         module=mod,
-        prefill_window=lambda p, b, cache, masks=None: mod.prefill_window(
-            p, b, cfg, cache, masks=masks),
+        prefill_window=None if mod is zamba else (
+            lambda p, b, cache, masks=None: mod.prefill_window(
+                p, b, cfg, cache, masks=masks)),
     )
 
 

@@ -49,9 +49,10 @@ def init_cache(batch: int, s_max: int, n_kv: int, dh: int, dtype, *,
     )
 
 
-def init_attn_params(gen, cfg, *, device) -> dict:
-    """q/k/v/o projections, (d_out, d_in) each."""
-    d = cfg.d_model
+def init_attn_params(gen, cfg, *, device, d_in: int | None = None) -> dict:
+    """q/k/v/o projections, (d_out, d_in) each. ``d_in`` overrides the
+    q/k/v input width (zamba's shared block reads concat([x, x0]), 2·d)."""
+    d = d_in or cfg.d_model
     dh, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     dt = getattr(torch, cfg.dtype)
     p = {

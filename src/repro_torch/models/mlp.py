@@ -9,8 +9,9 @@ from .common import dense
 PRUNABLE_MLP = ("w_gate", "w_up", "w_down")
 
 
-def init_mlp_params(gen, cfg, *, device) -> dict:
-    d = cfg.d_model
+def init_mlp_params(gen, cfg, *, device, d_in: int | None = None) -> dict:
+    """``d_in`` overrides the input width (zamba's shared block: 2·d)."""
+    d = d_in or cfg.d_model
     dt = getattr(torch, cfg.dtype)
     if cfg.mlp == "gated":
         return {

@@ -39,8 +39,8 @@ from . import moe as moe_lib
 # init
 # ---------------------------------------------------------------------------
 
-def _norm_params(cfg, device):
-    d = cfg.d_model
+def _norm_params(cfg, device, d: int | None = None):
+    d = d or cfg.d_model
     if cfg.norm == "layernorm":
         return {"scale": torch.ones(d, device=device),
                 "bias": torch.zeros(d, device=device)}
@@ -209,12 +209,17 @@ def lm_head(params, hidden, cfg):
 
 def ce_loss(params, hidden, labels, cfg):
     """Mean cross-entropy over the valid (label >= 0) tokens."""
-    tot, cnt = _ce_sums(params, hidden, labels, cfg)
+    return ce_of_logits(lm_head(params, hidden, cfg), labels)
+
+
+def ce_of_logits(logits, labels):
+    """``ce_loss`` from the head's logits."""
+    tot, cnt = _ce_sums(logits, labels)
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _ce_sums(params, hidden, labels, cfg):
-    logits = lm_head(params, hidden, cfg).float()
+def _ce_sums(logits, labels):
+    logits = logits.float()
     valid = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]

@@ -6,8 +6,6 @@ top-1 accuracy on held-out sequences.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.data import synthetic
 from repro_torch.models import ModelApi
 from repro_torch.train import steps as steps_lib
@@ -26,26 +24,17 @@ def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:
     return steps_lib.perplexity(api, params, batches, masks=masks)
 
 
-@torch.no_grad()
 def top1_accuracy(api: ModelApi, params, batches, *, masks=None) -> float:
     """Zero-shot proxy: next-token top-1 accuracy (higher is better)."""
-    hits, total = 0.0, 0.0
-    for b in batches:
-        hidden, _, _ = api.forward(params, b, masks=masks)
-        logits = api.module.lm_head(params, hidden, api.cfg)
-        pred = torch.argmax(logits, dim=-1)
-        valid = b["labels"] >= 0
-        hits += float(((pred == b["labels"]) & valid).sum())
-        total += float(valid.sum())
-    return hits / max(total, 1.0)
+    return steps_lib.eval_metrics(api, params, batches,
+                                  masks=masks)["accuracy"]
 
 
 def evaluate(api: ModelApi, params, *, masks=None, n_batches: int = 4,
              batch: int = 8, seq: int = 128, seed: int = 0,
              device="cuda") -> dict:
+    """``perplexity`` and ``top1_accuracy`` on the validation batches, from
+    one forward a batch (``train.steps.eval_metrics``)."""
     bs = val_batches(api.cfg, n_batches=n_batches, batch=batch, seq=seq,
                      seed=seed, device=device)
-    return {
-        "perplexity": perplexity(api, params, bs, masks=masks),
-        "accuracy": top1_accuracy(api, params, bs, masks=masks),
-    }
+    return steps_lib.eval_metrics(api, params, bs, masks=masks)

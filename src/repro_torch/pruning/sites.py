@@ -14,6 +14,10 @@ transformer has attention and per-expert w_gate/w_up/w_down (the router
 stays dense), each expert with its own Gram over the tokens routed to it
 (taps ``moe_w_up``, shared by w_gate and w_up, and ``moe_w_down``), so an
 expert site has N = L·E instances, labelled ``layers.moe.w_up[l, e]``.
+The hybrid (zamba) has mamba in_proj / out_proj per layer and the SHARED
+block's attention and MLP, one instance each, whose Gram is the sum over
+the block's invocation sites (the reference's ``"sum"`` rows; the model
+hands that sum over already, ``models.zamba``, so they stack nothing).
 
 Shape-only views (``SiteSpec``, ``TapSpec``) let the planner resolve a
 recipe and cost a run before any weight exists: ``site_specs`` reads
@@ -158,8 +162,23 @@ _MLP_GATED = ("w_gate", "w_up", "w_down")
 _MLP_PLAIN = ("w_up", "w_down")
 
 
+def _zamba_table(cfg: ArchConfig):
+    rows = [(f"layers.mamba.{k}", ("layers", "mamba", k), ("mamba", k), 1)
+            for k in ("in_proj", "out_proj")]
+    rows += [(f"shared.attn.{k}", ("shared", "attn", k), ("shared", k), 0)
+             for k in _ATTN]
+    mlp = _MLP_GATED if cfg.mlp == "gated" else _MLP_PLAIN
+    rows += [(f"shared.mlp.{k}", ("shared", "mlp", k), ("shared", k), 0)
+             for k in mlp]
+    return rows
+
+
 def _table(cfg: ArchConfig):
-    """(site name, param path, tap path, n stack dims) per prunable site."""
+    """(site name, param path, tap path, n stack dims) per prunable site;
+    0 for a shared block's site (one instance, its tap summed over the
+    block's invocation sites)."""
+    if cfg.family == "hybrid":
+        return _zamba_table(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"no site table for family {cfg.family!r} (ROADMAP A4: other "
@@ -184,7 +203,8 @@ def _get(tree, path):
 
 def _gram_batch(tap_entry: dict) -> GramBatch:
     """A stacked tap entry {g|d, s, n} (leading stack dims: layers, or
-    layers x experts) -> GramBatch, the stack dims flattened into N."""
+    layers x experts, or none for a shared block) -> GramBatch, the stack
+    dims flattened into N."""
     s = tap_entry["s"]
     s = s.reshape(-1, s.shape[-1])
     N = s.shape[0]
@@ -240,8 +260,9 @@ class TapSpec:
 
     ``path`` locates the entry in the taps tree, ``name`` is the key the
     model emits it under (the ``TapPolicy`` lookup key), ``n`` the stacked
-    instance count during accumulation, ``sites`` every site group fed by
-    this tap.
+    instance count during accumulation (1 for a shared block's tap, which
+    the port sums as it goes where the reference stacks L entries),
+    ``sites`` every site group fed by this tap.
     """
 
     path: tuple[str, ...]

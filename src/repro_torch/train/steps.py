@@ -14,7 +14,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import ckpt
-from repro_torch.models import ModelApi
+from repro_torch.models import ModelApi, transformer
 from repro_torch.optim import adamw
 
 
@@ -117,19 +117,31 @@ def make_eval_step(api: ModelApi, *, masks=None):
     return step
 
 
-def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:
-    """Token-weighted mean-CE perplexity over an iterable of batches: each
-    batch's mean CE weighs by its valid-token count, so a ragged last
-    batch or padded prompts do not bias it; exp in fp32, as the
-    reference takes it."""
-    step = make_eval_step(api, masks=masks)
-    tot, n = 0.0, 0.0
+@torch.no_grad()
+def eval_metrics(api: ModelApi, params, batches, *, masks=None) -> dict:
+    """{"perplexity", "accuracy"} over an iterable of batches, both from
+    one forward a batch. Perplexity: each batch's mean CE weighs by its
+    valid-token count, so a ragged last batch or padded prompts do not
+    bias it; exp in fp32, as the reference takes it. Accuracy: next-token
+    top-1 hits over the valid tokens."""
+    tot, n, hits = 0.0, 0.0, 0.0
     for b in batches:
-        ce, cnt = step(params, b)
-        tot += float(ce) * float(cnt)
-        n += float(cnt)
-    return float(torch.exp(torch.tensor(tot / max(n, 1.0),
-                                        dtype=torch.float32)))
+        hidden, _, _ = api.forward(params, b, masks=masks)
+        logits = api.module.lm_head(params, hidden, api.cfg)
+        valid = b["labels"] >= 0
+        cnt = float(valid.to(torch.float32).sum())
+        tot += float(transformer.ce_of_logits(logits, b["labels"])) * cnt
+        n += cnt
+        hits += float(((torch.argmax(logits, dim=-1) == b["labels"])
+                       & valid).sum())
+    return {"perplexity": float(torch.exp(torch.tensor(
+                tot / max(n, 1.0), dtype=torch.float32))),
+            "accuracy": hits / max(n, 1.0)}
+
+
+def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:
+    """Token-weighted mean-CE perplexity (``eval_metrics``)."""
+    return eval_metrics(api, params, batches, masks=masks)["perplexity"]
 
 
 def make_serve_steps(api: ModelApi, *, masks=None):

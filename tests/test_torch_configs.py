@@ -4,8 +4,9 @@ All five dense configs (the reference's four dense assigned architectures
 and llama31-8b), at full width, on shapes alone:
 
 * every field of the port's ``ArchConfig`` equals the reference's, in
-  ``CONFIG`` and ``TINY``; the reference fields the port does not carry
-  yet are exactly ``NOT_PORTED``;
+  ``CONFIG`` and ``TINY`` (zamba2-7b's too, the hybrid family's SSM
+  fields and ``d_inner`` / ``n_ssm_heads`` included); the reference
+  fields the port does not carry yet are exactly ``NOT_PORTED``;
 * the param tree of ``api.init(device="meta")`` has the paths and shapes
   of the reference's ``jax.eval_shape(api.init, key)``, and
   ``param_count`` / ``n_params`` agree;
@@ -32,6 +33,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402
@@ -68,11 +70,12 @@ NOT_PORTED = {
     "d_frontend", "fsdp_params", "head_chunk", "long_window",
     "n_enc_layers", "n_img_tokens", "n_src_frames",
     "rwkv_chunk", "rwkv_head_dim", "rwkv_lora_decay",
-    "rwkv_lora_mix", "scan_layers", "shared_attn_every", "ssm_chunk",
-    "ssm_conv", "ssm_expand", "ssm_head_dim", "ssm_state",
+    "rwkv_lora_mix", "scan_layers",
 }
 # the MoE family, held in test_torch_moe.py
 MOE = ["mixtral-8x7b", "granite-moe-3b-a800m"]
+# the hybrid family, held in test_torch_zamba.py
+HYBRID = ["zamba2-7b"]
 
 
 def _leaves(tree, prefix=""):
@@ -88,14 +91,14 @@ def _np(tree):
 
 
 def test_registry_holds_the_dense_family():
-    ported = DENSE + MOE
+    ported = DENSE + MOE + HYBRID
     assert list(tconfigs.ARCHS) == [n for n in jconfigs.ARCHS if n in ported]
     assert sorted(tconfigs.ARCHS) == sorted(ported)
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("rwkv6-1.6b")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + HYBRID)
 def test_config_fields_match_reference(arch):
     fields = {f.name for f in dataclasses.fields(tconfigs.ArchConfig)}
     ref_fields = {f.name for f in dataclasses.fields(jconfigs.ArchConfig)}
@@ -105,6 +108,7 @@ def test_config_fields_match_reference(arch):
         for f in sorted(fields):
             assert getattr(t, f) == getattr(j, f), f
         assert t.head_dim == j.head_dim
+        assert (t.d_inner, t.n_ssm_heads) == (j.d_inner, j.n_ssm_heads)
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 from hypothesis import given, settings, strategies as st  # noqa: E402
 

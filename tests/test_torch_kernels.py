@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402
 
 from repro_torch.core import masks as tmasks  # noqa: E402
 from repro_torch.core import swap_math as sm  # noqa: E402
@@ -51,6 +52,17 @@ except ImportError:  # a card machine without JAX runs the gpu test only
 
 needs_reference = pytest.mark.skipif(
     jnp is None, reason="the JAX reference package is not installed")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _default_threads():
+    """torch's own intra-op thread count in this module: its swap cases
+    build exact ties in products of MKL's, whose blocking (so which
+    columns tie bit for bit) follows the thread count, and they were
+    built at the default (``_torch_threads`` sets 1 for the suite)."""
+    torch.set_num_threads(_torch_threads.DEFAULT)
+    yield
+    torch.set_num_threads(1)
 
 
 def _t(x):

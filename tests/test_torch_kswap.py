@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from test_swap_optimal import _problem  # noqa: E402

@@ -7,13 +7,17 @@ go to the port through numpy (``repro_torch.convert``). The chain:
   through two layers, matmuls summed in another order;
 * every tap's Gram agrees within 1e-5 of its max|G| (fp32 sums);
 * ``prune_model`` given the SAME Grams gives equal masks at 0.6 and 2:4;
-* dense and pruned perplexity agree within 1e-4 relative;
+* dense and pruned perplexity agree within 1e-4 relative, and so does
+  ``evaluate``'s, its top-1 accuracy equal;
 * the CLI runs with ``--tiny --device cpu``.
 """
+import importlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402
@@ -134,6 +138,37 @@ def test_prune_model_same_grams_same_masks(world, spec):
         tp = tpruning.perplexity(world["tapi"], world["tparams"], world["tval"],
                                  masks=tm)
         assert tp == pytest.approx(jp, rel=1e-4)
+
+
+@pytest.mark.parametrize("pruned", [False, True], ids=["dense", "pruned"])
+def test_evaluate_matches_reference(world, pruned, monkeypatch):
+    """``evaluate`` vs the reference's on the reference's validation tokens
+    (the port samples its own corpus with torch's generator): perplexity
+    within 1e-4 relative, top-1 accuracy equal, and each the value of
+    ``perplexity`` / ``top1_accuracy`` on those batches."""
+    tev = importlib.import_module("repro_torch.pruning.evaluate")
+    jcfg = world["japi"].cfg
+    monkeypatch.setattr(tev, "val_batches", lambda cfg, *, device, **kw: [
+        convert.from_numpy(jax.tree.map(np.asarray, b))
+        for b in jpruning.val_batches(jcfg, **kw)])
+    tm = None
+    if pruned:
+        ttaps = convert.from_numpy(jax.tree.map(np.asarray, world["jtaps"]))
+        tm = tpruning.prune_model(world["tapi"], world["tparams"], None,
+                                  tmasks.PerRow(0.6), taps=ttaps,
+                                  method="none").masks
+    jm = None if tm is None else convert.to_numpy(tm)
+    kw = dict(n_batches=2, batch=4, seq=32, seed=3)
+    want = jpruning.evaluate(world["japi"], world["jparams"], masks=jm, **kw)
+    got = tpruning.evaluate(world["tapi"], world["tparams"], masks=tm,
+                            device="cpu", **kw)
+    assert got["perplexity"] == pytest.approx(want["perplexity"], rel=1e-4)
+    assert got["accuracy"] == want["accuracy"]
+    bs = tev.val_batches(jcfg, device="cpu", **kw)
+    assert got["perplexity"] == tpruning.perplexity(
+        world["tapi"], world["tparams"], bs, masks=tm)
+    assert got["accuracy"] == tpruning.top1_accuracy(
+        world["tapi"], world["tparams"], bs, masks=tm)
 
 
 def test_method_none_is_the_warmstart(world):

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

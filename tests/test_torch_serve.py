@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 import _torch_serve_pair as pair  # noqa: E402
 from repro.serve import loadgen as jloadgen  # noqa: E402

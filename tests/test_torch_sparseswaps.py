@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from test_swap_optimal import _brute_force, _problem, _row_loss_np  # noqa: E402

@@ -267,6 +267,31 @@ and its time:
    random layers past SERVE_TOL); then the same six engines at float32
    (the fp32 spmm kernel): 448 launches a packed generate again, nm24 ==
    gathered bitwise, packed vs masked logits within SERVE_TOL.
+3r / 4r / 6r. rwkv6-1.6b (after 4z / 6z, before 4m): 3r every kernel of
+   its path at its shapes new to the kernels, held and timed as phase 3
+   holds and times them: the bf16 Gram at T = 512, d = 64 (td_w2's
+   input), 2048 and 7168 (cm_wv's); swap_topk (k = 8) and the commit at
+   every site shape — (2048, 2048) wr / wk / wv / wg / wo / cm_wr, (64,
+   2048) td_w1 (two 32-row search blocks), (2048, 64) td_w2 (a quarter
+   p-tile, one 64-column box of G), (7168, 2048) cm_wk, (2048, 7168)
+   cm_wv — the search bitwise on every row of td_w1 and on the first 128
+   rows and the last 128-row block of the others, the commit on every
+   row; spmm (nm24, gathered PerRow(0.6) and 2:4; fp32 and bf16; T = 4
+   and 128) at td_w1 (64 rows), td_w2 (K = 64; PerRow(0.6) keeps 26), the
+   relu2 cm_wk and the silu wg. 4r and 6r on rwkv6-1.6b at full width, 2
+   layers, bf16, seed 0: ``prune_model`` at PerRow(0.6) and 2:4 (Wanda,
+   SparseSwaps k = 8, t_max = 4) with phase 4's gates (10 taps x 2 layers
+   x 4 batches = 80 Gram launches, 80 swap_topk launches for PerRow(0.6),
+   none for 2:4), time, peak memory and digests; the candidate commit
+   (phase 5's gates) on layer 0's td_w1 and td_w2; then phase 6's serving
+   at prompts of 32 and 37 tokens (the WKV chunk's pad path), 10 x 2 x 16
+   = 320 spmm launches a packed generate, nm24 == gathered bitwise,
+   packed vs masked logits within SERVE_TOL in bf16 and in the same six
+   engines built at float32; the dense model's bf16 logits against its
+   float32 ones, fed the same tokens, printed; prefill of 21 tokens and
+   32 decode steps against one forward over the 53 (logits, and the WKV
+   state and token-shift vectors carried against a prefill of all of
+   them), within SERVE_TOL in bf16 and 1e-3 at float32.
 8. full depth, shapes only: every config's ``plan_pruning`` on the
    meta device (nothing allocated), its weight, Gram and calibration
    bytes, and whether the bf16 model and its calibration state fit the
@@ -329,9 +354,9 @@ and its time:
    at mixtral's moe_w_down, its launches phases 4m's and 9m's;
    ``spmm_stacked`` and ``spmm_stacked_gather`` at mixtral's w_gate, nm24
    at T = 40 and gathered PerRow(0.6) at T = 4, their launches phases
-   6m's, 6mc's and 9m's; the zamba phases' Gram, swap_topk, swap_commit
-   and spmm launches among them), the card line, and last {"ok": true,
-   "device": ...}.
+   6m's, 6mc's and 9m's; the zamba and rwkv phases' Gram, swap_topk,
+   swap_commit and spmm launches among them), the card line, and last
+   {"ok": true, "device": ...}.
 
 Where the main path's device time goes is measured apart from this
 script, by ``python -m repro_torch.launch.profile_prune``.
@@ -432,6 +457,28 @@ ZAMBA_SWAPS = [(14576, 3584, "zamba2-7b in_proj"),
                (7168, 7168, "zamba2-7b shared.attn.wq")]
 ZAMBA_SPMM = [(14576, 3584, None, "zamba2-7b in_proj"),
               (14336, 7168, "gelu", "zamba2-7b shared.mlp.w_gate")]
+# rwkv6-1.6b (phases 3r, 4r, 6r): its shapes new to the kernels — the
+# Gram at d = 64 (td_w2's input: tanh of the decay LoRA), 2048 (the five
+# ddlerp inputs, cm_wk's and cm_wr's) and 7168 (cm_wv's relu²(k)); the swap
+# search and commit at every site shape, td_w2's 64-wide rows a quarter
+# of swap_topk's 256-column p-tile and one 64-column TMA box of G, td_w1's
+# 64 rows two 32-row search blocks; spmm at td_w1 (64 rows: half of
+# nm24's 128-row block), td_w2 (K = 64: half of nm24's 128-column tile;
+# PerRow(0.6) keeps 26, k % 16 != 0), the relu2 cm_wk and the silu wg —
+# and the depth its paths run at.
+RWKV = "rwkv6-1.6b"
+RWKV_LAYERS = 2
+RWKV_GRAM_DS = (64, 2048, 7168)
+RWKV_SWAPS = [(2048, 2048, "rwkv6-1.6b wr/wk/wv/wg/wo/cm_wr"),
+              (64, 2048, "rwkv6-1.6b td_w1"),
+              (2048, 64, "rwkv6-1.6b td_w2"),
+              (7168, 2048, "rwkv6-1.6b cm_wk"),
+              (2048, 7168, "rwkv6-1.6b cm_wv")]
+RWKV_SPMM = [(64, 2048, None, "rwkv6-1.6b td_w1"),
+             (2048, 64, None, "rwkv6-1.6b td_w2"),
+             (7168, 2048, "relu2", "rwkv6-1.6b cm_wk"),
+             (2048, 2048, "silu", "rwkv6-1.6b wg")]
+RWKV_PROMPTS = (32, 37)          # two WKV chunks; 37 takes the pad path
 SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
     (4096, 4096, None, True, "chatglm3-6b wq", False),
     (256, 4096, None, True, "chatglm3-6b wk", False),
@@ -2461,32 +2508,34 @@ def moe_config(name: str, *, serve: bool) -> dict:
     return out
 
 
-def zamba_shapes(clock_mhz: float) -> None:
-    """Phase 3z: every kernel of zamba2-7b's path at its shapes new to the
-    kernels, held against its plain version as phase 3 holds it and timed
-    beside its bound and the one PyTorch call: the bf16 Gram at T = 512,
-    d = ZAMBA_GRAM_DS; swap_topk (k = 8) and the commit at ZAMBA_SWAPS on
-    all rows, the search held bitwise on the first 128 rows and the last
-    128-row block (the ragged tail), the commit on every row; spmm (nm24
-    on 2:4, gathered on PerRow(0.6) and 2:4; fp32 and bf16; T = 4 and
-    128) at ZAMBA_SPMM."""
+def family_shapes(clock_mhz: float, gram_ds, swaps, spmms,
+                  seed: int) -> None:
+    """Phases 3z and 3r: every kernel of a model family's path at its
+    shapes new to the kernels, held against its plain version as phase 3
+    holds it and timed beside its bound and the one PyTorch call: the
+    bf16 Gram at T = 512, d = ``gram_ds``; swap_topk (k = 8) and the
+    commit at ``swaps`` (R, d, site) on all rows, the search held bitwise
+    on every row of a problem of at most 256 rows and on the first 128
+    rows and the last 128-row block (a ragged tail) of a larger one, the
+    commit on every row; spmm (nm24 on 2:4, gathered on PerRow(0.6) and
+    2:4; fp32 and bf16; T = 4 and 128) at ``spmms`` (d_out, d_in, act,
+    site). The swap problems are drawn from ``seed`` + their index."""
     import torch
     from repro_torch.launch import profile_swap
 
-    for d in ZAMBA_GRAM_DS:
+    for d in gram_ds:
         check_gram(512, d, dtypes=("bf16",))
-    for i, (R, d, site) in enumerate(ZAMBA_SWAPS):
-        w, m, c, G = profile_swap.problem(R, d, 100 + i)
+    for i, (R, d, site) in enumerate(swaps):
+        w, m, c, G = profile_swap.problem(R, d, seed + i)
         tag = f"R={R} d={d} ({site})"
-        rows = torch.unique(torch.cat([torch.arange(min(R, 128)),
-                                       torch.arange((R - 1) // 128 * 128,
-                                                    R)])).cuda()
+        rows = None if R <= 256 else torch.unique(torch.cat([
+            torch.arange(128), torch.arange((R - 1) // 128 * 128, R)])).cuda()
         check_swaps(w, m, c, G, 8, tag, names=("swap_topk",),
                     timed=("swap_topk",), clock_mhz=clock_mhz, rows=rows)
         check_commit(w, m, c, G, 8, tag)
         del w, m, c, G
         torch.cuda.empty_cache()
-    for d_out, d_in, act, site in ZAMBA_SPMM:
+    for d_out, d_in, act, site in spmms:
         check_spmm(d_out, d_in, act, site)
     torch.cuda.empty_cache()
 
@@ -2553,6 +2602,85 @@ def check_shared_gram(api, params, batches) -> None:
     torch.cuda.empty_cache()
 
 
+def prune_patterns(api, params, batches, dev) -> tuple[dict, dict]:
+    """Phases 4z and 4r: ``prune_model`` at PerRow(0.6) and at 2:4 (Wanda
+    warmstart, SparseSwaps k = 8, t_max = T_MAX) with phase 4's gates
+    (``check_pruned``), time, peak memory and a masks digest each.
+    Returns (the launches of both runs summed, {pattern tag: report})."""
+    import torch
+    from repro_torch import pruning
+    from repro_torch.core import masks
+    from repro_torch.kernels import ops
+
+    name = api.cfg.name
+    total, reports = {}, {}
+    for tag, pattern in (("0.6", masks.PerRow(0.6)), ("2:4", masks.NM(2, 4))):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        report = pruning.prune_model(api, params, batches, pattern,
+                                     warmstart="wanda", method="sparseswaps",
+                                     t_max=T_MAX)
+        torch.cuda.synchronize()
+        t_prune = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        dense = pruning.evaluate(api, params, seed=0, device=dev)
+        pruned = pruning.evaluate(api, params, masks=report.masks, seed=0,
+                                  device=dev)
+        log(report.summary())
+        log(f"   {name} {tag}: prune_model {t_prune:.2f} s, max memory "
+            f"{peak / 2**30:.2f} GiB; dense ppl {dense['perplexity']:.4f}"
+            f", pruned ppl {pruned['perplexity']:.4f}; mean error "
+            f"reduction {100 * report.mean_error_reduction():.3f}%")
+        log(f"   {name} {tag}: launches {launches}")
+        log(f"   {name} {tag}: masks digest "
+            f"{digest(mask_leaves(report.masks))}")
+        check_pruned(api, params, report, launches, len(batches), pattern,
+                     dense, pruned)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        reports[tag] = report
+    return total, reports
+
+
+def refine_candidates(phase: str, problems) -> int:
+    """Phases 4z and 4r: ``refine(commit_mode="candidates")`` from a Wanda
+    PerRow(0.6) warmstart on each (site, W, G) of ``problems`` (a layer's
+    weight and its calibration Gram), so the commit kernel runs at the
+    family's shapes: phase 5's gates, one swap_commit launch a pass.
+    Returns the swap_commit launches."""
+    import torch
+    from repro_torch.core import masks, sparseswaps
+    from repro_torch.core.warmstart import warmstart_mask
+    from repro_torch.kernels import ops
+
+    pattern = masks.PerRow(0.6)
+    total = 0
+    for site, W, G in problems:
+        m0 = warmstart_mask(W.float(), G, pattern, "wanda")
+        before = ops.LAUNCHES["swap_commit"]
+        t0 = time.perf_counter()
+        with sparseswaps.count_search_passes() as cnt:
+            r = sparseswaps.refine(W, G, m0, pattern, k_swaps=8,
+                                   commit_mode="candidates", t_max=T_MAX)
+        torch.cuda.synchronize()
+        n = ops.LAUNCHES["swap_commit"] - before
+        check_refined(W, G, r, pattern, f"{phase} {site} candidates")
+        require(n == cnt.passes > 0,
+                f"{phase} {site}: swap_commit launched {n} times in "
+                f"{cnt.passes} passes")
+        total += n
+        log(f"   {phase} {site} ({W.shape[0]} x {W.shape[1]}) "
+            f"refine(commit_mode=candidates): passes {cnt.passes}, "
+            f"swaps {int(r.swaps.sum())}, error reduction "
+            f"{100 * float(r.error_reduction.mean()):.3f}%, swap_commit "
+            f"launches {n}, {time.perf_counter() - t0:.3f} s; digest of "
+            f"masks, swaps, losses "
+            f"{digest([r.mask > 0.5, r.swaps, r.loss_final])}")
+    return total
+
+
 def zamba_config(cfg=None, device="cuda") -> dict:
     """Phases 4z and 6z: zamba2-7b at full width, depth ZAMBA_LAYERS (the
     shared block at layers 0 and 6), bf16, random weights from seed 0.
@@ -2575,10 +2703,7 @@ def zamba_config(cfg=None, device="cuda") -> dict:
     (a TINY config on the CPU, where no launch counts hold)."""
     import torch
     from repro_torch import configs, models, pruning
-    from repro_torch.core import masks, sparseswaps
-    from repro_torch.core.warmstart import warmstart_mask
     from repro_torch.data import synthetic
-    from repro_torch.kernels import ops
 
     dev = torch.device(device)
     full = configs.get(ZAMBA)
@@ -2588,8 +2713,7 @@ def zamba_config(cfg=None, device="cuda") -> dict:
     batches = list(pruning.calibration_batches(
         cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=dev))
     n_sites = shared_sites(cfg)
-    out = {"prune": {}, "swap_commit": 0}
-    reports = {}
+    out = {}
     with Phase(f"4z {ZAMBA}: prune_model + perplexity, the shared Gram"):
         log(f"   config: {ZAMBA} full width (d_model {cfg.d_model}, "
             f"d_inner {cfg.d_inner}, {cfg.n_ssm_heads} SSM heads of "
@@ -2600,63 +2724,15 @@ def zamba_config(cfg=None, device="cuda") -> dict:
             f"n_layers {cfg.n_layers} (reduced from {full.n_layers}), "
             f"{cfg.dtype}; {cfg.n_params()} params")
         check_shared_gram(api, params, batches)
-        for tag, pattern in (("0.6", masks.PerRow(0.6)),
-                             ("2:4", masks.NM(2, 4))):
-            ops.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            report = pruning.prune_model(api, params, batches, pattern,
-                                         warmstart="wanda",
-                                         method="sparseswaps", t_max=T_MAX)
-            torch.cuda.synchronize()
-            t_prune = time.perf_counter() - t0
-            launches = dict(ops.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated()
-            dense = pruning.evaluate(api, params, seed=0, device=dev)
-            pruned = pruning.evaluate(api, params, masks=report.masks, seed=0,
-                                      device=dev)
-            log(report.summary())
-            log(f"   {ZAMBA} {tag}: prune_model {t_prune:.2f} s, max memory "
-                f"{peak / 2**30:.2f} GiB; dense ppl {dense['perplexity']:.4f}"
-                f", pruned ppl {pruned['perplexity']:.4f}; mean error "
-                f"reduction {100 * report.mean_error_reduction():.3f}%")
-            log(f"   {ZAMBA} {tag}: launches {launches}")
-            log(f"   {ZAMBA} {tag}: masks digest "
-                f"{digest(mask_leaves(report.masks))}")
-            check_pruned(api, params, report, launches, len(batches),
-                         pattern, dense, pruned)
-            for k, v in launches.items():
-                out["prune"][k] = out["prune"].get(k, 0) + v
-            reports[tag] = report
+        out["prune"], reports = prune_patterns(api, params, batches, dev)
         taps = pruning.accumulate(api, params, batches)
-        pattern = masks.PerRow(0.6)
-        for site, W, G in (
-                ("layers.mamba.in_proj[0]",
-                 params["layers"]["mamba"]["in_proj"][0],
-                 taps["mamba"]["in_proj"]["g"][0]),
-                ("shared.attn.wq", params["shared"]["attn"]["wq"],
-                 taps["shared"]["wq"]["g"])):
-            m0 = warmstart_mask(W.float(), G, pattern, "wanda")
-            before = ops.LAUNCHES["swap_commit"]
-            t0 = time.perf_counter()
-            with sparseswaps.count_search_passes() as cnt:
-                r = sparseswaps.refine(W, G, m0, pattern, k_swaps=8,
-                                       commit_mode="candidates", t_max=T_MAX)
-            torch.cuda.synchronize()
-            n = ops.LAUNCHES["swap_commit"] - before
-            check_refined(W, G, r, pattern, f"4z {site} candidates")
-            require(n == cnt.passes > 0,
-                    f"4z {site}: swap_commit launched {n} times in "
-                    f"{cnt.passes} passes")
-            out["swap_commit"] += n
-            log(f"   4z {site} ({W.shape[0]} x {W.shape[1]}) "
-                f"refine(commit_mode=candidates): passes {cnt.passes}, "
-                f"swaps {int(r.swaps.sum())}, error reduction "
-                f"{100 * float(r.error_reduction.mean()):.3f}%, swap_commit "
-                f"launches {n}, {time.perf_counter() - t0:.3f} s; digest of "
-                f"masks, swaps, losses "
-                f"{digest([r.mask > 0.5, r.swaps, r.loss_final])}")
-        del taps, G, W, m0, r
+        out["swap_commit"] = refine_candidates("4z", (
+            ("layers.mamba.in_proj[0]",
+             params["layers"]["mamba"]["in_proj"][0],
+             taps["mamba"]["in_proj"]["g"][0]),
+            ("shared.attn.wq", params["shared"]["attn"]["wq"],
+             taps["shared"]["wq"]["g"])))
+        del taps
         torch.cuda.empty_cache()
     with Phase(f"6z {ZAMBA}: serve dense / masked / nm24 / gathered"):
         per = spmm_sites(cfg, params)["spmm"]
@@ -2683,6 +2759,153 @@ def zamba_config(cfg=None, device="cuda") -> dict:
                         for name, n in bf16.items()}
         log(f"   {ZAMBA}: spmm launches {out['serve']}")
     del params, reports, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_recurrent_state(api, params, tokens, S0: int, tol: float,
+                          tag: str) -> None:
+    """Phase 6r: ``prefill`` of the first ``S0`` tokens, then
+    ``decode_step`` over the rest, against one ``forward`` over all of
+    them: the logits at every position within ``tol`` of max|logits|; and
+    the state the decode steps carried (WKV matrix, both token-shift
+    vectors) against ``prefill``'s of all the tokens, within ``tol`` of
+    its max. S0 and the length are not multiples of the WKV chunk, so
+    both prefills take the pad path."""
+    import torch
+
+    B, S = tokens.shape
+    with torch.no_grad():
+        cache = api.init_cache(params, B, S)
+        logits, cache = api.prefill(params, {"tokens": tokens[:, :S0]},
+                                    cache)
+        outs = [logits]
+        for t in range(S0, S):
+            logits, cache = api.decode_step(params, tokens[:, t:t + 1], cache)
+            outs.append(logits)
+        hidden, _, _ = api.forward(params, {"tokens": tokens})
+        want = api.module.lm_head(params, hidden, api.cfg)[:, S0 - 1:S - 1]
+        got = torch.cat(outs[:-1], 1)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        one = api.init_cache(params, B, S)
+        _, one = api.prefill(params, {"tokens": tokens}, one)
+        states = {}
+        for name in ("s", "x_tm", "x_cm"):
+            a, b = getattr(cache, name).float(), getattr(one, name).float()
+            states[name] = float((a - b).abs().max()) / float(b.abs().max())
+    log(f"   6r {tag}: prefill {S0} + {S - S0} decode steps vs one forward "
+        f"over {S} tokens: logits max_abs_err {err:.4e} ({err / scale:.2e} "
+        f"of max|logits| {scale:.3f}); carried state vs prefill of all, of "
+        f"its max: " + ", ".join(f"{k} {v:.2e}" for k, v in states.items()))
+    require(cache.t == one.t == S, f"6r {tag}: cache clock {cache.t}")
+    require(math.isfinite(err) and err <= tol * scale,
+            f"6r {tag}: prefill + decode off one forward by "
+            f"{err / scale:.2e} of max|logits|")
+    require(all(v <= tol for v in states.values()),
+            f"6r {tag}: the carried state is off the prefill's {states}")
+
+
+def rwkv_config(cfg=None, device="cuda") -> dict:
+    """Phases 4r and 6r: rwkv6-1.6b at full width, depth RWKV_LAYERS,
+    bf16, random weights from seed 0. 4r: ``prune_model`` at PerRow(0.6)
+    and at 2:4 (Wanda warmstart, SparseSwaps k = 8, t_max = T_MAX) with
+    phase 4's gates (``check_pruned``: ten taps, each one Gram a layer and
+    batch, none stacked or shared), time, peak memory and a masks digest
+    each; then ``refine(commit_mode="candidates")`` on layer 0's td_w1
+    and td_w2 with their calibration Grams, so the commit kernel runs on
+    the 64-wide sites: phase 5's gates, one swap_commit launch a pass. 6r:
+    phase 6's serving (dense, masked, nm24 and gathered on the PerRow(0.6)
+    masks and on the 2:4 ones, batch 4, SERVE_GEN new tokens) at each
+    prompt length of RWKV_PROMPTS (the first timed), 10 sites x layers x
+    SERVE_GEN spmm launches a packed generate, nm24 == gathered bitwise,
+    packed vs masked logits within SERVE_TOL (bf16 rounding at these 2
+    layers stays ~1e-2 of max|logits|, so bf16 is gated, not only the
+    float32 engines as 6z must); the dense model's bf16 logits against
+    the same model's at float32, fed its tokens, printed; the same six
+    engines at float32 (the fp32 spmm kernel) under the same gates; and
+    ``check_recurrent_state`` in bf16 (within SERVE_TOL) and at float32
+    (within 1e-3). Returns the launches of each path. ``cfg`` and
+    ``device`` rehearse it elsewhere (a TINY config on the CPU, where no
+    launch counts hold)."""
+    import torch
+    from repro_torch import configs, models, pruning
+    from repro_torch.data import synthetic
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device(device)
+    full = configs.get(RWKV)
+    cfg = cfg or full.replace(n_layers=RWKV_LAYERS)
+    api = models.build(cfg)
+    params = api.init(seed=0, device=dev)
+    batches = list(pruning.calibration_batches(
+        cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=dev))
+    out = {}
+    with Phase(f"4r {RWKV}: prune_model + perplexity"):
+        log(f"   config: {RWKV} full width (d_model {cfg.d_model}, "
+            f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+            f"{cfg.rwkv_head_dim}, chunk {cfg.rwkv_chunk}, decay LoRA "
+            f"{cfg.rwkv_lora_decay}, mix LoRA {cfg.rwkv_lora_mix}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}), n_layers {cfg.n_layers} "
+            f"(reduced from {full.n_layers}), {cfg.dtype}; "
+            f"{cfg.n_params()} params")
+        out["prune"], reports = prune_patterns(api, params, batches, dev)
+        taps = pruning.accumulate(api, params, batches)
+        out["swap_commit"] = refine_candidates("4r", [
+            (f"layers.tm.{site}[0]", params["layers"]["tm"][site][0],
+             taps[site]["g"][0]) for site in ("td_w1", "td_w2")])
+        del taps
+        torch.cuda.empty_cache()
+    with Phase(f"6r {RWKV}: serve dense / masked / nm24 / gathered"):
+        per = spmm_sites(cfg, params)["spmm"]
+        log(f"   spmm launches a packed generate: 10 sites x "
+            f"{cfg.n_layers} layers x {SERVE_GEN} forwards (1 prefill + "
+            f"{SERVE_GEN - 1} decode steps) = {per * SERVE_GEN}")
+        require(per == 10 * cfg.n_layers, f"6r: {per} spmm launches a "
+                "forward")
+        up = lambda t: ({k: up(v) for k, v in t.items()}  # noqa: E731
+                        if isinstance(t, dict) else t.float())
+        api32 = models.build(cfg.replace(dtype="float32"))
+        params32 = up(params)
+        m60, m24 = reports["0.6"].masks, reports["2:4"].masks
+        served = []
+        for S in RWKV_PROMPTS:
+            pipe = synthetic.DataPipeline(
+                synthetic.CorpusConfig(cfg.vocab_size), 4, S, split="val",
+                device=dev)
+            prompt = pipe.get(0)
+            log(f"   prompt batch 4 x {S} ({S // cfg.rwkv_chunk} WKV chunks"
+                f"{f' + {S % cfg.rwkv_chunk} padded' if S % cfg.rwkv_chunk else ''}"
+                f"), bf16:")
+            served.append(serve_path(api, params, m60, m24, prompt,
+                                     bench=S == RWKV_PROMPTS[0]))
+            eng32 = ServeEngine(api32, params32, fmt="dense")
+            ref = eng32.logits_trace(prompt, SERVE_GEN)
+            got = forced_logits(ServeEngine(api, params, fmt="dense"), prompt,
+                                eng32.generate(prompt, SERVE_GEN).tokens)
+            gaps = (got - ref).abs().amax(dim=(1, 2))
+            scale = float(ref.abs().max())
+            log(f"   dense bf16 vs the same model at float32 (prompt {S}, fed "
+                f"the float32 model's tokens): logits max_abs_err prefill "
+                f"{float(gaps[0]):.4e}, decode steps {float(gaps[1:].max()):.4e}"
+                f" ({float(gaps.max()) / scale:.2e} of max|logits| "
+                f"{scale:.3f})")
+            del eng32
+            log(f"   the same engines at float32 (the fp32 spmm kernel), "
+                f"prompt {S}:")
+            served.append(serve_path(api32, params32, up(m60), up(m24),
+                                     prompt, bench=False))
+            torch.cuda.empty_cache()
+        tokens = synthetic.DataPipeline(
+            synthetic.CorpusConfig(cfg.vocab_size), 4, RWKV_PROMPTS[1] + 16,
+            split="val", device=dev).get(1)["tokens"]
+        S0 = RWKV_PROMPTS[1] - 16
+        check_recurrent_state(api, params, tokens, S0, SERVE_TOL, "bf16")
+        check_recurrent_state(api32, params32, tokens, S0, 1e-3, "float32")
+        out["serve"] = {name: {k: sum(s[name][k] for s in served) for k in n}
+                        for name, n in served[0].items()}
+        log(f"   {RWKV}: spmm launches {out['serve']}")
+    del params, params32, reports, batches
     torch.cuda.empty_cache()
     return out
 
@@ -3565,8 +3788,12 @@ def main() -> int:
     # process (3z's timed spmm calls lost some after 6mc)
     with Phase("3z kernel checks at zamba2-7b's shapes: Gram, swap search "
                "and commit, spmm"):
-        zamba_shapes(clock)
+        family_shapes(clock, ZAMBA_GRAM_DS, ZAMBA_SWAPS, ZAMBA_SPMM, 100)
     zamba = zamba_config()
+    with Phase("3r kernel checks at rwkv6-1.6b's shapes: Gram, swap search "
+               "and commit, spmm"):
+        family_shapes(clock, RWKV_GRAM_DS, RWKV_SWAPS, RWKV_SPMM, 200)
+    rwkv = rwkv_config()
     moe = {name: moe_config(name, serve=name == "mixtral-8x7b")
            for name in MOE}
     with Phase("8 full depth, shapes only: plan_pruning on the meta device"):
@@ -3605,7 +3832,7 @@ def main() -> int:
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o.get("serve"))
-        for o in (*other.values(), *moe.values(), zamba)]
+        for o in (*other.values(), *moe.values(), zamba, rwkv)]
     served = [s for _, s in runs if s is not None]
     # the continuous runs (6c, 6mc) and the served exports (9, 9m)
     later = [cont_launches, rec_launches, moe_rec] + [
@@ -3620,7 +3847,8 @@ def main() -> int:
                 "swap_topk": sum(p["swap_topk"] for p, _ in runs)
                 + more("swap_topk"),
                 "swap_argmin": argmin_launches,
-                "swap_commit": commit_launches + zamba["swap_commit"],
+                "swap_commit": commit_launches + zamba["swap_commit"]
+                + rwkv["swap_commit"],
                 "spmm": sum(s["nm24_2:4"]["spmm"] for s in served)
                 + more("spmm"),
                 "spmm_gather": sum(s["gathered_0.6"]["spmm"]

@@ -3,9 +3,10 @@
 ``ArchConfig`` keeps the field names and defaults of the reference schema
 for every field the dense and MoE transformers read, so a config written
 for one package reads the same in the other, the hybrid family's SSM
-fields (zamba2-7b's Mamba2 mixer and its shared attention block)
-included. Family-specific fields the port does not run yet (RWKV,
-cross-attention, encoder-decoder) are left out until their slice lands.
+fields (zamba2-7b's Mamba2 mixer and its shared attention block) and
+the RWKV6 fields (rwkv6-1.6b's time-mix head width, WKV chunk and LoRA
+widths) included. Family-specific fields the port does not run yet
+(cross-attention, encoder-decoder) are left out until their slice lands.
 Of the execution knobs the port keeps the two training reads, ``remat``
 (recompute each layer's activations in the backward pass) and
 ``grad_accum`` (microbatches per train step), and the MoE block's two:
@@ -53,6 +54,11 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 64                # SSD chunk length (matmul form)
     shared_attn_every: int = 0         # zamba: shared attn block cadence
+    # --- rwkv6 ---
+    rwkv_head_dim: int = 0             # >0 selects the rwkv6 time-mix family
+    rwkv_chunk: int = 16               # chunked-WKV chunk length
+    rwkv_lora_decay: int = 64
+    rwkv_lora_mix: int = 32
     remat: bool = True                 # per-layer activation checkpointing
     grad_accum: int = 1                # microbatches per step (train memory)
     dtype: str = "bfloat16"            # compute/param dtype ("float32" on CPU tests)
@@ -64,6 +70,10 @@ class ArchConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def is_rwkv(self) -> bool:
+        return self.rwkv_head_dim > 0
 
     @property
     def is_moe(self) -> bool:

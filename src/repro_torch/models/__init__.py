@@ -16,10 +16,11 @@ path makes:
 ``prefill_window`` is the chunked-prefill continuation the continuous
 scheduler drives. The dense and MoE families run ``models.transformer``
 (an MoE config's layers hold the ``models.moe`` block); the hybrid family
-(zamba2-7b) runs ``models.zamba``, which has no ``prefill_window``: the
-continuous scheduler refuses it, as the reference does. Rolling caches
-(the reference's long-context serving) and the RWKV, VLM and
-encoder-decoder families come with their slices.
+(zamba2-7b) runs ``models.zamba`` and rwkv6-1.6b ``models.rwkv_model``;
+neither has a ``prefill_window``, so the continuous scheduler refuses
+them, as the reference does. Rolling caches (the reference's
+long-context serving) and the VLM and encoder-decoder families come with
+their slices.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ArchConfig
 
-from . import transformer, zamba
+from . import rwkv_model, transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +47,17 @@ class ModelApi:
 
 
 def build(cfg: ArchConfig) -> ModelApi:
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.is_rwkv:
+        mod = rwkv_model
+    elif cfg.family == "hybrid":
+        mod = zamba
+    elif cfg.family in ("dense", "moe"):
+        mod = transformer
+    else:
         raise NotImplementedError(
-            f"the port runs the dense, MoE and hybrid families so far, not "
-            f"{cfg.family!r} (ROADMAP A4: other families)")
-    mod = zamba if cfg.family == "hybrid" else transformer
+            f"the port runs the dense, MoE, hybrid and RWKV families so far, "
+            f"not {cfg.family!r}: the encoder-decoder (ROADMAP A3) and the "
+            f"VLM (A4) are not ported yet")
     return ModelApi(
         cfg=cfg,
         init=lambda seed=0, device="cuda": mod.init_params(
@@ -68,9 +75,10 @@ def build(cfg: ArchConfig) -> ModelApi:
         decode_step=lambda p, tok, cache, masks=None: mod.decode_step(
             p, tok, cfg, cache, masks=masks),
         module=mod,
-        prefill_window=None if mod is zamba else (
-            lambda p, b, cache, masks=None: mod.prefill_window(
-                p, b, cfg, cache, masks=masks)),
+        prefill_window=(
+            (lambda p, b, cache, masks=None: mod.prefill_window(
+                p, b, cfg, cache, masks=masks))
+            if hasattr(mod, "prefill_window") else None),
     )
 
 

@@ -18,6 +18,9 @@ The hybrid (zamba) has mamba in_proj / out_proj per layer and the SHARED
 block's attention and MLP, one instance each, whose Gram is the sum over
 the block's invocation sites (the reference's ``"sum"`` rows; the model
 hands that sum over already, ``models.zamba``, so they stack nothing).
+RWKV6 has ten per layer: the time-mix wr/wk/wv/wg/wo, the decay LoRA
+td_w1 / td_w2 (64 wide at full size) and the channel-mix cm_wk / cm_wv /
+cm_wr, each with its own tap (its own input), stacked on L.
 
 Shape-only views (``SiteSpec``, ``TapSpec``) let the planner resolve a
 recipe and cost a run before any weight exists: ``site_specs`` reads
@@ -173,16 +176,27 @@ def _zamba_table(cfg: ArchConfig):
     return rows
 
 
+_RWKV_SITES = ("wr", "wk", "wv", "wg", "wo", "td_w1", "td_w2",
+               "cm_wk", "cm_wv", "cm_wr")
+
+
+def _rwkv_table(cfg: ArchConfig):
+    return [(f"layers.tm.{k}", ("layers", "tm", k), (k,), 1)
+            for k in _RWKV_SITES]
+
+
 def _table(cfg: ArchConfig):
     """(site name, param path, tap path, n stack dims) per prunable site;
     0 for a shared block's site (one instance, its tap summed over the
     block's invocation sites)."""
+    if cfg.is_rwkv:
+        return _rwkv_table(cfg)
     if cfg.family == "hybrid":
         return _zamba_table(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"no site table for family {cfg.family!r} (ROADMAP A4: other "
-            "families)")
+            f"no site table for family {cfg.family!r}: the encoder-decoder "
+            "(ROADMAP A3) and the VLM (A4) are not ported yet")
     rows = [(f"layers.attn.{k}", ("layers", "attn", k), (k,), 1)
             for k in _ATTN]
     if cfg.is_moe:

@@ -245,8 +245,10 @@ class ServeEngine:
     def supports_continuous(self) -> bool:
         """Continuous batching needs the plain decoder-only KV layout:
         per-token pages and a per-row decode clock, which every model of
-        ``models.transformer`` has, dense or MoE (recurrent, cross-
-        attention and encoder-decoder families, not ported, would not).
+        ``models.transformer`` has, dense or MoE. The recurrent families
+        (``models.zamba``, ``models.rwkv_model``) carry a state, not
+        per-token KV, and are refused, as the reference refuses them; so
+        would cross-attention and encoder-decoder models be.
 
         An MoE block dispatches per batch row (``models.moe``: groups of
         ``moe_group_size`` positions where that divides the row, else the

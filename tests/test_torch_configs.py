@@ -4,8 +4,9 @@ All five dense configs (the reference's four dense assigned architectures
 and llama31-8b), at full width, on shapes alone:
 
 * every field of the port's ``ArchConfig`` equals the reference's, in
-  ``CONFIG`` and ``TINY`` (zamba2-7b's too, the hybrid family's SSM
-  fields and ``d_inner`` / ``n_ssm_heads`` included); the reference
+  ``CONFIG`` and ``TINY`` (zamba2-7b's and rwkv6-1.6b's too, the
+  hybrid family's SSM fields, ``d_inner`` / ``n_ssm_heads``, the RWKV6
+  fields and ``is_rwkv`` included); the reference
   fields the port does not carry yet are exactly ``NOT_PORTED``;
 * the param tree of ``api.init(device="meta")`` has the paths and shapes
   of the reference's ``jax.eval_shape(api.init, key)``, and
@@ -68,14 +69,14 @@ K_SWAPS = 1
 NOT_PORTED = {
     "attn_impl", "attn_q_chunk", "cross_attn_every",
     "d_frontend", "fsdp_params", "head_chunk", "long_window",
-    "n_enc_layers", "n_img_tokens", "n_src_frames",
-    "rwkv_chunk", "rwkv_head_dim", "rwkv_lora_decay",
-    "rwkv_lora_mix", "scan_layers",
+    "n_enc_layers", "n_img_tokens", "n_src_frames", "scan_layers",
 }
 # the MoE family, held in test_torch_moe.py
 MOE = ["mixtral-8x7b", "granite-moe-3b-a800m"]
 # the hybrid family, held in test_torch_zamba.py
 HYBRID = ["zamba2-7b"]
+# the RWKV6 model of the ssm family, held in test_torch_rwkv.py
+RWKV = ["rwkv6-1.6b"]
 
 
 def _leaves(tree, prefix=""):
@@ -91,14 +92,16 @@ def _np(tree):
 
 
 def test_registry_holds_the_dense_family():
-    ported = DENSE + MOE + HYBRID
+    ported = DENSE + MOE + HYBRID + RWKV
     assert list(tconfigs.ARCHS) == [n for n in jconfigs.ARCHS if n in ported]
     assert sorted(tconfigs.ARCHS) == sorted(ported)
-    with pytest.raises(KeyError, match="unknown arch"):
-        tconfigs.get("rwkv6-1.6b")
+    # the families still unported: the encoder-decoder and the VLM
+    for name in ("seamless-m4t-medium", "llama-3.2-vision-90b"):
+        with pytest.raises(KeyError, match="unknown arch"):
+            tconfigs.get(name)
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + HYBRID + RWKV)
 def test_config_fields_match_reference(arch):
     fields = {f.name for f in dataclasses.fields(tconfigs.ArchConfig)}
     ref_fields = {f.name for f in dataclasses.fields(jconfigs.ArchConfig)}
@@ -109,6 +112,7 @@ def test_config_fields_match_reference(arch):
             assert getattr(t, f) == getattr(j, f), f
         assert t.head_dim == j.head_dim
         assert (t.d_inner, t.n_ssm_heads) == (j.d_inner, j.n_ssm_heads)
+        assert t.is_rwkv == j.is_rwkv == (arch in RWKV)
 
 
 @pytest.mark.parametrize("arch", DENSE)

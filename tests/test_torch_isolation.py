@@ -56,7 +56,8 @@ def test_scan_covers_the_port():
                  "serve/loadgen.py", "serve/faultinject.py",
                  "optim/adamw.py", "train/steps.py", "launch/train.py",
                  "models/moe.py", "configs/mixtral_8x7b.py",
-                 "configs/granite_moe_3b.py"):
+                 "configs/granite_moe_3b.py", "models/rwkv6.py",
+                 "models/rwkv_model.py", "configs/rwkv6_1b6.py"):
         assert must in names
 
 

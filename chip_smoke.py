@@ -29,7 +29,9 @@ and its time:
    (4096, 4096) wq / wo, (14336, 4096) w_gate / w_up and (4096, 14336)
    w_down — bitwise on feasible entries, with the same +inf positions and
    in-range indices, each timed with CUDA events (3 calls) beside its
-   plain version, the bound (5 operations per feasible pair at the fp32
+   plain version (the kernel runs on all rows; the plain version on a
+   fixed 256 of them, the first 128 and the last 128-row block, and
+   those rows are compared), the bound (5 operations per feasible pair at the fp32
    peak) and the issue floor (6 unfused fp32 instructions per feasible
    pair on every SM's 128 lanes at the card's maximum SM clock, read from
    nvidia-smi). ``swap_argmin`` likewise at the four shapes, bitwise on
@@ -138,10 +140,10 @@ and its time:
    (spmm's share) and the rest. (f) ``bench_load_rows``, one pass
    each (no warm-up pass), prompts 32-512 and outputs 16-128 tokens:
    continuous for masked, nm24 and gathered at 8 arrivals/s (below the
-   continuous path's saturation, 13-19/s by host) and at 32/s (above
-   it: requests queue for one of the 8 slots), the rates from
-   ``launch/profile_serve.py``'s sweep, each over a window of 100 /
-   rate seconds (the same 89 requests at both rates from seed 0); and
+   continuous path's saturation, 13-19/s by host, from
+   ``launch/profile_serve.py``'s sweep; a saturated queue is driven by
+   6mc, which saturates at this rate), over a window of 100 / 8 seconds
+   (89 requests from seed 0); and
    nm24 continuous vs fixed over the first 2 s at 8/s (15 requests; the
    fixed path, each prompt length alone, saturates by 2/s). Offered and
    delivered tok/s, TTFT, queue wait and per-token p50 / p99, wasted
@@ -292,6 +294,50 @@ and its time:
    32 decode steps against one forward over the 53 (logits, and the WKV
    state and token-shift vectors carried against a prefill of all of
    them), within SERVE_TOL in bf16 and 1e-3 at float32.
+3e / 4e / 6e, 3v / 4v / 6v. the cross-attention families (after 4r /
+   6r, before 4m): seamless-m4t-medium (the encoder-decoder: d 1024, 16
+   heads (MHA), ReLU MLP d_ff 4096, layernorm, vocab 256206, 1024 source
+   frames) and llama-3.2-vision-90b (the VLM: d 8192, 64 / 8 KV heads,
+   gated SiLU d_ff 28672, vocab 128256, a gated cross-attention layer
+   every 5th layer over 1600 image tokens). 3e / 3v: every kernel of
+   their paths at its shapes new to the kernels, held and timed as phase
+   3 holds and times them (the plain swap searches on at most 256 rows):
+   the bf16 Gram at the decoder's T = 512 and at the T of the encoder's
+   and the cross wk / wv taps (4 x 1024 source frames, 4 x 1600 image
+   tokens; at T = 6400 the Gram is operations-bound), and at the VLM's d
+   = 28672 (w_down's input, a 3.29 GB G); swap_topk (k = 8) and the
+   commit at every site shape; spmm (nm24, gathered PerRow(0.6) and 2:4;
+   fp32 and bf16) at T = 4 and 128 at the MLP's shapes (seamless's relu
+   w_up), and at the prefill's T for the sites that run over the source
+   or image states (the encoder's, the cross wk / wv of the cross-KV
+   precompute). 4e / 4v: seamless at full width with 2 encoder + 2
+   decoder layers, the VLM with 5 layers (one group: 4 self layers and a
+   cross layer, its tanh-gates set to 0.5 / -0.5: at init they are 0 and
+   the cross layers would add nothing), bf16, seed 0, the calibration
+   batches carrying their frontend states: ``prune_model`` at PerRow(0.6)
+   (Wanda, SparseSwaps k = 8, t_max = 4) with phase 4's gates (one Gram a
+   tap instance and batch: an encoder's, a decoder's self, cross ``x_*``
+   and MLP taps, a VLM's (1, 4) self stack and its cross layer's), then
+   Wanda 2:4 (``method="none"``: exact sparsity, finite perplexities);
+   time, peak memory and digests; the candidate commit (phase 5's gates)
+   on the first cross wk (its Gram over the source or image states).
+   The PerRow(0.6) masks wait on the host, as bool, while the 2:4 run
+   calibrates. 6e / 6v: phase 6's serving with the frontend states in the
+   prompt (4 x 1024 x 1024 source frames, 4 x 1600 x 8192 image tokens;
+   masks as bool), spmm launches a packed generate = the prefill's (every
+   site instance once; the encoder's and the cross wk / wv only there) +
+   15 decode steps' (the decoder's self, cross wq / wo and MLP sites, a
+   VLM's self and cross layers'), nm24 == gathered bitwise, packed vs
+   masked logits within SERVE_TOL, teacher-forced; prefill + 16 decode
+   steps against one forward within SERVE_TOL; other frontend states
+   change the logits of every engine at the prefill and at a decode
+   step. The cross path is also held on a scale of its own, since the
+   VLM's cross attention moves its random model's logits by ~3e-3 of
+   their max, below bf16 rounding (``check_cross_path``): for each
+   packed engine and its masked one, the precomputed cross KV of the
+   same states within XATTN_KV_TOL of its max, element by element (and
+   the masked KV far off the dense one), and the cross attention on it
+   of the same queries within SERVE_TOL.
 8. full depth, shapes only: every config's ``plan_pruning`` on the
    meta device (nothing allocated), its weight, Gram and calibration
    bytes, and whether the bf16 model and its calibration state fit the
@@ -355,7 +401,8 @@ and its time:
    ``spmm_stacked`` and ``spmm_stacked_gather`` at mixtral's w_gate, nm24
    at T = 40 and gathered PerRow(0.6) at T = 4, their launches phases
    6m's, 6mc's and 9m's; the zamba and rwkv phases' Gram, swap_topk,
-   swap_commit and spmm launches among them), the card line, and last
+   swap_commit and spmm launches among them, and those of the
+   cross-attention phases), the card line, and last
    {"ok": true, "device": ...}.
 
 Where the main path's device time goes is measured apart from this
@@ -479,6 +526,38 @@ RWKV_SPMM = [(64, 2048, None, "rwkv6-1.6b td_w1"),
              (7168, 2048, "relu2", "rwkv6-1.6b cm_wk"),
              (2048, 2048, "silu", "rwkv6-1.6b wg")]
 RWKV_PROMPTS = (32, 37)          # two WKV chunks; 37 takes the pad path
+# the cross-attention families (phases 3e / 4e / 6e, 3v / 4v / 6v): the
+# depths their paths run at and their shapes new to the kernels. The Gram:
+# (T, d, site), T the tokens of a calibration batch of 4 (4 x 128 for the
+# decoder's taps; the encoder's and the cross wk / wv taps read 4 x 1024
+# source frames or 4 x 1600 image tokens). The swaps: (R, d, site). spmm:
+# (d_out, d_in, act, site, the T checked and timed): 4 (a decode step)
+# and 128 (the prefill of 4 x 32 tokens); the prefill's 4 x 1024 / 4 x
+# 1600 rows at the sites that read the source or image states.
+SEAMLESS = "seamless-m4t-medium"
+SEAMLESS_LAYERS = 2              # encoder and decoder layers each
+SEAMLESS_GRAMS = [(512, 1024, "seamless decoder taps"),
+                  (512, 4096, "seamless w_down"),
+                  (4096, 1024, "seamless encoder taps, cross wk / wv")]
+SEAMLESS_SWAPS = [(1024, 1024, "seamless wq / wk / wv / wo (MHA)"),
+                  (4096, 1024, "seamless w_up"),
+                  (1024, 4096, "seamless w_down")]
+SEAMLESS_SPMM = [(4096, 1024, "relu", "seamless w_up", (4, 128, 4096)),
+                 (1024, 4096, None, "seamless w_down", (4, 128, 4096)),
+                 (1024, 1024, None, "seamless wq / cross wk", (4096,))]
+VLM = "llama-3.2-vision-90b"
+VLM_LAYERS = 5                   # one group: 4 self layers + 1 cross layer
+VLM_GATES = (0.5, -0.5)          # tanh-gates of the cross attention, MLP
+VLM_GRAMS = [(512, 8192, "vlm taps"),
+             (512, 28672, "vlm w_down"),
+             (6400, 8192, "vlm cross wk / wv over the image tokens")]
+VLM_SWAPS = [(8192, 28672, "vlm w_down"),
+             (28672, 8192, "vlm w_gate / w_up"),
+             (8192, 8192, "vlm wq / wo"),
+             (1024, 8192, "vlm wk / wv")]
+VLM_SPMM = [(28672, 8192, "silu", "vlm w_gate", (4, 128)),
+            (8192, 28672, None, "vlm w_down", (4, 128)),
+            (1024, 8192, None, "vlm cross wk", (6400,))]
 SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
     (4096, 4096, None, True, "chatglm3-6b wq", False),
     (256, 4096, None, True, "chatglm3-6b wk", False),
@@ -490,10 +569,10 @@ SPMM_SHAPES = [                  # (d_out, d_in, act, bias, site, timed)
 ]
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype)
 
 
 def log(msg: str) -> None:
@@ -598,9 +677,12 @@ def digest(tensors) -> str:
     order: masks, swaps and losses compared bit for bit across runs."""
     import hashlib
 
+    import numpy as np
+
     h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    for t in tensors:      # each tensor's bytes, hashed where they lie
+        h.update(t.detach().contiguous().cpu().numpy().reshape(-1)
+                 .view(np.uint8))
     return h.hexdigest()[:16]
 
 
@@ -608,7 +690,21 @@ def mask_leaves(tree):
     """A mask tree's leaves in key order, as bool tensors."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in mask_leaves(tree[k])]
-    return [tree > 0.5]
+    import torch
+
+    return [tree if tree.dtype == torch.bool else tree > 0.5]
+
+
+def plain_rows(R: int):
+    """The rows a plain swap search is held on where the kernel runs on
+    all R: every row of a problem of at most 256, else a fixed 256, the
+    first 128 and the last 128-row block (a ragged tail)."""
+    import torch
+
+    if R <= 256:
+        return None
+    return torch.unique(torch.cat([
+        torch.arange(128), torch.arange((R - 1) // 128 * 128, R)])).cuda()
 
 
 def by_rows(fn, w, m, c, G, rows: int = 64):
@@ -816,8 +912,15 @@ def check_refined(W, G, res, pattern, tag: str) -> None:
 def check_gram(T: int, d: int, *, dtypes=("bf16", "fp32"),
                time_it: bool = True) -> dict:
     """gram_xtx in ``dtypes`` against its plain version (within 1e-5 of
-    max|G|, exactly symmetric), then, if asked, device times with a cold
-    L2. Returns {dtype tag: timings}."""
+    max|G| at T <= 512, exactly symmetric), then, if asked, device times
+    with a cold L2. Returns {dtype tag: timings}.
+
+    The kernel and the plain version are two fp32 sums of T products in
+    other orders, whose rounding grows with the number of terms: past T =
+    512 (phase 3's) the tolerance grows as the square root of T, 1e-5 x
+    sqrt(T / 512) of max|G| (2.83e-5 at T = 4096, 3.54e-5 at 6400),
+    and both are also held to the exact (fp64) Gram within it, their
+    errors printed."""
     import torch
     from repro_torch.kernels import gram as gram_mod
     from repro_torch.kernels import ops
@@ -835,10 +938,23 @@ def check_gram(T: int, d: int, *, dtypes=("bf16", "fp32"),
         err = float((Gk - Gp).abs().max())
         scale = float(Gp.abs().max())
         sym = torch.equal(Gk, Gk.T)
+        rel = 1e-5 * max(1.0, T / 512) ** 0.5
         log(f"   gram_xtx T={T} d={d} {tag}: max_abs_err {err:.3e} "
-            f"(max|G| {scale:.3e}, {err / scale:.2e} of it) symmetric={sym}")
-        require(err <= 1e-5 * scale and sym,
+            f"(max|G| {scale:.3e}, {err / scale:.2e} of it; tolerance "
+            f"{rel:.2e}) symmetric={sym}")
+        require(err <= rel * scale and sym,
                 f"gram_xtx T={T} d={d} {tag} out of tolerance")
+        if T > 512:
+            x64 = xx.double()
+            G64 = x64.T @ x64
+            e_k = float((Gk.double() - G64).abs().max())
+            e_p = float((Gp.double() - G64).abs().max())
+            log(f"   gram_xtx T={T} d={d} {tag}: against the exact (fp64) "
+                f"Gram: kernel {e_k:.3e} ({e_k / scale:.2e} of max|G|), "
+                f"plain {e_p:.3e} ({e_p / scale:.2e})")
+            require(max(e_k, e_p) <= rel * scale,
+                    f"gram_xtx T={T} d={d} {tag}: off the exact Gram")
+            del x64, G64
         del Gk, Gp
         if not time_it:
             continue
@@ -880,8 +996,8 @@ def spmm_tol(want):
 
 def check_spmm(d_out: int, d_in: int, act, tag: str, *,
                time_it: bool = True, bias: bool = False,
-               extra_T: tuple = ()) -> dict:
-    """spmm against its plain version at one weight shape, T = 4 and 128
+               extra_T: tuple = (), Ts: tuple = (4, 128)) -> dict:
+    """spmm against its plain version at one weight shape, T in ``Ts``
     (and the untimed ``extra_T``),
     nm24 (2:4) and gathered (PerRow 0.6 and 2:4), fp32 and bf16, with
     nm24 == gathered bitwise on the 2:4 mask; bf16 times when asked.
@@ -906,13 +1022,16 @@ def check_spmm(d_out: int, d_in: int, act, tag: str, *,
     b = torch.randn(d_out, generator=gen, device="cuda") if bias else None
     tag = tag + (" +bias" if bias else "")
     out = {}
-    for T in (4, 128) + tuple(extra_T):
+    packs = {}
+    for T in tuple(Ts) + tuple(extra_T):
         x32 = torch.randn(T, d_in, generator=gen, device="cuda")
         y24 = {}
         for name, (fmt, mask) in runs.items():
             errs = {}
             for dt in (torch.float32, torch.bfloat16):
-                pw = packed.pack(w.to(dt), mask, fmt)
+                if (name, dt) not in packs:     # packed once, every T
+                    packs[name, dt] = packed.pack(w.to(dt), mask, fmt)
+                pw = packs[name, dt]
                 x = x32.to(dt)
                 got = ops.spmm(x, pw, bias=b, act=act)
                 want = spmm_mod.spmm_plain(x, pw, b, act)
@@ -1041,13 +1160,16 @@ def check_spmm_stacked(E: int, d_out: int, d_in: int, act, tag: str, *,
     runs = {"nm24": ("nm24", m24), "gathered": ("gathered", m60),
             "gathered 2:4": ("gathered", m24)}
     out = {}
+    packs = {}
     for T in Ts:
         x32 = torch.randn(E, T, d_in, generator=gen, device="cuda")
         y24 = {}
         for name, (fmt, mask) in runs.items():
             errs = {}
             for dt in (torch.float32, torch.bfloat16):
-                pw = packed.pack(w.to(dt), mask, fmt)
+                if (name, dt) not in packs:     # packed once, every T
+                    packs[name, dt] = packed.pack(w.to(dt), mask, fmt)
+                pw = packs[name, dt]
                 x = x32.to(dt)
                 ops.reset_launches()
                 got = ops.spmm_stacked(x, pw, act=act)
@@ -1362,21 +1484,37 @@ def shared_sites(cfg) -> int:
     return zamba.n_sites(cfg) if cfg.family == "hybrid" else 0
 
 
-def spmm_sites(cfg, params) -> dict:
-    """A served model's spmm launches a forward (a prefill, a decode
-    step, a scheduler dispatch), by kernel: {"spmm": the unstacked sites,
-    each once a layer (a shared block's once a site it runs at),
+def prefill_only(name: str) -> bool:
+    """Whether a site runs at the prefill alone: an encoder's, and the
+    cross wk / wv, which project the frontend states once into the cross
+    KV."""
+    return name.startswith("enc_layers.") or name in (
+        "dec_layers.xattn.wk", "dec_layers.xattn.wv",
+        "cross_layers.attn.wk", "cross_layers.attn.wv")
+
+
+def spmm_sites(cfg, params, *, prefill: bool = False) -> dict:
+    """A served model's spmm launches a forward (a decode step, a
+    scheduler dispatch; a prefill with ``prefill``), by kernel: {"spmm":
+    the unstacked sites, each once an instance (a layer, a VLM's self
+    layer of a group; a shared block's once a site it runs at), the
+    prefill-only sites (``prefill_only``) at the prefill alone,
     "spmm_stacked": an MoE model's expert sites, once a layer}."""
     from repro_torch.pruning import sites
 
-    stacks = [len(s.stack_shape) for s in sites.site_specs(cfg, params)]
-    return {"spmm": stacks.count(1) * cfg.n_layers
-            + stacks.count(0) * shared_sites(cfg),
-            "spmm_stacked": stacks.count(2) * cfg.n_layers}
+    out = {"spmm": 0, "spmm_stacked": 0}
+    for s in sites.site_specs(cfg, params):
+        if not s.stack_shape:
+            out["spmm"] += shared_sites(cfg)
+        elif cfg.is_moe and len(s.stack_shape) == 2:
+            out["spmm_stacked"] += s.stack_shape[0]
+        elif prefill or not prefill_only(s.name):
+            out["spmm"] += s.n_instances
+    return out
 
 
 def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
-               bench: bool = True, gate: bool = True):
+               bench: bool = True, gate: bool = True, also=None):
     """Phase 6 (and 6b, 6m with ``bench=False``: no timed runs or
     profiles). Returns the spmm launches of each engine's first generate, {"spmm": unstacked
     calls, "spmm_stacked": stacked ones (an MoE model's experts)}.
@@ -1385,7 +1523,10 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
     without holding them to SERVE_TOL: bf16 rounding alone carries a model
     of many recurrent layers past it (zamba2-7b at 7 random layers: masked
     and packed bf16 each 8-19% of max|logits| from the masked model in
-    fp32), so 6z holds the same engines built at float32 instead."""
+    fp32), so 6z holds the same engines built at float32 instead.
+
+    ``also(engines)``, if given, runs last, on the six engines ({"dense",
+    "masked_0.6", ...}), after the launches are counted."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
@@ -1395,6 +1536,7 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
              "masked_2:4": (masks24, "masked"), "nm24_2:4": (masks24, "nm24"),
              "gathered_2:4": (masks24, "gathered")}
     n_sites = spmm_sites(api.cfg, params)
+    n_first = spmm_sites(api.cfg, params, prefill=True)
     engines = {name: ServeEngine(api, params, masks=m, fmt=fmt)
                for name, (m, fmt) in specs.items()}
     for name, eng in engines.items():
@@ -1408,7 +1550,7 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
         n = serve_launches[name] = {k: ops.LAUNCHES[k] - v
                                     for k, v in before.items()}
         packed = specs[name][1] in ("nm24", "gathered")
-        want = {k: v * SERVE_GEN if packed else 0
+        want = {k: n_first[k] + v * (SERVE_GEN - 1) if packed else 0
                 for k, v in n_sites.items()}
         require(n == want, f"{name}: spmm launches {n}, want {want}")
     warm = (serve_bench(engines, prompt, {k: sum(v.values()) for k, v in
@@ -1454,21 +1596,116 @@ def serve_path(api, params, masks60: dict, masks24: dict, prompt: dict, *,
     require(engines["nm24_2:4"].weight_bytes()
             < engines["masked_2:4"].weight_bytes(),
             "nm24 holds no fewer weight bytes than masked")
+    if also is not None:
+        also(engines)
     return serve_launches
 
 
+XATTN_KV_TOL = 1e-2      # packed vs masked cross KV, of max|k| and max|v|
+
+
+def check_cross_path(engines: dict, prompt: dict, other: dict,
+                     tag: str) -> None:
+    """6e / 6v: the cross-attention path on a scale of its own, where the
+    logits cannot show it (the VLM's cross attention moves its random
+    model's logits by ~3e-3 of their max, below bf16 rounding).
+
+    * For each packed engine and its masked one, every layer's
+      precomputed cross KV (``precompute_cross_kv``, what prefill stores)
+      of the same source states (the image states; the masked model's
+      encoder output) within XATTN_KV_TOL of its max, element by element,
+      and the masked KV off the dense KV by far more (the masks bite);
+    * the cross attention on that KV (``cross_attention`` with
+      ``kv_cache``, as prefill and decode run it: q and the output
+      projection packed or masked) of the same unit-normal queries within
+      SERVE_TOL of max|out|;
+    * every engine's logits, at the prefill and at a decode step, change
+      with the frontend states (``other``): a cross layer that the served
+      path skipped would leave them bitwise equal."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+
+    any_eng = engines["dense"]
+    cfg, mod = any_eng.cfg, any_eng.api.module
+    vlm = bool(cfg.cross_attn_every)
+    key = "img" if vlm else "src"
+    layers, sub = (("cross_layers", "attn") if vlm
+                   else ("dec_layers", "xattn"))
+    dev = prompt["tokens"].device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h = torch.randn(*prompt["tokens"].shape, cfg.d_model, generator=gen,
+                    device=dev).to(getattr(torch, cfg.dtype))
+
+    def kv_and_out(eng, states):
+        kv = mod.precompute_cross_kv(eng.params, states, cfg,
+                                     masks=eng.masks)
+        m = None if eng.masks is None else eng.masks[layers].get(sub)
+        outs = [attn.cross_attention(
+            transformer._index(eng.params[layers], i)[sub], h, None, cfg,
+            masks=transformer._index(m, i), kv_cache=(kv[0][i], kv[1][i]))
+            for i in range(kv[0].shape[0])]
+        return kv, torch.stack(outs)
+
+    with torch.no_grad():
+        for packed_name, masked_name in (("nm24_2:4", "masked_2:4"),
+                                         ("gathered_2:4", "masked_2:4"),
+                                         ("gathered_0.6", "masked_0.6")):
+            p, m = engines[packed_name], engines[masked_name]
+            if vlm:
+                states = prompt["img"].to(h.dtype)
+            else:
+                states, _ = mod.encode(m.params, prompt["src"], cfg,
+                                       masks=m.masks)
+            (kp, vp), op = kv_and_out(p, states)
+            (km, vm), om = kv_and_out(m, states)
+            (kd, vd), _ = kv_and_out(engines["dense"], states)
+            for nm, got, want, dense in (("k", kp, km, kd),
+                                         ("v", vp, vm, vd)):
+                scale = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                gap = float((dense.float() - want.float()).abs().max())
+                log(f"   6{tag} cross {nm} {tuple(got.shape)}: "
+                    f"{packed_name} vs {masked_name} max_abs_err {err:.4e} "
+                    f"({err / scale:.2e} of max {scale:.3f}); dense vs "
+                    f"masked {gap:.4e} ({gap / scale:.2e})")
+                require(math.isfinite(err) and err <= XATTN_KV_TOL * scale,
+                        f"6{tag} {packed_name}: cross {nm} beyond "
+                        f"{XATTN_KV_TOL} of max")
+                require(gap > 10 * XATTN_KV_TOL * scale,
+                        f"6{tag} {masked_name}: the cross {nm} ignores the "
+                        "masks")
+            scale = float(om.float().abs().max())
+            err = float((op.float() - om.float()).abs().max())
+            log(f"   6{tag} cross attention out {tuple(op.shape)}: "
+                f"{packed_name} vs {masked_name} max_abs_err {err:.4e} "
+                f"({err / scale:.2e} of max {scale:.3f})")
+            require(math.isfinite(err) and err <= SERVE_TOL * scale,
+                    f"6{tag} {packed_name}: cross attention beyond "
+                    f"{SERVE_TOL} of max")
+    for name, eng in engines.items():
+        a, b = eng.logits_trace(prompt, 2), eng.logits_trace(other, 2)
+        gaps = (a - b).abs().amax(dim=(1, 2))       # prefill, decode step
+        scale = float(a.abs().max())
+        log(f"   6{tag} {name}: other {key} states move the logits by "
+            + ", ".join(f"{float(g) / scale:.2e}" for g in gaps)
+            + " of max|logits| (prefill, decode step)")
+        require(bool((gaps > 0).all()),
+                f"6{tag} {name}: the served logits ignore {key}")
+
+
 # continuous serving (phase 6c): the chunked-prefill window, the prompt
-# lengths held chunked vs one-shot; the load rows' arrival rates, below
-# and above the continuous path's saturation (~18 requests/s on an H100
-# in ``launch/profile_serve.py``'s sweep: goodput follows the rate to
-# 16/s and makespans pass 1.6x the window at 24 and 32/s), the expected
-# requests a rate (the window is this / rate), and those of the fixed
-# path's row (it saturates by 2/s).
+# lengths held chunked vs one-shot; the load rows' arrival rate, below the
+# continuous path's saturation (~18 requests/s on an H100 in
+# ``launch/profile_serve.py``'s sweep: goodput follows the rate to 16/s
+# and makespans pass 1.6x the window at 24 and 32/s; a saturated queue is
+# driven by 6mc), the expected requests (the window is this / rate), and
+# those of the fixed path's row (it saturates by 2/s).
 # The scheduler's shape and the traffic (CONT, LOAD_PROMPT, LOAD_OUTPUT)
 # are profile_serve's.
 CHUNK_W = 64
 CHUNK_PROMPTS = (100, 300, 500)
-LOAD_RATES = (8.0, 32.0)
+LOAD_RATES = (8.0,)
 LOAD_REQUESTS = 100
 FIXED_REQUESTS = 16
 
@@ -2508,36 +2745,40 @@ def moe_config(name: str, *, serve: bool) -> dict:
     return out
 
 
-def family_shapes(clock_mhz: float, gram_ds, swaps, spmms,
-                  seed: int) -> None:
-    """Phases 3z and 3r: every kernel of a model family's path at its
-    shapes new to the kernels, held against its plain version as phase 3
-    holds it and timed beside its bound and the one PyTorch call: the
-    bf16 Gram at T = 512, d = ``gram_ds``; swap_topk (k = 8) and the
-    commit at ``swaps`` (R, d, site) on all rows, the search held bitwise
-    on every row of a problem of at most 256 rows and on the first 128
-    rows and the last 128-row block (a ragged tail) of a larger one, the
-    commit on every row; spmm (nm24 on 2:4, gathered on PerRow(0.6) and
-    2:4; fp32 and bf16; T = 4 and 128) at ``spmms`` (d_out, d_in, act,
-    site). The swap problems are drawn from ``seed`` + their index."""
+def family_shapes(clock_mhz: float, grams, swaps, spmms,
+                  seed: int) -> dict:
+    """Phases 3z, 3r, 3e and 3v: every kernel of a model family's path at
+    its shapes new to the kernels, held against its plain version as
+    phase 3 holds it and timed beside its bound and the one PyTorch call:
+    the bf16 Gram at each of ``grams`` (d at T = 512, or (T, d, site));
+    swap_topk (k = 8) and the commit at ``swaps`` (R, d, site) on all
+    rows, the search held bitwise on ``plain_rows``, the commit on every
+    row; spmm (nm24 on 2:4, gathered on PerRow(0.6) and 2:4; fp32 and
+    bf16) at ``spmms`` (d_out, d_in, act, site[, the T checked and timed;
+    4 and 128 by default]). The swap problems are drawn from ``seed`` +
+    their index. Returns the timings by kernel and shape."""
     import torch
     from repro_torch.launch import profile_swap
 
-    for d in gram_ds:
-        check_gram(512, d, dtypes=("bf16",))
+    out = {}
+    for g in grams:
+        T, d = (512, g) if isinstance(g, int) else g[:2]
+        out[("gram", T, d)] = check_gram(T, d, dtypes=("bf16",))["bf16"]
     for i, (R, d, site) in enumerate(swaps):
         w, m, c, G = profile_swap.problem(R, d, seed + i)
         tag = f"R={R} d={d} ({site})"
-        rows = None if R <= 256 else torch.unique(torch.cat([
-            torch.arange(128), torch.arange((R - 1) // 128 * 128, R)])).cuda()
-        check_swaps(w, m, c, G, 8, tag, names=("swap_topk",),
-                    timed=("swap_topk",), clock_mhz=clock_mhz, rows=rows)
-        check_commit(w, m, c, G, 8, tag)
+        out[("swap_topk", R, d)] = check_swaps(
+            w, m, c, G, 8, tag, names=("swap_topk",), timed=("swap_topk",),
+            clock_mhz=clock_mhz, rows=plain_rows(R))["swap_topk"]
+        out[("swap_commit", R, d)] = check_commit(w, m, c, G, 8, tag)
         del w, m, c, G
         torch.cuda.empty_cache()
-    for d_out, d_in, act, site in spmms:
-        check_spmm(d_out, d_in, act, site)
-    torch.cuda.empty_cache()
+    for d_out, d_in, act, site, *Ts in spmms:
+        got = check_spmm(d_out, d_in, act, site, **(
+            {"Ts": Ts[0]} if Ts else {}))
+        out.update({("spmm", d_out, d_in, *k): v for k, v in got.items()})
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_shared_gram(api, params, batches) -> None:
@@ -2602,11 +2843,16 @@ def check_shared_gram(api, params, batches) -> None:
     torch.cuda.empty_cache()
 
 
-def prune_patterns(api, params, batches, dev) -> tuple[dict, dict]:
-    """Phases 4z and 4r: ``prune_model`` at PerRow(0.6) and at 2:4 (Wanda
-    warmstart, SparseSwaps k = 8, t_max = T_MAX) with phase 4's gates
-    (``check_pruned``), time, peak memory and a masks digest each.
-    Returns (the launches of both runs summed, {pattern tag: report})."""
+def prune_patterns(api, params, batches, dev, *,
+                   nm_method: str = "sparseswaps",
+                   host_masks: bool = False) -> tuple[dict, dict]:
+    """Phases 4z, 4r, 4e and 4v: ``prune_model`` at PerRow(0.6) (Wanda
+    warmstart, SparseSwaps k = 8, t_max = T_MAX) and at 2:4 (the same,
+    or Wanda alone with ``nm_method="none"``) with phase 4's gates
+    (``check_pruned``), time, peak memory and a masks digest each. With
+    ``host_masks`` each report's masks go to the host as bool once held
+    (the next run's calibration then has the card). Returns (the launches
+    of both runs summed, {pattern tag: report})."""
     import torch
     from repro_torch import pruning
     from repro_torch.core import masks
@@ -2614,32 +2860,45 @@ def prune_patterns(api, params, batches, dev) -> tuple[dict, dict]:
 
     name = api.cfg.name
     total, reports = {}, {}
+    t0 = time.perf_counter()
+    dense = pruning.evaluate(api, params, seed=0, device=dev)
+    log(f"   {name}: dense evaluation {time.perf_counter() - t0:.2f} s")
     for tag, pattern in (("0.6", masks.PerRow(0.6)), ("2:4", masks.NM(2, 4))):
+        method = "sparseswaps" if tag == "0.6" else nm_method
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         report = pruning.prune_model(api, params, batches, pattern,
-                                     warmstart="wanda", method="sparseswaps",
+                                     warmstart="wanda", method=method,
                                      t_max=T_MAX)
         torch.cuda.synchronize()
         t_prune = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        dense = pruning.evaluate(api, params, seed=0, device=dev)
+        t0 = time.perf_counter()
         pruned = pruning.evaluate(api, params, masks=report.masks, seed=0,
                                   device=dev)
+        t_eval = time.perf_counter() - t0
         log(report.summary())
         log(f"   {name} {tag}: prune_model {t_prune:.2f} s, max memory "
             f"{peak / 2**30:.2f} GiB; dense ppl {dense['perplexity']:.4f}"
-            f", pruned ppl {pruned['perplexity']:.4f}; mean error "
-            f"reduction {100 * report.mean_error_reduction():.3f}%")
+            f", pruned ppl {pruned['perplexity']:.4f} ({t_eval:.2f} s); "
+            f"mean error reduction "
+            f"{100 * report.mean_error_reduction():.3f}%")
         log(f"   {name} {tag}: launches {launches}")
-        log(f"   {name} {tag}: masks digest "
-            f"{digest(mask_leaves(report.masks))}")
         check_pruned(api, params, report, launches, len(batches), pattern,
-                     dense, pruned)
+                     dense, pruned, refined=method != "none")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+        t0 = time.perf_counter()
+        if host_masks:
+            report.masks = _tree_to(_tree_to(report.masks, dev, torch.bool),
+                                    "cpu")
+            torch.cuda.empty_cache()
+        log(f"   {name} {tag}: masks digest "
+            f"{digest(mask_leaves(report.masks))} "
+            f"({time.perf_counter() - t0:.2f} s"
+            f"{', the masks to the host as bool first' if host_masks else ''})")
         reports[tag] = report
     return total, reports
 
@@ -2763,47 +3022,53 @@ def zamba_config(cfg=None, device="cuda") -> dict:
     return out
 
 
-def check_recurrent_state(api, params, tokens, S0: int, tol: float,
-                          tag: str) -> None:
-    """Phase 6r: ``prefill`` of the first ``S0`` tokens, then
+def check_incremental(api, params, batch: dict, S0: int, tol: float,
+                      tag: str, states: tuple = ()) -> None:
+    """Phases 6r, 6e and 6v: ``prefill`` of the first ``S0`` tokens of
+    ``batch`` (with its frontend states, where it has them), then
     ``decode_step`` over the rest, against one ``forward`` over all of
-    them: the logits at every position within ``tol`` of max|logits|; and
-    the state the decode steps carried (WKV matrix, both token-shift
-    vectors) against ``prefill``'s of all the tokens, within ``tol`` of
-    its max. S0 and the length are not multiples of the WKV chunk, so
-    both prefills take the pad path."""
+    them: the logits at every position within ``tol`` of max|logits|;
+    and each cache field of ``states`` the decode steps carried (rwkv's
+    WKV matrix and token-shift vectors) against ``prefill``'s of all the
+    tokens, within ``tol`` of its max."""
     import torch
 
+    tokens = batch["tokens"]
     B, S = tokens.shape
+    extra = {k: v for k, v in batch.items() if k in ("img", "src")}
     with torch.no_grad():
         cache = api.init_cache(params, B, S)
-        logits, cache = api.prefill(params, {"tokens": tokens[:, :S0]},
-                                    cache)
+        logits, cache = api.prefill(
+            params, {"tokens": tokens[:, :S0], **extra}, cache)
         outs = [logits]
         for t in range(S0, S):
             logits, cache = api.decode_step(params, tokens[:, t:t + 1], cache)
             outs.append(logits)
-        hidden, _, _ = api.forward(params, {"tokens": tokens})
+        hidden, _, _ = api.forward(params, {"tokens": tokens, **extra})
         want = api.module.lm_head(params, hidden, api.cfg)[:, S0 - 1:S - 1]
         got = torch.cat(outs[:-1], 1)
         err = float((got.float() - want.float()).abs().max())
         scale = float(want.float().abs().max())
-        one = api.init_cache(params, B, S)
-        _, one = api.prefill(params, {"tokens": tokens}, one)
-        states = {}
-        for name in ("s", "x_tm", "x_cm"):
-            a, b = getattr(cache, name).float(), getattr(one, name).float()
-            states[name] = float((a - b).abs().max()) / float(b.abs().max())
-    log(f"   6r {tag}: prefill {S0} + {S - S0} decode steps vs one forward "
+        carried = {}
+        if states:
+            one = api.init_cache(params, B, S)
+            _, one = api.prefill(params, {"tokens": tokens, **extra}, one)
+            require(one.t == S, f"{tag}: cache clock {one.t}")
+            for name in states:
+                a, b = getattr(cache, name).float(), getattr(one, name).float()
+                carried[name] = float((a - b).abs().max()) / float(
+                    b.abs().max())
+    log(f"   {tag}: prefill {S0} + {S - S0} decode steps vs one forward "
         f"over {S} tokens: logits max_abs_err {err:.4e} ({err / scale:.2e} "
-        f"of max|logits| {scale:.3f}); carried state vs prefill of all, of "
-        f"its max: " + ", ".join(f"{k} {v:.2e}" for k, v in states.items()))
-    require(cache.t == one.t == S, f"6r {tag}: cache clock {cache.t}")
+        f"of max|logits| {scale:.3f})" + (
+            "; carried state vs prefill of all, of its max: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in carried.items()) if states else ""))
+    require(cache.t == S, f"{tag}: cache clock {cache.t}")
     require(math.isfinite(err) and err <= tol * scale,
-            f"6r {tag}: prefill + decode off one forward by "
-            f"{err / scale:.2e} of max|logits|")
-    require(all(v <= tol for v in states.values()),
-            f"6r {tag}: the carried state is off the prefill's {states}")
+            f"{tag}: prefill + decode off one forward by {err / scale:.2e} "
+            "of max|logits|")
+    require(all(v <= tol for v in carried.values()),
+            f"{tag}: the carried state is off the prefill's {carried}")
 
 
 def rwkv_config(cfg=None, device="cuda") -> dict:
@@ -2824,7 +3089,7 @@ def rwkv_config(cfg=None, device="cuda") -> dict:
     float32 engines as 6z must); the dense model's bf16 logits against
     the same model's at float32, fed its tokens, printed; the same six
     engines at float32 (the fp32 spmm kernel) under the same gates; and
-    ``check_recurrent_state`` in bf16 (within SERVE_TOL) and at float32
+    ``check_incremental`` in bf16 (within SERVE_TOL) and at float32
     (within 1e-3). Returns the launches of each path. ``cfg`` and
     ``device`` rehearse it elsewhere (a TINY config on the CPU, where no
     launch counts hold)."""
@@ -2900,8 +3165,11 @@ def rwkv_config(cfg=None, device="cuda") -> dict:
             synthetic.CorpusConfig(cfg.vocab_size), 4, RWKV_PROMPTS[1] + 16,
             split="val", device=dev).get(1)["tokens"]
         S0 = RWKV_PROMPTS[1] - 16
-        check_recurrent_state(api, params, tokens, S0, SERVE_TOL, "bf16")
-        check_recurrent_state(api32, params32, tokens, S0, 1e-3, "float32")
+        states = ("s", "x_tm", "x_cm")
+        check_incremental(api, params, {"tokens": tokens}, S0, SERVE_TOL,
+                          "6r bf16", states)
+        check_incremental(api32, params32, {"tokens": tokens}, S0, 1e-3,
+                          "6r float32", states)
         out["serve"] = {name: {k: sum(s[name][k] for s in served) for k in n}
                         for name, n in served[0].items()}
         log(f"   {RWKV}: spmm launches {out['serve']}")
@@ -2910,25 +3178,172 @@ def rwkv_config(cfg=None, device="cuda") -> dict:
     return out
 
 
+def xattn_config(name: str, cfg=None, device="cuda") -> dict:
+    """Phases 4e / 6e (seamless-m4t-medium, SEAMLESS_LAYERS encoder and
+    decoder layers) and 4v / 6v (llama-3.2-vision-90b, VLM_LAYERS: one
+    group of 4 self layers and a cross layer, its gates set to
+    VLM_GATES), at full width, bf16, random weights from seed 0, the
+    calibration batches carrying their frontend states
+    (``synthetic.with_modality``). 4e / 4v: ``prune_patterns`` at
+    PerRow(0.6) (SparseSwaps) and Wanda 2:4 (``method="none"``), the
+    PerRow(0.6) masks on the host as bool meanwhile; the VLM's peak
+    reckoned from ``plan_pruning`` first; ``refine_candidates`` on the
+    first cross wk (its Gram over the source or image states, from a
+    calibration of the "wk" taps alone). 6e / 6v: ``serve_path`` (timed)
+    on both mask sets as bool, the prompt's frontend states 4 x
+    n_src_frames / n_img_tokens, spmm launches a packed generate = the
+    prefill's + 15 decode steps'; other frontend states change the dense
+    logits; ``check_incremental`` within SERVE_TOL. Returns the launches
+    of each path. ``cfg`` and ``device`` rehearse it elsewhere (a TINY
+    config on the CPU, where no launch counts hold)."""
+    import torch
+    from repro_torch import configs, models, pruning
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device(device)
+    full = configs.get(name)
+    vlm = bool(full.cross_attn_every)
+    tag, key = ("v", "img") if vlm else ("e", "src")
+    if cfg is None:
+        cfg = (full.replace(n_layers=VLM_LAYERS) if vlm else full.replace(
+            n_layers=SEAMLESS_LAYERS, n_enc_layers=SEAMLESS_LAYERS))
+    api = models.build(cfg)
+    params = api.init(seed=0, device=dev)
+    if vlm:
+        G, NS = transformer.groups(cfg)
+        for gate, v in zip(("gate_attn", "gate_mlp"), VLM_GATES):
+            params["cross_layers"][gate].fill_(v)
+    batches = list(pruning.calibration_batches(
+        cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=dev))
+    out = {}
+    with Phase(f"4{tag} {name}: prune_model + perplexity"):
+        if vlm:
+            log(f"   config: {name} full width (d_model {cfg.d_model}, "
+                f"{cfg.n_heads} / {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff} "
+                f"{cfg.mlp} {cfg.act}, vocab {cfg.vocab_size}; a gated "
+                f"cross-attention layer every {cfg.cross_attn_every} over "
+                f"{cfg.n_img_tokens} image tokens), n_layers {cfg.n_layers} "
+                f"(reduced from {full.n_layers}: {G} group of {NS} self "
+                f"layers + 1 cross layer), gates {VLM_GATES}, {cfg.dtype}; "
+                f"{cfg.n_params()} params")
+            plan = pruning.plan_pruning(
+                api, api.init(device="meta"),
+                pruning.PruneRecipe.single("0.6"))
+            weights, calib = 2 * cfg.n_params(), plan.total_calib_bytes(
+                minimal=False)
+            layer = max(4 * t.d_in * t.d_in for t in pruning.tap_specs(
+                cfg, pruning.site_specs(cfg, params)))
+            log(f"   reckoned peak of calibration: bf16 weights "
+                f"{weights / 1e9:.2f} GB + the accumulated taps "
+                f"{calib / 1e9:.2f} GB + a batch's taps {calib / 1e9:.2f} GB "
+                f"+ one layer's largest tap {layer / 1e9:.2f} GB (its slot "
+                f"copy) = {(weights + 2 * calib + layer) / 2**30:.2f} GiB of "
+                f"the card's {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
+        else:
+            log(f"   config: {name} full width (d_model {cfg.d_model}, "
+                f"{cfg.n_heads} / {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff} "
+                f"{cfg.mlp} {cfg.act}, {cfg.norm}, vocab {cfg.vocab_size}, "
+                f"{cfg.n_src_frames} source frames), n_enc_layers "
+                f"{cfg.n_enc_layers} and n_layers {cfg.n_layers} (reduced "
+                f"from {full.n_enc_layers} + {full.n_layers}), {cfg.dtype}; "
+                f"{cfg.n_params()} params")
+        out["prune"], reports = prune_patterns(
+            api, params, batches, dev, nm_method="none", host_masks=True)
+        taps = pruning.accumulate_stats(
+            api, params, batches,
+            spec=pruning.CalibSpec(levels=(("wk", "gram"),))).taps
+        if vlm:
+            site = ("cross_layers.attn.wk[0]",
+                    params["cross_layers"]["attn"]["wk"][0],
+                    taps["cross"]["wk"]["g"][0])
+        else:
+            site = ("dec_layers.xattn.wk[0]",
+                    params["dec_layers"]["xattn"]["wk"][0],
+                    taps["dec"]["x_wk"]["g"][0])
+        out["swap_commit"] = refine_candidates(f"4{tag}", [site])
+        del taps, site
+        torch.cuda.empty_cache()
+    with Phase(f"6{tag} {name}: serve dense / masked / nm24 / gathered"):
+        per = spmm_sites(cfg, params)["spmm"]
+        first = spmm_sites(cfg, params, prefill=True)["spmm"]
+        if vlm:
+            want = (7 * NS * G + 5 * G, 7 * NS * G + 7 * G)
+            what = (f"(7 sites x {NS} self layers + 5 cross sites) x {G} "
+                    f"group, the cross wk / wv at the prefill alone")
+        else:
+            want = (8 * cfg.n_layers,
+                    8 * cfg.n_layers + 2 * cfg.n_layers + 6 * cfg.n_enc_layers)
+            what = (f"8 decoder sites x {cfg.n_layers} layers, the encoder's "
+                    f"6 x {cfg.n_enc_layers} and the cross wk / wv at the "
+                    "prefill alone")
+        log(f"   spmm launches a packed generate: {what}: {first} (the "
+            f"prefill) + {SERVE_GEN - 1} x {per} (decode steps) = "
+            f"{first + (SERVE_GEN - 1) * per}")
+        require((per, first) == want,
+                f"6{tag}: spmm launches {per} a decode step and {first} a "
+                f"prefill, want {want}")
+        pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                      4, 32, split="val", device=dev)
+        prompt = synthetic.with_modality(pipe.get(0), cfg, 0, 0)
+        log(f"   prompt: tokens {tuple(prompt['tokens'].shape)}, {key} "
+            f"{tuple(prompt[key].shape)} {prompt[key].dtype}")
+        other = dict(prompt)
+        other[key] = synthetic.with_modality(pipe.get(0), cfg, 1, 0)[key]
+        out["serve"] = serve_path(
+            api, params, _tree_to(reports["0.6"].masks, dev, torch.bool),
+            _tree_to(reports["2:4"].masks, dev, torch.bool), prompt,
+            also=lambda engines: check_cross_path(engines, prompt, other,
+                                                  tag))
+        log(f"   {name}: spmm launches {out['serve']}")
+        del reports
+        torch.cuda.empty_cache()
+        eng = ServeEngine(api, params, fmt="dense", device=dev)
+        a, b = eng.logits_trace(prompt, 2), eng.logits_trace(other, 2)
+        gap, scale = float((a - b).abs().max()), float(a.abs().max())
+        log(f"   6{tag}: other {key} states move the dense logits by "
+            f"{gap:.4e} ({gap / scale:.2e} of max|logits| {scale:.3f})")
+        require(gap > 1e-3 * scale, f"6{tag}: the logits ignore {key}")
+        del eng
+        longer = synthetic.DataPipeline(
+            synthetic.CorpusConfig(cfg.vocab_size), 4, 48, split="val",
+            device=dev).get(1)
+        check_incremental(api, params, synthetic.with_modality(
+            longer, cfg, 0, 1), 32, SERVE_TOL, f"6{tag}")
+    del params, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_pruned(api, params, report, launches: dict, n_batches: int,
-                 pattern, dense: dict, pruned: dict) -> None:
-    """Phases 4, 4b, 4m and 4z: every Gram launch on the bf16 path, one
-    per tap, layer and batch, an MoE tap's (every expert's Gram) one
-    stacked launch, a shared block's tap one a site it runs at; swap_topk
-    once per site instance and pass: T_MAX passes each (taps, sites and
-    instances from ``pruning.sites``; an expert of a layer is an
-    instance), none for an N:M pattern; exact per-row sparsity, monotone
-    row losses, a positive mean error reduction, finite perplexities."""
+                 pattern, dense: dict, pruned: dict, *,
+                 refined: bool = True) -> None:
+    """Phases 4, 4b, 4m, 4z, 4r, 4e and 4v: every Gram launch on the bf16
+    path, one per tap instance (a layer; a VLM's self layer of a group)
+    and batch, an MoE tap's (every expert's Gram) one stacked launch a
+    layer, a shared block's tap one a site it runs at; swap_topk once per
+    site instance and pass: T_MAX passes each (taps, sites and instances
+    from ``pruning.sites``; an expert of a layer is an instance), none for
+    an N:M pattern or an unrefined run; exact per-row sparsity, monotone
+    row losses, finite perplexities, and with ``refined`` (a SparseSwaps
+    run, not Wanda alone) a positive mean error reduction."""
     from repro_torch.core import masks
     from repro_torch.pruning import sites
 
     cfg = api.cfg
     specs = sites.site_specs(cfg, params)
-    stack = {s.name: len(s.stack_shape) for s in specs}
-    taps = [stack[t.sites[0]] for t in sites.tap_specs(cfg, specs)]
-    n_gram = (taps.count(1) * cfg.n_layers
-              + taps.count(0) * shared_sites(cfg)) * n_batches
-    n_stacked = taps.count(2) * cfg.n_layers * n_batches
+    by = {s.name: s for s in specs}
+    n_gram = n_stacked = 0
+    for t in sites.tap_specs(cfg, specs):
+        s = by[t.sites[0]]
+        if not s.stack_shape:
+            n_gram += shared_sites(cfg)
+        elif cfg.is_moe and len(s.stack_shape) == 2:
+            n_stacked += s.stack_shape[0]
+        else:
+            n_gram += s.n_instances
+    n_gram, n_stacked = n_gram * n_batches, n_stacked * n_batches
     require(launches["gram_xtx_bf16"] == n_gram and launches["gram_xtx"] == 0
             and launches["gram_xtx_stacked_bf16"] == n_stacked
             and launches["gram_xtx_stacked"] == 0,
@@ -2936,7 +3351,7 @@ def check_pruned(api, params, report, launches: dict, n_batches: int,
             f"{n_stacked} stacked, all on the bf16 path")
     # an N:M search runs swap_math.topk_swaps_nm, plain ops in both
     # packages (the reference's is jnp, no Pallas kernel)
-    n_topk = (0 if isinstance(pattern, masks.NM)
+    n_topk = (0 if isinstance(pattern, masks.NM) or not refined
               else sum(s.n_instances for s in specs) * T_MAX)
     require(launches["swap_topk"] == n_topk,
             f"{cfg.name}: swap_topk launched {launches['swap_topk']} times, "
@@ -2949,7 +3364,7 @@ def check_pruned(api, params, report, launches: dict, n_batches: int,
                 f"{cfg.name} {s.name}: per-row sparsity not exact")
         require(bool((s.row_loss_final <= s.row_loss_init).all()),
                 f"{cfg.name} {s.name}: a row loss rose")
-    require(report.mean_error_reduction() > 0,
+    require(not refined or report.mean_error_reduction() > 0,
             f"{cfg.name}: no error reduction over the warmstart")
     require(math.isfinite(dense["perplexity"])
             and math.isfinite(pruned["perplexity"]),
@@ -3621,7 +4036,7 @@ def main() -> int:
             w_down = (R, d) == profile_swap.SHAPES[-1][:2]
             names = ("swap_topk", "swap_argmin")
             res = check_swaps(w, m, c, G, 8, tag, names=names, timed=names,
-                              clock_mhz=clock)
+                              clock_mhz=clock, rows=plain_rows(R))
             ratio = res["swap_argmin"]["ms"] / res["swap_topk"]["ms"]
             log(f"   swap_argmin {tag}: {ratio:.3f}x swap_topk's time")
             commit = check_commit(w, m, c, G, 8, tag)
@@ -3794,6 +4209,15 @@ def main() -> int:
                "and commit, spmm"):
         family_shapes(clock, RWKV_GRAM_DS, RWKV_SWAPS, RWKV_SPMM, 200)
     rwkv = rwkv_config()
+    with Phase("3e kernel checks at seamless-m4t-medium's shapes: Gram, "
+               "swap search and commit, spmm"):
+        family_shapes(clock, SEAMLESS_GRAMS, SEAMLESS_SWAPS, SEAMLESS_SPMM,
+                      300)
+    seamless = xattn_config(SEAMLESS)
+    with Phase("3v kernel checks at llama-3.2-vision-90b's shapes: Gram, "
+               "swap search and commit, spmm"):
+        family_shapes(clock, VLM_GRAMS, VLM_SWAPS, VLM_SPMM, 400)
+    vlm = xattn_config(VLM)
     moe = {name: moe_config(name, serve=name == "mixtral-8x7b")
            for name in MOE}
     with Phase("8 full depth, shapes only: plan_pruning on the meta device"):
@@ -3832,7 +4256,8 @@ def main() -> int:
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o.get("serve"))
-        for o in (*other.values(), *moe.values(), zamba, rwkv)]
+        for o in (*other.values(), *moe.values(), zamba, rwkv, seamless,
+                  vlm)]
     served = [s for _, s in runs if s is not None]
     # the continuous runs (6c, 6mc) and the served exports (9, 9m)
     later = [cont_launches, rec_launches, moe_rec] + [
@@ -3847,8 +4272,8 @@ def main() -> int:
                 "swap_topk": sum(p["swap_topk"] for p, _ in runs)
                 + more("swap_topk"),
                 "swap_argmin": argmin_launches,
-                "swap_commit": commit_launches + zamba["swap_commit"]
-                + rwkv["swap_commit"],
+                "swap_commit": commit_launches + sum(
+                    o["swap_commit"] for o in (zamba, rwkv, seamless, vlm)),
                 "spmm": sum(s["nm24_2:4"]["spmm"] for s in served)
                 + more("spmm"),
                 "spmm_gather": sum(s["gathered_0.6"]["spmm"]

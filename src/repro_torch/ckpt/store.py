@@ -23,6 +23,16 @@ under manifest dtype "bfloat16". ``restore`` returns them as those ``V2``
 records, and ``to_tensor`` reads them through their 16-bit pattern as
 ``torch.bfloat16``. Sharded, multi-host restores and the reference's
 retry of transient I/O errors are not ported (ROADMAP A5).
+
+Each leaf's sha256 is taken on a pool of threads, the leaves in
+parallel, on save; a read (``validate``, ``restore``) gives each worker
+one shard to read through its own handle on the .npz and hash
+(``hashlib``, ``zlib``'s CRC check and file reads release the GIL on
+large buffers), and ``validate`` drops each array in its worker, so it
+holds no more than the pool's width of shards. A leaf that ``restore``
+reads back as one whole-array shard is returned as read; a leaf of
+several shards (the reference's layout for a sharded array) is
+assembled from their index slices.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import os
 import shutil
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -97,6 +108,14 @@ def _sha256(arr: np.ndarray) -> str:
         np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).hexdigest()
 
 
+def _pooled(fn, items: list) -> list:
+    """``fn`` of each item, on up to 8 threads, in order."""
+    if len(items) < 2:
+        return [fn(x) for x in items]
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1, len(items))) as ex:
+        return list(ex.map(fn, items))
+
+
 def _write_fsync(path: Path, write) -> None:
     with open(path, "wb") as f:
         write(f)
@@ -116,8 +135,9 @@ def save(ckpt_dir: str | Path, step: int, tree, *,
                     "extra": extra or {}, "leaves": []}
         fname = "shard_0_0.npz"
         bufs: dict[str, np.ndarray] = {}
-        for name, leaf in _flatten(tree):
-            arr, dtype = _to_numpy(leaf)
+        leaves = [(name, *_to_numpy(leaf)) for name, leaf in _flatten(tree)]
+        hashes = _pooled(_sha256, [arr for _, arr, _ in leaves])
+        for (name, arr, dtype), sha in zip(leaves, hashes):
             key = f"{name}__0"
             bufs[key] = arr
             manifest["leaves"].append({
@@ -125,7 +145,7 @@ def save(ckpt_dir: str | Path, step: int, tree, *,
                 "dtype": dtype,
                 "shards": [{"file": fname, "key": key,
                             "index": [[0, -1]] * arr.ndim,
-                            "sha256": _sha256(arr)}],
+                            "sha256": sha}],
             })
         if bufs:
             _write_fsync(tmp / fname, lambda f: np.savez(f, **bufs))
@@ -154,23 +174,18 @@ def _load_manifest(d: Path) -> dict | None:
         return None
 
 
-class _Shards:
-    """Open .npz shard files of one checkpoint, closed on exit."""
+def _read_checked(d: Path, shards: list[dict], *, keep: bool) -> list:
+    """(array, whether its sha256 matches) of each of ``shards`` ({file,
+    key, sha256}) of checkpoint ``d``, on the pool: each worker opens its
+    own handle on the shard's .npz, reads the shard and hashes it. Unless
+    ``keep`` the array is dropped (None) in the worker, so no more than
+    the pool's width of shards is held at once."""
+    def one(sh: dict):
+        with np.load(d / sh["file"]) as f:
+            arr = f[sh["key"]]
+        return (arr if keep else None), _sha256(arr) == sh["sha256"]
 
-    def __init__(self, d: Path):
-        self.d, self.files = d, {}
-
-    def get(self, sh: dict) -> np.ndarray:
-        if sh["file"] not in self.files:
-            self.files[sh["file"]] = np.load(self.d / sh["file"])
-        return self.files[sh["file"]][sh["key"]]
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        for f in self.files.values():
-            f.close()
+    return _pooled(one, shards)
 
 
 def validate(d: str | Path) -> bool:
@@ -180,14 +195,12 @@ def validate(d: str | Path) -> bool:
     if man is None:
         return False
     try:
-        with _Shards(d) as shards:
-            for leaf in man["leaves"]:
-                for sh in leaf["shards"]:
-                    if _sha256(shards.get(sh)) != sh["sha256"]:
-                        return False
+        checked = _read_checked(
+            d, [sh for leaf in man["leaves"] for sh in leaf["shards"]],
+            keep=False)
     except (OSError, KeyError, ValueError):
         return False
-    return True
+    return all(ok for _, ok in checked)
 
 
 def steps(ckpt_dir: str | Path) -> list[int]:
@@ -249,19 +262,30 @@ def restore(ckpt_dir: str | Path, step: int,
     if man is None:
         raise FileNotFoundError(d)
     by_path = {e["path"]: e for e in man["leaves"]}
+    entries = [by_path[p] for p in (by_path if paths is None else paths)]
+    checked = iter(_read_checked(
+        d, [sh for e in entries for sh in e["shards"]], keep=True))
     out = {}
-    with _Shards(d) as shards:
-        for path in (by_path if paths is None else paths):
-            e = by_path[path]
-            dtype = "V2" if e["dtype"] == "bfloat16" else e["dtype"]
-            full = np.zeros(e["shape"], dtype=dtype)
-            for sh in e["shards"]:
-                arr = shards.get(sh)
-                if _sha256(arr) != sh["sha256"]:
-                    raise IOError(f"hash mismatch in {d}/{sh['file']}:"
-                                  f"{sh['key']}")
-                full[_slices(sh["index"], e["shape"])] = arr
-            out[path] = full
+    for e in entries:
+        dtype = np.dtype("V2" if e["dtype"] == "bfloat16" else e["dtype"])
+        arrs = []
+        for sh in e["shards"]:
+            arr, ok = next(checked)
+            if not ok:
+                raise IOError(f"hash mismatch in {d}/{sh['file']}:"
+                              f"{sh['key']}")
+            arrs.append(arr)
+        one = arrs[0] if len(arrs) == 1 else None
+        if (one is not None and one.dtype == dtype
+                and list(one.shape) == e["shape"]
+                and all(a == 0 and b in (-1, n) for (a, b), n in
+                        zip(e["shards"][0]["index"], e["shape"]))):
+            out[e["path"]] = one            # one shard is the whole leaf
+            continue
+        full = np.zeros(e["shape"], dtype=dtype)
+        for sh, arr in zip(e["shards"], arrs):
+            full[_slices(sh["index"], e["shape"])] = arr
+        out[e["path"]] = full
     return out, man
 
 

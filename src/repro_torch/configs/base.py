@@ -5,9 +5,10 @@ for every field the dense and MoE transformers read, so a config written
 for one package reads the same in the other, the hybrid family's SSM
 fields (zamba2-7b's Mamba2 mixer and its shared attention block) and
 the RWKV6 fields (rwkv6-1.6b's time-mix head width, WKV chunk and LoRA
-widths) included. Family-specific fields the port does not run yet
-(cross-attention, encoder-decoder) are left out until their slice lands.
-Of the execution knobs the port keeps the two training reads, ``remat``
+widths) and the frontend fields of the cross-attention families (the
+VLM's ``cross_attn_every`` / ``n_img_tokens``, the encoder-decoder's
+``n_enc_layers`` / ``n_src_frames``, both families' ``d_frontend``)
+included. Of the execution knobs the port keeps the two training reads, ``remat``
 (recompute each layer's activations in the backward pass) and
 ``grad_accum`` (microbatches per train step), and the MoE block's two:
 ``moe_group_size`` (dispatch-group tokens) and ``moe_parallelism``, where
@@ -59,6 +60,13 @@ class ArchConfig:
     rwkv_chunk: int = 16               # chunked-WKV chunk length
     rwkv_lora_decay: int = 64
     rwkv_lora_mix: int = 32
+    # --- vlm / audio frontends (stubs: precomputed embeddings) ---
+    cross_attn_every: int = 0          # vlm: every k-th layer is cross-attn
+    n_img_tokens: int = 1600           # precomputed patch embeddings
+    d_frontend: int = 0                # frontend embedding dim (0 -> d_model)
+    # --- enc-dec (seamless) ---
+    n_enc_layers: int = 0              # >0 selects encoder-decoder
+    n_src_frames: int = 1024           # precomputed audio-frame embeddings
     remat: bool = True                 # per-layer activation checkpointing
     grad_accum: int = 1                # microbatches per step (train memory)
     dtype: str = "bfloat16"            # compute/param dtype ("float32" on CPU tests)
@@ -70,6 +78,10 @@ class ArchConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
 
     @property
     def is_rwkv(self) -> bool:

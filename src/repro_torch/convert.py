@@ -5,7 +5,8 @@ params)``), are nested dicts of arrays; ``from_numpy`` turns them into the
 port's nested dicts of tensors with the same keys and layouts: linear
 weights stay (d_out, d_in) and per-layer leaves stay stacked on a leading
 L axis (an MoE model's expert stacks keep their (L, E, d_out, d_in) and
-its router its fp32). ``to_numpy`` is the inverse. bfloat16 arrays
+its router its fp32; a VLM's self layers their (G, NS, ...) and its cross
+layers' fp32 scalar gates their (G,)). ``to_numpy`` is the inverse. bfloat16 arrays
 (ml_dtypes, as JAX exports them) travel through their 16-bit pattern;
 ``to_numpy`` returns bf16 tensors as float32, which holds every bf16
 value exactly.

@@ -12,6 +12,10 @@ reproduce: this sampler draws from seeded ``torch.Generator``s, so its
 tokens differ from the reference's. Parity tests feed the reference's
 token arrays to both packages instead. Batches are keyed by
 (seed, split, step, host), so a restarted job replays identical batches.
+
+``with_modality`` attaches the stub frontend embeddings of the
+cross-attention families (a VLM's ``img``, an encoder-decoder's
+``src``), keyed by (seed, modality, step), drawn on the batch's device.
 """
 from __future__ import annotations
 
@@ -32,9 +36,9 @@ class CorpusConfig:
     seed: int = 0
 
 
-def _generator(*key: int) -> torch.Generator:
+def _generator(*key: int, device="cpu") -> torch.Generator:
     seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
-    return torch.Generator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def emission_probs(cfg: CorpusConfig) -> torch.Tensor:
@@ -86,3 +90,30 @@ class DataPipeline:
         toks = sample_batch(self.cfg, gen, self.batch, self.seq,
                             self._probs).to(self.device)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+_MODALITY = {"img": 7, "src": 8}       # the reference's fold_in tags
+
+
+def with_modality(batch: dict, cfg_arch, seed: int, step: int) -> dict:
+    """``batch`` plus the stub frontend embeddings its architecture reads:
+    a VLM's ``img`` (B, n_img_tokens, d_frontend or d_model), an
+    encoder-decoder's ``src`` (B, n_src_frames, ...); other architectures'
+    batches come back unchanged. Values are 0.02 · N(0, 1) in the
+    config's dtype, from a generator keyed by (seed, modality, step) on
+    the tokens' device (the reference draws with ``jax.random``, so the
+    values differ: parity tests feed the reference's arrays to both)."""
+    out = dict(batch)
+    tokens = batch["tokens"]
+    B, dev = tokens.shape[0], tokens.device
+    d = cfg_arch.d_frontend or cfg_arch.d_model
+    want = {}
+    if cfg_arch.cross_attn_every:
+        want["img"] = cfg_arch.n_img_tokens
+    if cfg_arch.is_encdec:
+        want["src"] = cfg_arch.n_src_frames
+    for key, n in want.items():
+        gen = _generator(seed, _MODALITY[key], step, device=dev)
+        x = torch.randn((B, n, d), generator=gen, device=dev)
+        out[key] = (0.02 * x).to(getattr(torch, cfg_arch.dtype))
+    return out

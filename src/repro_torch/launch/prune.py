@@ -8,7 +8,9 @@ prints the resolved per-site table — engine paths, weight/Gram bytes and
 the calibration cost block — and exits without spending a FLOP: the
 params then live on ``device="meta"``), calibrates, executes the plan
 group by group, and prints the per-site error reductions and the dense vs
-pruned perplexity. It runs on ``--device cuda`` unless asked for the CPU,
+pruned perplexity. A cross-attention architecture's calibration and
+evaluation batches carry its stub frontend states (``img`` /
+``src``, ``data.synthetic.with_modality``). It runs on ``--device cuda`` unless asked for the CPU,
 and raises when the card is missing. TF32 is turned off for matmuls and
 cuDNN, so fp32 products run in full fp32.
 

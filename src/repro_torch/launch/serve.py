@@ -39,8 +39,11 @@ exits non-zero on leaked pages or token streams that differ:
     python -m repro_torch.launch.serve --arch llama31-8b --tiny \
         --device cpu --chaos --chaos-seed 0
 
-It runs on ``--device cuda`` unless asked for the CPU, and raises when
-the card is missing; TF32 is off. ``--mesh`` and the reference's
+A cross-attention architecture's prompt carries its stub frontend
+states (``img`` / ``src``, ``data.synthetic.with_modality``); the
+continuous modes refuse it, as the reference does. It runs on
+``--device cuda`` unless asked for the CPU, and raises when the card is
+missing; TF32 is off. ``--mesh`` and the reference's
 ``--kernel`` have no counterpart: the device decides what runs.
 """
 from __future__ import annotations
@@ -104,7 +107,7 @@ def serve(arch: str, *, tiny: bool = True, batch: int = 4,
     corpus = synthetic.CorpusConfig(cfg.vocab_size, seed=seed)
     pipe = synthetic.DataPipeline(corpus, batch, prompt_len, split="val",
                                   device=dev)
-    prompt = pipe.get(0)
+    prompt = synthetic.with_modality(pipe.get(0), cfg, seed, 0)
     mask_src = masks_from if masks_from is not None else masks
     if fmt is None:
         fmt = "masked" if mask_src is not None else "dense"

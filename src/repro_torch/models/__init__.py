@@ -1,4 +1,5 @@
-"""Model registry: ``build(cfg) -> ModelApi``, dense and MoE families.
+"""Model registry: ``build(cfg) -> ModelApi``, every family of the
+reference.
 
 The surface mirrors the reference's ``ModelApi`` for the calls the pruning
 path makes:
@@ -14,13 +15,15 @@ path makes:
     prefill_window(params, batch, cache, masks=None) -> (logits, cache)
 
 ``prefill_window`` is the chunked-prefill continuation the continuous
-scheduler drives. The dense and MoE families run ``models.transformer``
-(an MoE config's layers hold the ``models.moe`` block); the hybrid family
-(zamba2-7b) runs ``models.zamba`` and rwkv6-1.6b ``models.rwkv_model``;
-neither has a ``prefill_window``, so the continuous scheduler refuses
-them, as the reference does. Rolling caches (the reference's
-long-context serving) and the VLM and encoder-decoder families come with
-their slices.
+scheduler drives. The dense, MoE and VLM families run
+``models.transformer`` (an MoE config's layers hold the ``models.moe``
+block; a VLM's layers run in groups with a gated cross-attention layer,
+its batches carrying ``img``); the encoder-decoder (seamless-m4t-medium)
+runs ``models.encdec`` (batches carry ``src``), the hybrid family
+(zamba2-7b) ``models.zamba`` and rwkv6-1.6b ``models.rwkv_model``. The
+continuous scheduler refuses all but the plain decoder-only transformers
+(``ServeEngine.supports_continuous``), as the reference does. Rolling
+caches (the reference's long-context serving) wait for ROADMAP A5.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ArchConfig
 
-from . import rwkv_model, transformer, zamba
+from . import encdec, rwkv_model, transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,15 +52,12 @@ class ModelApi:
 def build(cfg: ArchConfig) -> ModelApi:
     if cfg.is_rwkv:
         mod = rwkv_model
+    elif cfg.is_encdec:
+        mod = encdec
     elif cfg.family == "hybrid":
         mod = zamba
-    elif cfg.family in ("dense", "moe"):
-        mod = transformer
     else:
-        raise NotImplementedError(
-            f"the port runs the dense, MoE, hybrid and RWKV families so far, "
-            f"not {cfg.family!r}: the encoder-decoder (ROADMAP A3) and the "
-            f"VLM (A4) are not ported yet")
+        mod = transformer
     return ModelApi(
         cfg=cfg,
         init=lambda seed=0, device="cuda": mod.init_params(

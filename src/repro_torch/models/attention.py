@@ -17,8 +17,14 @@ RoPE is applied at write time with absolute positions, so cached keys
 never need re-rotation. A sliding window (mixtral-8x7b's 4096) masks
 keys more than ``sliding_window - 1`` positions back in every path; the
 cache still holds every position (rolling caches, which the reference
-uses for long-context serving, wait for ROADMAP A5), and cross-attention
-comes with its families.
+uses for long-context serving, wait for ROADMAP A5).
+
+Cross-attention (the VLM's gated cross layers, the encoder-decoder's
+decoder): queries from the hidden states, keys and values from fixed
+frontend or encoder states, no mask and no RoPE. ``precompute_cross_kv``
+projects those states once before decoding (through the wk / wv masks,
+or their packed leaves); ``cross_attention`` then reads the pair as its
+``kv_cache``.
 """
 from __future__ import annotations
 
@@ -49,16 +55,20 @@ def init_cache(batch: int, s_max: int, n_kv: int, dh: int, dtype, *,
     )
 
 
-def init_attn_params(gen, cfg, *, device, d_in: int | None = None) -> dict:
+def init_attn_params(gen, cfg, *, device, d_in: int | None = None,
+                     cross: bool = False) -> dict:
     """q/k/v/o projections, (d_out, d_in) each. ``d_in`` overrides the
-    q/k/v input width (zamba's shared block reads concat([x, x0]), 2·d)."""
+    q/k/v input width (zamba's shared block reads concat([x, x0]), 2·d);
+    ``cross`` gives wk / wv the frontend's width (``d_frontend``, or
+    d_model when that is 0)."""
     d = d_in or cfg.d_model
+    d_kv = (cfg.d_frontend or cfg.d_model) if cross else d
     dh, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     dt = getattr(torch, cfg.dtype)
     p = {
         "wq": common.linear_init(gen, h * dh, d, dt, device),
-        "wk": common.linear_init(gen, kvh * dh, d, dt, device),
-        "wv": common.linear_init(gen, kvh * dh, d, dt, device),
+        "wk": common.linear_init(gen, kvh * dh, d_kv, dt, device),
+        "wv": common.linear_init(gen, kvh * dh, d_kv, dt, device),
         "wo": common.linear_init(gen, cfg.d_model, h * dh, dt, device),
     }
     if cfg.qkv_bias:
@@ -108,15 +118,24 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def _proj_qkv(p, x, cfg, masks, taps):
+def _proj_q(p, x, cfg, masks, taps):
+    return dense(x, p["wq"], mask=_m(masks, "wq"), tap="wq", taps=taps,
+                 bias=p.get("bq")).reshape(*x.shape[:2], cfg.n_heads,
+                                           cfg.head_dim)
+
+
+def _proj_kv(p, x, cfg, masks, taps):
     B, S = x.shape[:2]
-    q = dense(x, p["wq"], mask=_m(masks, "wq"), tap="wq", taps=taps,
-              bias=p.get("bq")).reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = dense(x, p["wk"], mask=_m(masks, "wk"), tap="wk", taps=taps,
               bias=p.get("bk")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = dense(x, p["wv"], mask=_m(masks, "wv"), tap="wv", taps=taps,
               bias=p.get("bv")).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    return q, k, v
+    return k, v
+
+
+def _proj_qkv(p, x, cfg, masks, taps):
+    return (_proj_q(p, x, cfg, masks, taps),
+            *_proj_kv(p, x, cfg, masks, taps))
 
 
 def _attend(p, q, k, v, mask, cfg, masks, taps):
@@ -128,8 +147,10 @@ def _attend(p, q, k, v, mask, cfg, masks, taps):
 
 
 def self_attention(p, x, positions, cfg, *, masks=None, taps=None,
-                   cache: KVCache | None = None, mode: str = "train"):
-    """Full-sequence causal self attention (train / prefill).
+                   cache: KVCache | None = None, mode: str = "train",
+                   causal: bool = True):
+    """Full-sequence self attention (train / prefill), causal unless
+    ``causal=False`` (the encoder-decoder's encoder).
 
     x: (B, S, d); positions: (S,). Returns (out, cache): with
     ``mode == "prefill"`` the prompt's keys and values fill the first S
@@ -144,7 +165,7 @@ def self_attention(p, x, positions, cfg, *, masks=None, taps=None,
         cache.k[:, :S] = k.to(cache.k.dtype)
         cache.v[:, :S] = v.to(cache.v.dtype)
         cache.pos[:, :S] = positions.to(torch.int32)
-    mask = _scores_mask(positions, positions, causal=True,
+    mask = _scores_mask(positions, positions, causal=causal,
                         window=cfg.sliding_window)
     return _attend(p, q, k, v, mask, cfg, masks, taps), cache
 
@@ -209,3 +230,26 @@ def decode_attention(p, x, t, cfg, cache: KVCache, *, masks=None,
     mask = _scores_mask(pos, cache.pos, causal=True,
                         window=cfg.sliding_window)          # (B, 1, S_max)
     return _attend(p, q, cache.k, cache.v, mask, cfg, masks, taps), cache
+
+
+def cross_attention(p, x, kv_states, cfg, *, masks=None, taps=None,
+                    kv_cache: tuple | None = None):
+    """Cross attention to fixed encoder / image states, no mask over the
+    keys. kv_states: (B, Skv, d_src), or None when ``kv_cache`` (the
+    precomputed (k, v), each (B, Skv, kvH, dh)) is given: the decode path,
+    where the cross KV never changes. Returns (B, S, d)."""
+    q = _proj_q(p, x, cfg, masks, taps)
+    if kv_cache is not None:
+        k, v = kv_cache
+    else:
+        k, v = _proj_kv(p, kv_states, cfg, masks, taps)
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return _attend(p, q, k, v, mask, cfg, masks, taps)
+
+
+def precompute_cross_kv(p, kv_states, cfg, *, masks=None, taps=None):
+    """Project the fixed cross-attention source once before decoding:
+    (k, v), each (B, Skv, kvH, dh), through the wk / wv masks (or their
+    packed leaves), as the projection inside ``cross_attention`` would."""
+    return _proj_kv(p, kv_states, cfg, masks, taps)

@@ -24,7 +24,7 @@ import torch
 from . import common
 from . import rwkv6
 from .transformer import (_apply_norm, _index, _norm_params, _stack,
-                          ce_loss, lm_head)
+                          _TapStack, ce_loss, lm_head)
 
 
 class RWKVDecodeCache(NamedTuple):
@@ -92,15 +92,15 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     """
     x = _embed(params, batch["tokens"], cfg)
     m_layers = None if masks is None else masks["layers"]
-    per_layer = []
+    stacked = _TapStack((cfg.n_layers,)) if want_taps else None
     for i in range(cfg.n_layers):
         taps = common.Taps(tap_policy) if want_taps else None
         x, _ = rwkv_layer(_index(params["layers"], i), x, cfg,
                           masks=_index(m_layers, i), taps=taps)
         if want_taps:
-            per_layer.append(taps.entries)
+            stacked.put((i,), taps.entries)
     x = _apply_norm(params["ln_f"], x, cfg)
-    taps = _stack(per_layer) if per_layer else {}
+    taps = stacked.tree if want_taps else {}
     return x, taps, torch.zeros((), device=x.device)
 
 

@@ -1,15 +1,31 @@
-"""Decoder-only transformer stack, dense and MoE families.
+"""Decoder-only transformer stack: dense, MoE and cross-attention (VLM).
 
 Layout as in the reference: layer params are stacked on a leading L axis;
 pruning masks mirror the stacked param tree (prunable leaves only); Gram
 taps come back stacked per tap site, (L, d, d) fp32 — (L, E, d, d) for
-an MoE tap — when ``want_taps``. A prunable leaf may be a stacked
+an MoE tap — when ``want_taps``, each layer's statistics written into
+their slot of the stack as the layer finishes (``_TapStack``, no stack
+copy; ``layer_loop`` runs the layers for every family with a layer stack
+of this kind, the encoder-decoder's included). A prunable leaf may be a stacked
 ``core.packed.PackedWeight`` (serving a packed model); ``_index`` slices
 it per layer, leaving an MoE leaf's expert dim. Where the reference scans
 over layers, the port loops over them. An MoE config's layers hold
 ``p["moe"]`` (``models.moe``) in place of ``p["mlp"]``; each layer's aux
 loss (load balance + router z-loss) sums into ``forward``'s aux, and
 ``loss_fn`` returns ce + aux.
+
+VLM (``cfg.cross_attn_every = k``, llama-3.2-vision): the layers run in
+G = n_layers / k groups of k - 1 self layers and one gated cross-attention
+layer (``cross_layer``: x + tanh(gate) · block, the gates fp32 scalars),
+as the reference's grouped scan runs them. ``layers`` is stacked
+(G, k - 1, ...) and ``cross_layers`` (G, ...); taps come back as
+{"self": {tap: (G, k - 1, ...)}, "cross": {tap: (G, ...)}} (at
+llama-3.2-vision-90b's width one layer's taps are 4.9 GB). The image states ``batch["img"]`` (B, n_img_tokens,
+d_frontend or d_model) go to the cross layers as an argument; the
+reference's trick of riding them in the params dict would leak into
+packing and the site walk. ``prefill`` projects them once per cross layer
+into ``DecodeCache.cross_kv`` (through the wk / wv masks or packed
+leaves), which ``decode_step`` reads.
 
 Serving: ``init_decode_cache`` -> ``prefill`` (the prompt; fills the KV
 cache) -> ``decode_step`` per new token. The cache is updated in place.
@@ -22,6 +38,7 @@ so neither path reads the device from the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -66,6 +83,26 @@ def init_layer(gen, cfg, *, device) -> dict:
     return p
 
 
+def init_cross_layer(gen, cfg, *, device) -> dict:
+    """A gated cross-attention layer: wk / wv over the frontend width, a
+    dense MLP, and the two fp32 scalar gates, 0 at init (tanh(0) = 0: the
+    layer starts as the identity, as in the reference)."""
+    return {
+        "ln1": _norm_params(cfg, device),
+        "attn": attn.init_attn_params(gen, cfg, device=device, cross=True),
+        "ln2": _norm_params(cfg, device),
+        "mlp": mlp_lib.init_mlp_params(gen, cfg, device=device),
+        "gate_attn": torch.zeros((), device=device),
+        "gate_mlp": torch.zeros((), device=device),
+    }
+
+
+def groups(cfg) -> tuple[int, int]:
+    """(G, NS) of a VLM: groups, and self layers a group."""
+    k = cfg.cross_attn_every
+    return cfg.n_layers // k, k - 1
+
+
 def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -85,8 +122,28 @@ def _index(tree, i: int):
 
 
 class DecodeCache(NamedTuple):
-    kv: attn.KVCache        # leaves stacked (L, ...)
+    kv: attn.KVCache        # leaves stacked (L, ...); a VLM's (G, NS, ...)
     t: int | torch.Tensor   # next position: an int, or per row (B,)
+    cross_kv: tuple | None = None   # VLM: (k, v), each (G, B, P, kvH, dh)
+
+
+class _TapStack:
+    """Stacked tap entries filled a layer at a time: each field's
+    (*stack, ...) tensor is allocated at its first layer, and every
+    layer's entry is copied into its slot as the layer finishes (bitwise
+    what stacking the per-layer entries would give, without holding
+    both)."""
+
+    def __init__(self, stack: tuple[int, ...]):
+        self.stack, self.tree = stack, {}
+
+    def put(self, idx: tuple[int, ...], entries: dict) -> None:
+        for name, ent in entries.items():
+            node = self.tree.setdefault(name, {})
+            for f, v in ent.items():
+                if f not in node:
+                    node[f] = v.new_empty((*self.stack, *v.shape))
+                node[f][idx].copy_(v)
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
@@ -102,9 +159,17 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> dict:
         "embed": common.normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02,
                                     dt, device),
         "ln_f": _norm_params(cfg, device),
-        "layers": _stack([init_layer(gen, cfg, device=device)
-                          for _ in range(cfg.n_layers)]),
     }
+    if cfg.cross_attn_every:
+        G, NS = groups(cfg)
+        params["layers"] = _stack([
+            _stack([init_layer(gen, cfg, device=device) for _ in range(NS)])
+            for _ in range(G)])
+        params["cross_layers"] = _stack([
+            init_cross_layer(gen, cfg, device=device) for _ in range(G)])
+    else:
+        params["layers"] = _stack([init_layer(gen, cfg, device=device)
+                                   for _ in range(cfg.n_layers)])
     if not cfg.tie_embeddings:
         params["head"] = common.normal_init(
             gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, device)
@@ -147,18 +212,90 @@ def decoder_layer(p, x, positions, cfg, *, masks=None, taps=None,
     return x + mlp_lib.mlp_block(p["mlp"], h, cfg, masks=mm, taps=taps), None
 
 
-def _layer_cache(kv: attn.KVCache, i: int) -> attn.KVCache:
-    """Views of layer ``i`` of a stacked cache (writes go through)."""
-    return attn.KVCache(kv.k[i], kv.v[i], kv.pos[i])
+def cross_layer(p, x, kv_states, cfg, *, masks=None, taps=None,
+                kv_cache: tuple | None = None):
+    """One gated cross-attention layer (VLM) on unstacked params:
+    x + tanh(gate_attn) · cross-attention, then x + tanh(gate_mlp) · MLP.
+    kv_states: (B, P, d) image states, or None with ``kv_cache``."""
+    am = None if masks is None else masks.get("attn")
+    h = _apply_norm(p["ln1"], x, cfg)
+    a = attn.cross_attention(p["attn"], h, kv_states, cfg, masks=am,
+                             taps=taps, kv_cache=kv_cache)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * a
+    h = _apply_norm(p["ln2"], x, cfg)
+    mm = None if masks is None else masks.get("mlp")
+    f = mlp_lib.mlp_block(p["mlp"], h, cfg, masks=mm, taps=taps)
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * f
+
+
+def _layer_cache(kv: attn.KVCache, *idx: int) -> attn.KVCache:
+    """Views of one layer of a stacked cache (writes go through); a VLM's
+    layer is (group, self layer)."""
+    return attn.KVCache(kv.k[idx], kv.v[idx], kv.pos[idx])
+
+
+def _cross_masks(masks):
+    return None if masks is None else masks.get("cross_layers")
 
 
 def _run_layers(params, x, positions, cfg, *, masks, mode, cache, t=None):
     m_layers = None if masks is None else masks["layers"]
-    for i in range(cfg.n_layers):
-        x, _ = decoder_layer(_index(params["layers"], i), x, positions, cfg,
-                             masks=_index(m_layers, i), mode=mode,
-                             cache=_layer_cache(cache.kv, i), t=t)
+    if not cfg.cross_attn_every:
+        for i in range(cfg.n_layers):
+            x, _ = decoder_layer(_index(params["layers"], i), x, positions,
+                                 cfg, masks=_index(m_layers, i), mode=mode,
+                                 cache=_layer_cache(cache.kv, i), t=t)
+        return x
+    # a VLM's groups: its self layers, then its cross layer on the cross
+    # KV that prefill precomputed
+    G, NS = groups(cfg)
+    m_cross = _cross_masks(masks)
+    for g in range(G):
+        pg, mg = _index(params["layers"], g), _index(m_layers, g)
+        for j in range(NS):
+            x, _ = decoder_layer(_index(pg, j), x, positions, cfg,
+                                 masks=_index(mg, j), mode=mode,
+                                 cache=_layer_cache(cache.kv, g, j), t=t)
+        x = cross_layer(_index(params["cross_layers"], g), x, None, cfg,
+                        masks=_index(m_cross, g),
+                        kv_cache=(cache.cross_kv[0][g], cache.cross_kv[1][g]))
     return x
+
+
+def layer_loop(body, params, x, layers, masks, aux, *, remat: bool,
+               taps: _TapStack | None, at: tuple = (),
+               tap_policy: common.TapPolicy | None = None):
+    """Run ``body(p, x, masks=, taps=) -> (x, aux or None)`` over the
+    layers ``layers`` of the stacked ``params`` / ``masks``; returns (x,
+    ``aux`` plus the layers' aux losses). Each layer's tap entries go
+    into their slot ``(*at, i)`` of ``taps`` as it finishes. Under
+    ``remat`` (autograd on, no taps) each layer runs under
+    ``torch.utils.checkpoint``: the reference's per-layer
+    ``jax.checkpoint``, which keeps only the layer's input and recomputes
+    the rest in the backward pass."""
+    for i in layers:
+        lp, lm = _index(params, i), _index(masks, i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                body, lp, x, masks=lm, use_reentrant=False)
+        else:
+            t = None if taps is None else common.Taps(tap_policy)
+            x, a = body(lp, x, masks=lm, taps=t)
+            if taps is not None:
+                taps.put((*at, i), t.entries)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def remat_on(cfg, want_taps: bool) -> bool:
+    """Whether ``layer_loop`` recomputes its layers: ``cfg.remat``, under
+    autograd, with no taps wanted."""
+    return cfg.remat and not want_taps and torch.is_grad_enabled()
+
+
+def _cross_body(p, x, *, img, cfg, masks=None, taps=None):
+    return cross_layer(p, x, img, cfg, masks=masks, taps=taps), None
 
 
 def forward(params, batch, cfg, *, masks=None, want_taps=False,
@@ -168,38 +305,43 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     autograd on, each layer runs under ``torch.utils.checkpoint``.
 
     Returns (hidden (B, S, D), taps, aux). ``taps`` maps each tap name to
-    {field: stacked (L, ...) tensor}; empty unless ``want_taps``. ``aux``
-    is the sum of the layers' aux losses (0 for the dense family).
+    {field: stacked (L, ...) tensor} (a VLM's: {"self": ..., "cross":
+    ...}, see the module's docstring); empty unless ``want_taps``.
+    ``aux`` is the sum of the layers' aux losses (0 for the dense family).
+    A VLM reads ``batch["img"]``.
     """
     tokens = batch["tokens"]
-    S = tokens.shape[1]
     # F.embedding, not indexing: its backward sums each row's gradients in
     # a fixed order on the CPU and the card, where indexing's backward
     # (index_put_ with accumulate) may add them in any order on the CPU
     x = torch.nn.functional.embedding(tokens, params["embed"])
-    positions = torch.arange(S, device=tokens.device)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
     m_layers = None if masks is None else masks["layers"]
-    # the reference's per-layer jax.checkpoint: under autograd each layer
-    # keeps only its input and recomputes the rest in the backward pass
-    remat = cfg.remat and not want_taps and torch.is_grad_enabled()
-    per_layer = []
+    loop = dict(remat=remat_on(cfg, want_taps), tap_policy=tap_policy)
+    body = functools.partial(decoder_layer, positions=positions, cfg=cfg)
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
-        taps = common.Taps(tap_policy) if want_taps else None
-        lp, lm = _index(params["layers"], i), _index(m_layers, i)
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(
-                decoder_layer, lp, x, positions, cfg, masks=lm,
-                use_reentrant=False)
-        else:
-            x, a = decoder_layer(lp, x, positions, cfg, masks=lm, taps=taps)
-        if a is not None:
-            aux = aux + a
-        if want_taps:
-            per_layer.append(taps.entries)
-    x = _apply_norm(params["ln_f"], x, cfg)
-    taps = _stack(per_layer) if per_layer else {}
-    return x, taps, aux
+    if not cfg.cross_attn_every:
+        taps = _TapStack((cfg.n_layers,)) if want_taps else None
+        x, aux = layer_loop(body, params["layers"], x, range(cfg.n_layers),
+                            m_layers, aux, taps=taps, **loop)
+        taps = {} if taps is None else taps.tree
+    else:
+        # a VLM's groups: NS self layers, then the group's cross layer
+        G, NS = groups(cfg)
+        cross = functools.partial(_cross_body, img=batch["img"].to(x.dtype),
+                                  cfg=cfg)
+        taps_s, taps_c = ((_TapStack((G, NS)), _TapStack((G,))) if want_taps
+                          else (None, None))
+        for g in range(G):
+            x, aux = layer_loop(body, _index(params["layers"], g), x,
+                                range(NS), _index(m_layers, g), aux,
+                                taps=taps_s, at=(g,), **loop)
+            x, aux = layer_loop(cross, params["cross_layers"], x,
+                                range(g, g + 1), _cross_masks(masks), aux,
+                                taps=taps_c, **loop)
+        taps = ({"self": taps_s.tree, "cross": taps_c.tree} if want_taps
+                else {})
+    return _apply_norm(params["ln_f"], x, cfg), taps, aux
 
 
 def lm_head(params, hidden, cfg):
@@ -240,13 +382,26 @@ def loss_fn(params, batch, cfg, *, masks=None, want_taps=False,
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(params, cfg, batch: int, s_max: int) -> DecodeCache:
-    """An empty (L, batch, s_max) KV cache on the params' device."""
+    """An empty (L, batch, s_max) KV cache on the params' device; a VLM's
+    (G, NS, batch, s_max), its cross KV left to ``prefill``."""
     one = attn.init_cache(batch, s_max, cfg.n_kv_heads, cfg.head_dim,
                           getattr(torch, cfg.dtype),
                           device=params["embed"].device)
-    L = cfg.n_layers
-    kv = attn.KVCache(*(t.expand(L, *t.shape).clone() for t in one))
+    L = groups(cfg) if cfg.cross_attn_every else (cfg.n_layers,)
+    kv = attn.KVCache(*(t.expand(*L, *t.shape).clone() for t in one))
     return DecodeCache(kv=kv, t=0)
+
+
+def precompute_cross_kv(params, img, cfg, *, masks=None) -> tuple:
+    """A VLM's cross KV: each cross layer's (k, v) of the image states,
+    stacked (G, B, P, kvH, dh), through the cross wk / wv masks (or their
+    packed leaves), the projection ``cross_layer`` would otherwise run."""
+    mc = _cross_masks(masks)
+    mc = None if mc is None else mc.get("attn")
+    kvs = [attn.precompute_cross_kv(
+        _index(params["cross_layers"], g)["attn"], img, cfg,
+        masks=_index(mc, g)) for g in range(groups(cfg)[0])]
+    return tuple(torch.stack(t) for t in zip(*kvs))
 
 
 @torch.no_grad()
@@ -259,16 +414,21 @@ def prefill(params, batch, cfg, cache: DecodeCache, *, masks=None):
     pad tail is masked out of the cache (pos = -1), the logits are taken
     at position ``n_valid - 1``, and decoding resumes at ``t = n_valid``
     (a tensor when ``n_valid`` is one: nothing reads it on the host).
+    A VLM first projects ``batch["img"]`` into the cache's cross KV.
     """
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = params["embed"][tokens]
+    if cfg.cross_attn_every:
+        cache = cache._replace(cross_kv=precompute_cross_kv(
+            params, batch["img"].to(x.dtype), cfg, masks=masks))
     positions = torch.arange(S, device=tokens.device)
     x = _run_layers(params, x, positions, cfg, masks=masks, mode="prefill",
                     cache=cache)
     kv, t_next, x_last = _finish_prefill(cache.kv, x, S, batch.get("n_valid"))
     x = _apply_norm(params["ln_f"], x_last, cfg)
-    return lm_head(params, x, cfg), DecodeCache(kv=kv, t=t_next)
+    return lm_head(params, x, cfg), DecodeCache(kv=kv, t=t_next,
+                                                cross_kv=cache.cross_kv)
 
 
 def _finish_prefill(kv: attn.KVCache, x, S: int, n_valid):
@@ -318,7 +478,8 @@ def prefill_window(params, batch, cfg, cache: DecodeCache, *, masks=None):
     x_last = _apply_norm(params["ln_f"], x.index_select(1, idx.reshape(1)),
                          cfg)
     t_next = torch.minimum(offset + W, n_valid)
-    return lm_head(params, x_last, cfg), DecodeCache(kv=cache.kv, t=t_next)
+    return lm_head(params, x_last, cfg), DecodeCache(
+        kv=cache.kv, t=t_next, cross_kv=cache.cross_kv)
 
 
 @torch.no_grad()
@@ -335,4 +496,5 @@ def decode_step(params, token, cfg, cache: DecodeCache, *, masks=None):
     x = _run_layers(params, x, None, cfg, masks=masks, mode="decode",
                     cache=cache, t=t)
     x = _apply_norm(params["ln_f"], x, cfg)
-    return lm_head(params, x, cfg), DecodeCache(kv=cache.kv, t=cache.t + 1)
+    return lm_head(params, x, cfg), DecodeCache(kv=cache.kv, t=cache.t + 1,
+                                                cross_kv=cache.cross_kv)

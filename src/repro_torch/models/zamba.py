@@ -34,7 +34,7 @@ from . import common
 from . import mamba2
 from . import mlp as mlp_lib
 from .transformer import (_apply_norm, _index, _norm_params, _stack,
-                          ce_loss, lm_head)
+                          _TapStack, ce_loss, lm_head)
 
 
 class ZambaCache(NamedTuple):
@@ -131,7 +131,7 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     m_layers, m_shared = _masks(masks)
     shared_taps = common.Taps(tap_policy) if want_taps else None
-    per_layer = []
+    stacked = _TapStack((cfg.n_layers,)) if want_taps else None
     for i in range(cfg.n_layers):
         if i % cfg.shared_attn_every == 0:
             x = shared_block(params["shared"], x, x0, positions, cfg,
@@ -140,9 +140,9 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
         x = mamba_layer(_index(params["layers"], i), x, cfg,
                         masks=_index(m_layers, i), taps=taps)
         if want_taps:
-            per_layer.append(taps.entries)
+            stacked.put((i,), taps.entries)
     x = _apply_norm(params["ln_f"], x, cfg)
-    taps = ({"shared": shared_taps.entries, "mamba": _stack(per_layer)}
+    taps = ({"shared": shared_taps.entries, "mamba": stacked.tree}
             if want_taps else {})
     return x, taps, torch.zeros((), device=x.device)
 

@@ -29,7 +29,9 @@ def calibration_batches(cfg_arch, *, n_samples: int, seq_len: int,
                         batch_size: int, seed: int = 0, device="cuda"):
     """The paper's calibration protocol on the synthetic corpus:
     ``n_samples`` sequences of ``seq_len`` tokens from the calib split,
-    keyed by (seed, step) — restart-replayable."""
+    keyed by (seed, step) — restart-replayable — with the frontend
+    embeddings a cross-attention family reads (``synthetic.with_modality``,
+    keyed the same way)."""
     from repro_torch.data import synthetic
 
     corpus = synthetic.CorpusConfig(cfg_arch.vocab_size, seed=seed)
@@ -37,4 +39,4 @@ def calibration_batches(cfg_arch, *, n_samples: int, seq_len: int,
     pipe = synthetic.DataPipeline(corpus, batch_size, seq_len, split="calib",
                                   device=device)
     for i in range(n_batches):
-        yield pipe.get(i)
+        yield synthetic.with_modality(pipe.get(i), cfg_arch, seed, i)

@@ -16,7 +16,8 @@ def val_batches(cfg_arch, *, n_batches: int = 4, batch: int = 8,
     corpus = synthetic.CorpusConfig(cfg_arch.vocab_size, seed=seed)
     pipe = synthetic.DataPipeline(corpus, batch, seq, split="val",
                                   device=device)
-    return [pipe.get(i) for i in range(n_batches)]
+    return [synthetic.with_modality(pipe.get(i), cfg_arch, seed + 1, i)
+            for i in range(n_batches)]
 
 
 def perplexity(api: ModelApi, params, batches, *, masks=None) -> float:

@@ -281,13 +281,13 @@ def _make_step(api: ModelApi, masks, sel: _Selection,
 
 def _calib_batch_fn(cfg, spec: RecoverSpec, device):
     """step -> batch, on the calibration split and seed protocol of
-    ``calibrate.calibration_batches``."""
+    ``calibrate.calibration_batches`` (frontend embeddings included)."""
     from repro_torch.data import synthetic
 
     corpus = synthetic.CorpusConfig(cfg.vocab_size, seed=spec.seed)
     pipe = synthetic.DataPipeline(corpus, spec.batch_size, spec.seq_len,
                                   split="calib", device=device)
-    return pipe.get
+    return lambda i: synthetic.with_modality(pipe.get(i), cfg, spec.seed, i)
 
 
 def _try_resume(rdir: Path, spec: RecoverSpec, state):

@@ -20,7 +20,14 @@ the block's invocation sites (the reference's ``"sum"`` rows; the model
 hands that sum over already, ``models.zamba``, so they stack nothing).
 RWKV6 has ten per layer: the time-mix wr/wk/wv/wg/wo, the decay LoRA
 td_w1 / td_w2 (64 wide at full size) and the channel-mix cm_wk / cm_wv /
-cm_wr, each with its own tap (its own input), stacked on L.
+cm_wr, each with its own tap (its own input), stacked on L. The VLM's
+self-layer sites stack on (G, NS) (groups, self layers a group), tapped
+under "self"; its cross layers' q/k/v/o and MLP sites on G, tapped under
+"cross" (the cross wk / wv Grams are over the image states). The
+encoder-decoder has the encoder's attention and MLP (taps under "enc")
+and the decoder's self attention, cross attention (``xattn``: taps
+"x_wq" ... under "dec", emitted as "wq" ..., see ``_emission_name``) and
+MLP, each stacked on its layers.
 
 Shape-only views (``SiteSpec``, ``TapSpec``) let the planner resolve a
 recipe and cost a run before any weight exists: ``site_specs`` reads
@@ -165,14 +172,17 @@ _MLP_GATED = ("w_gate", "w_up", "w_down")
 _MLP_PLAIN = ("w_up", "w_down")
 
 
+def _mlp_names(cfg: ArchConfig):
+    return _MLP_GATED if cfg.mlp == "gated" else _MLP_PLAIN
+
+
 def _zamba_table(cfg: ArchConfig):
     rows = [(f"layers.mamba.{k}", ("layers", "mamba", k), ("mamba", k), 1)
             for k in ("in_proj", "out_proj")]
     rows += [(f"shared.attn.{k}", ("shared", "attn", k), ("shared", k), 0)
              for k in _ATTN]
-    mlp = _MLP_GATED if cfg.mlp == "gated" else _MLP_PLAIN
     rows += [(f"shared.mlp.{k}", ("shared", "mlp", k), ("shared", k), 0)
-             for k in mlp]
+             for k in _mlp_names(cfg)]
     return rows
 
 
@@ -185,18 +195,43 @@ def _rwkv_table(cfg: ArchConfig):
             for k in _RWKV_SITES]
 
 
+def _vlm_table(cfg: ArchConfig):
+    rows = [(f"layers.{blk}.{k}", ("layers", blk, k), ("self", k), 2)
+            for blk, names in (("attn", _ATTN), ("mlp", _mlp_names(cfg)))
+            for k in names]
+    rows += [(f"cross_layers.{blk}.{k}", ("cross_layers", blk, k),
+              ("cross", k), 1)
+             for blk, names in (("attn", _ATTN), ("mlp", _mlp_names(cfg)))
+             for k in names]
+    return rows
+
+
+def _encdec_table(cfg: ArchConfig):
+    rows = [(f"enc_layers.{blk}.{k}", ("enc_layers", blk, k), ("enc", k), 1)
+            for blk, names in (("attn", _ATTN), ("mlp", _mlp_names(cfg)))
+            for k in names]
+    for k in _ATTN:
+        rows.append((f"dec_layers.attn.{k}", ("dec_layers", "attn", k),
+                     ("dec", k), 1))
+        rows.append((f"dec_layers.xattn.{k}", ("dec_layers", "xattn", k),
+                     ("dec", f"x_{k}"), 1))
+    rows += [(f"dec_layers.mlp.{k}", ("dec_layers", "mlp", k), ("dec", k), 1)
+             for k in _mlp_names(cfg)]
+    return rows
+
+
 def _table(cfg: ArchConfig):
     """(site name, param path, tap path, n stack dims) per prunable site;
     0 for a shared block's site (one instance, its tap summed over the
     block's invocation sites)."""
     if cfg.is_rwkv:
         return _rwkv_table(cfg)
+    if cfg.is_encdec:
+        return _encdec_table(cfg)
     if cfg.family == "hybrid":
         return _zamba_table(cfg)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"no site table for family {cfg.family!r}: the encoder-decoder "
-            "(ROADMAP A3) and the VLM (A4) are not ported yet")
+    if cfg.cross_attn_every:
+        return _vlm_table(cfg)
     rows = [(f"layers.attn.{k}", ("layers", "attn", k), (k,), 1)
             for k in _ATTN]
     if cfg.is_moe:
@@ -204,8 +239,8 @@ def _table(cfg: ArchConfig):
             tap = "moe_w_down" if k == "w_down" else "moe_w_up"
             rows.append((f"layers.moe.{k}", ("layers", "moe", k), (tap,), 2))
         return rows
-    mlp = _MLP_GATED if cfg.mlp == "gated" else _MLP_PLAIN
-    rows += [(f"layers.mlp.{k}", ("layers", "mlp", k), (k,), 1) for k in mlp]
+    rows += [(f"layers.mlp.{k}", ("layers", "mlp", k), (k,), 1)
+             for k in _mlp_names(cfg)]
     return rows
 
 
@@ -294,8 +329,13 @@ class TapSpec:
 
 
 def _emission_name(tpath: tuple[str, ...]) -> str:
-    """The key the model emits a tap under."""
-    return tpath[-1]
+    """The key the model emits a tap under: the encoder-decoder's cross
+    attention emits "wq" ... and its decoder layer renames them "x_wq"
+    ..., so a policy looks up the emitted name. As in the reference, a
+    policy keys on that name alone: a tap skipped at one site and kept at
+    another of the same emitted name accumulates at both."""
+    leaf = tpath[-1]
+    return leaf[2:] if leaf.startswith("x_") else leaf
 
 
 def tap_specs(cfg: ArchConfig, specs: list[SiteSpec]) -> list[TapSpec]:

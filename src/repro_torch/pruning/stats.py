@@ -244,6 +244,9 @@ def accumulate_stats(api: ModelApi, params, batches, *,
             total = aux["taps"]
         else:
             _add_into(total, aux["taps"])
+        # the batch's taps are not held through the next batch's forward:
+        # the peak is the accumulator and one batch's taps
+        del aux
         done = i + 1
         if (ckpt_dir is not None and checkpoint_every
                 and done % checkpoint_every == 0):

@@ -187,6 +187,9 @@ class ServeEngine:
         batch = {"tokens": tokens}
         if "n_valid" in prompt:
             batch["n_valid"] = prompt["n_valid"]
+        for key in ("img", "src"):      # a cross-attention family's states
+            if key in prompt:
+                batch[key] = prompt[key].to(self.device)
         B, S = tokens.shape
         samp = {"greedy": True}
         if sampling is not None:
@@ -248,7 +251,9 @@ class ServeEngine:
         ``models.transformer`` has, dense or MoE. The recurrent families
         (``models.zamba``, ``models.rwkv_model``) carry a state, not
         per-token KV, and are refused, as the reference refuses them; so
-        would cross-attention and encoder-decoder models be.
+        are the cross-attention families: a VLM (this module, with
+        ``cross_attn_every``) and an encoder-decoder (``models.encdec``),
+        whose cross KV is a second cache no page holds.
 
         An MoE block dispatches per batch row (``models.moe``: groups of
         ``moe_group_size`` positions where that divides the row, else the

@@ -4,9 +4,10 @@ All five dense configs (the reference's four dense assigned architectures
 and llama31-8b), at full width, on shapes alone:
 
 * every field of the port's ``ArchConfig`` equals the reference's, in
-  ``CONFIG`` and ``TINY`` (zamba2-7b's and rwkv6-1.6b's too, the
-  hybrid family's SSM fields, ``d_inner`` / ``n_ssm_heads``, the RWKV6
-  fields and ``is_rwkv`` included); the reference
+  ``CONFIG`` and ``TINY`` (zamba2-7b's, rwkv6-1.6b's and the
+  cross-attention families' too, the hybrid family's SSM fields,
+  ``d_inner`` / ``n_ssm_heads``, the RWKV6 fields, ``is_rwkv``, the
+  frontend fields and ``is_encdec`` included); the reference
   fields the port does not carry yet are exactly ``NOT_PORTED``;
 * the param tree of ``api.init(device="meta")`` has the paths and shapes
   of the reference's ``jax.eval_shape(api.init, key)``, and
@@ -64,12 +65,11 @@ NEW = DENSE[:4]
 # test_torch_kswap.py, and its code is the same at every shape
 K_SWAPS = 1
 
-# reference fields of families, kernels and training the port does not run
-# yet (grad_accum comes with training, ROADMAP A3)
+# reference fields of execution knobs the port does not run (chunked
+# attention, sharding, the chunked CE head, rolling windows, scans)
 NOT_PORTED = {
-    "attn_impl", "attn_q_chunk", "cross_attn_every",
-    "d_frontend", "fsdp_params", "head_chunk", "long_window",
-    "n_enc_layers", "n_img_tokens", "n_src_frames", "scan_layers",
+    "attn_impl", "attn_q_chunk", "fsdp_params", "head_chunk", "long_window",
+    "scan_layers",
 }
 # the MoE family, held in test_torch_moe.py
 MOE = ["mixtral-8x7b", "granite-moe-3b-a800m"]
@@ -77,6 +77,9 @@ MOE = ["mixtral-8x7b", "granite-moe-3b-a800m"]
 HYBRID = ["zamba2-7b"]
 # the RWKV6 model of the ssm family, held in test_torch_rwkv.py
 RWKV = ["rwkv6-1.6b"]
+# the cross-attention families, held in test_torch_vlm.py and
+# test_torch_encdec.py
+XATTN = ["llama-3.2-vision-90b", "seamless-m4t-medium"]
 
 
 def _leaves(tree, prefix=""):
@@ -92,16 +95,16 @@ def _np(tree):
 
 
 def test_registry_holds_the_dense_family():
-    ported = DENSE + MOE + HYBRID + RWKV
-    assert list(tconfigs.ARCHS) == [n for n in jconfigs.ARCHS if n in ported]
+    ported = DENSE + MOE + HYBRID + RWKV + XATTN
+    # every family of the reference, in its registry's order
+    assert list(tconfigs.ARCHS) == list(jconfigs.ARCHS)
     assert sorted(tconfigs.ARCHS) == sorted(ported)
-    # the families still unported: the encoder-decoder and the VLM
-    for name in ("seamless-m4t-medium", "llama-3.2-vision-90b"):
-        with pytest.raises(KeyError, match="unknown arch"):
-            tconfigs.get(name)
+    assert list(tconfigs.TINY) == list(jconfigs.TINY)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID + RWKV)
+@pytest.mark.parametrize("arch", DENSE + HYBRID + RWKV + XATTN)
 def test_config_fields_match_reference(arch):
     fields = {f.name for f in dataclasses.fields(tconfigs.ArchConfig)}
     ref_fields = {f.name for f in dataclasses.fields(jconfigs.ArchConfig)}
@@ -113,6 +116,7 @@ def test_config_fields_match_reference(arch):
         assert t.head_dim == j.head_dim
         assert (t.d_inner, t.n_ssm_heads) == (j.d_inner, j.n_ssm_heads)
         assert t.is_rwkv == j.is_rwkv == (arch in RWKV)
+        assert t.is_encdec == j.is_encdec == (arch == "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", DENSE)

@@ -57,7 +57,9 @@ def test_scan_covers_the_port():
                  "optim/adamw.py", "train/steps.py", "launch/train.py",
                  "models/moe.py", "configs/mixtral_8x7b.py",
                  "configs/granite_moe_3b.py", "models/rwkv6.py",
-                 "models/rwkv_model.py", "configs/rwkv6_1b6.py"):
+                 "models/rwkv_model.py", "configs/rwkv6_1b6.py",
+                 "models/encdec.py", "configs/seamless_m4t_medium.py",
+                 "configs/llama32_vision_90b.py"):
         assert must in names
 
 

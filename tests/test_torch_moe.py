@@ -107,8 +107,13 @@ def test_registry_order_and_fields():
             for f in sorted(fields):
                 assert getattr(t, f) == getattr(j, f), (arch, f)
             assert t.is_moe and t.head_dim == j.head_dim
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmodels.build(tconfigs.get("llama31-8b").replace(family="ssm"))
+    # every family is ported: a config of no special family (no rwkv,
+    # encoder or hybrid fields) runs the transformer in both packages
+    odd = {"family": "ssm"}
+    assert tmodels.build(tconfigs.get("llama31-8b").replace(**odd)).module \
+        is tmodels.transformer
+    assert jmodels.build(jconfigs.get("llama31-8b").replace(**odd)).module \
+        is jmodels.transformer
     with pytest.raises(NotImplementedError, match="A5"):
         cfg = tconfigs.get_tiny("mixtral-8x7b").replace(moe_parallelism="ep")
         api = tmodels.build(cfg)

@@ -347,3 +347,69 @@ def test_ckpt_rejects_corruption_and_bf16(tmp_path):
         assert got.dtype == torch.bfloat16
         assert torch.equal(got.view(torch.int16), b.view(torch.int16))
     assert tckpt.steps(tmp_path) == [1, 2, 3]            # nothing half-written
+
+
+# shard index slices of an (8, 6) leaf, as the reference's manifest
+# records them ([start, stop], stop -1 for "to the end"): one shard that is
+# the whole leaf (the layout both packages write from one process), and
+# the layouts of a leaf sharded over a mesh
+SHARD_LAYOUTS = {
+    "one_shard": [[[0, -1], [0, -1]]],
+    "one_shard_explicit_stops": [[[0, 8], [0, 6]]],
+    "rows_4": [[[2 * i, 2 * i + 2], [0, -1]] for i in range(4)],
+    "rows_2_cols_3": [[[r, r + 4], [c, c + 2]] for r in (0, 4)
+                      for c in (0, 2, 4)],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(SHARD_LAYOUTS))
+def test_ckpt_restores_each_shard_layout(tmp_path, layout):
+    """A leaf written as one shard or as many (in the reference's on-disk
+    layout: shard files, keys, index slices, a sha256 a shard) is read back
+    bitwise by ``validate`` and ``restore`` in both packages, beside a
+    one-shard leaf; a shard with a wrong hash fails both reads."""
+    rng = np.random.default_rng(1)
+    w = rng.normal(size=(8, 6)).astype(np.float32)
+    b = rng.integers(-9, 9, (5,)).astype(np.int32)
+    d = tmp_path / "step_00000004"
+    d.mkdir()
+    files: dict[str, dict] = {}
+    leaves = []
+    for name, arr, index in (("b", b, [[[0, -1]]]),
+                             ("w", w, SHARD_LAYOUTS[layout])):
+        entry = {"path": name, "shape": list(arr.shape),
+                 "dtype": str(arr.dtype), "shards": []}
+        for k, idx in enumerate(index):
+            part = np.ascontiguousarray(arr[tuple(
+                slice(a, n if e == -1 else e)
+                for (a, e), n in zip(idx, arr.shape))])
+            fname = f"shard_0_{k % 2}.npz"
+            files.setdefault(fname, {})[f"{name}__{k}"] = part
+            entry["shards"].append({
+                "file": fname, "key": f"{name}__{k}", "index": idx,
+                "sha256": jckpt.store._sha256(part)})
+        leaves.append(entry)
+    for fname, bufs in files.items():
+        np.savez(d / fname, **bufs)
+    man = {"step": 4, "time": 0.0, "extra": {}, "leaves": leaves}
+    (d / "MANIFEST.json").write_text(json.dumps(man))
+
+    assert tckpt.validate(d) and jckpt.validate(d)
+    got, _ = tckpt.restore(tmp_path, 4)
+    ref, _ = jckpt.restore(tmp_path, 4, {
+        "b": jax.ShapeDtypeStruct(b.shape, b.dtype),
+        "w": jax.ShapeDtypeStruct(w.shape, w.dtype)})
+    for name, want in (("b", b), ("w", w)):
+        assert got[name].dtype == want.dtype, name
+        assert np.array_equal(got[name], want), name
+        assert np.array_equal(got[name], np.asarray(ref[name])), name
+    only_w, _ = tckpt.restore(tmp_path, 4, paths=["w"])
+    assert list(only_w) == ["w"] and np.array_equal(only_w["w"], w)
+
+    # a wrong hash on the leaf's last shard fails both reads
+    leaves[1]["shards"][-1]["sha256"] = "0" * 64
+    (d / "MANIFEST.json").write_text(json.dumps(man))
+    assert not tckpt.validate(d) and not jckpt.validate(d)
+    assert tckpt.latest_valid(tmp_path) is None
+    with pytest.raises(IOError, match="hash mismatch"):
+        tckpt.restore(tmp_path, 4)

@@ -3987,6 +3987,313 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
     return totals
 
 
+# phases 9z, 9r, 9e and 9v: the four newest families trained, pruned,
+# recovered and served at full width, bf16, seed 0, in memory: no
+# TrainState is written (10 B a parameter, past the write budget), and
+# each family's checkpoint format and resume are held on the CPU
+# (tests/test_torch_*_train.py). The cuts (depth; the VLM's vocabulary
+# too, for memory: at its own 128256 the TrainState and grad_accum 4's
+# fp32 gradient sum reach ~61 GB before AdamW's temporaries) and the site
+# whose trained weights and calibration Gram the candidate commit refines.
+FAMILY_TRAIN = (
+    dict(tag="9z", name=ZAMBA, cut=dict(n_layers=1), serve="export",
+         lr=3e-4,
+         commit=("layers.mamba.in_proj[0]", ("layers", "mamba", "in_proj"),
+                 ("mamba", "in_proj"))),
+    dict(tag="9r", name=RWKV, cut=dict(n_layers=2), serve="export",
+         lr=3e-4,
+         commit=("layers.tm.td_w1[0]", ("layers", "tm", "td_w1"),
+                 ("td_w1",))),
+    dict(tag="9e", name=SEAMLESS, cut=dict(n_layers=2, n_enc_layers=2),
+         serve="export", lr=3e-4,
+         commit=("dec_layers.xattn.wk[0]", ("dec_layers", "xattn", "wk"),
+                 ("dec", "x_wk"))),
+    # the others train at the launcher's lr; at d = 8192 its 3e-4 (one
+    # warmup step) took the next batch's loss from 11.85 to 45.46 in one
+    # step: the VLM trains at 3e-5
+    dict(tag="9v", name=VLM,
+         cut=dict(n_layers=2, cross_attn_every=2, vocab_size=32000),
+         serve="in process", lr=3e-5,
+         commit=("cross_layers.attn.wk[0]", ("cross_layers", "attn", "wk"),
+                 ("cross", "wk"))),
+)
+
+# norms_biases at RecoverSpec's 1e-3 (PERP's few norm and bias leaves);
+# all_masked, which trains every kept weight, at 1e-4: at 1e-3
+# seamless's first all_masked step lifted the CE from 10.33 to 11.17, and
+# step 0's batch ended above where it started (10.3384 against 10.3339)
+FAMILY_RECOVER_LR = {"norms_biases": 1e-3, "all_masked": 1e-4}
+
+
+def family_train_path(row: dict, smi: str, *, exported: list, base=None,
+                      device="cuda") -> dict:
+    """Phases 9z / 9r / 9e / 9v on a row of FAMILY_TRAIN: its config
+    ``name`` cut by ``cut`` (registered under its own name for the
+    launcher), trained at ``lr``.
+
+    (a) ``launch.train`` twice in memory, TRAIN_STEPS steps of 4 x 128
+    tokens (frontend states included), the second under
+    ``deterministic_mode``: losses finite, step 0's batch's loss lower
+    after the steps than at step 0, the two runs bitwise equal, no flagged
+    op but cuBLAS's; step ms (CUDA events) and peak memory; the optimizer
+    state freed. (b) A ``PruneExecutor`` (no checkpoint directory) on the
+    trained params at PerRow(0.6) (Wanda, k = 8, t_max = T_MAX, 16 x 128
+    calibration tokens with their frontend states; a VLM's gates set to
+    VLM_GATES first) with phase 4's gates, then ``refine_candidates`` on
+    the row's ``commit`` site (label, param path, tap path) with its
+    calibration Gram. (c) ``recover`` norms_biases, then all_masked, each
+    RECOVER_STEPS steps from the pruned model at FAMILY_RECOVER_LR: CE
+    finite at every step and falling (step 0's batch's CE lower after the
+    steps), all_masked's pruned coordinates 0.0 in the weights; the
+    recovered perplexity beside the pruned one; step ms. (d) The
+    norms_biases recovery served gathered: with ``serve == "export"``
+    through ``export_packed`` into a temporary directory, read back by
+    ``load_masks_and_weights``, its greedy tokens and logits bitwise the
+    in-process engine's (its bytes appended to ``exported``), else in
+    process; spmm launches a generate = the site table's; packed vs
+    masked (fed its tokens) printed, and in process (the VLM: its export
+    would pass the write budget) gated within SERVE_TOL. Returns the
+    kernel launches of (b)-(d). ``base`` (a TINY config, cut by ``cut``
+    in its place) and ``device`` rehearse it elsewhere (on the CPU, where
+    no launch counts hold)."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import configs, models, pruning
+    from repro_torch.core import masks, packed
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import steps as steps_lib
+
+    rec_mod = importlib.import_module("repro_torch.pruning.recover")
+    cuda = torch.device(device).type == "cuda"
+    tag, name, cut, serve = row["tag"], row["name"], row["cut"], row["serve"]
+    full = base or configs.get(name)
+    cfg = full.replace(name=f"{name}-" + "-".join(
+        f"{k}{v}" for k, v in cut.items()), **cut)
+    configs.ARCHS[cfg.name] = cfg
+    api = models.build(cfg)
+    log(f"   config: {name} at full width, cut: " + ", ".join(
+        f"{k} {v} (of {getattr(full, k)})" for k, v in cut.items())
+        + f"; grad_accum {cfg.grad_accum}, {cfg.dtype}; {cfg.n_params()} "
+        f"params; train lr {row['lr']}")
+    totals = dict.fromkeys(("gram_xtx", "swap_topk", "swap_commit",
+                            "spmm_gather"), 0)
+
+    # (a) train twice in memory, the second run under deterministic mode
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kw = dict(arch=cfg.name, tiny=False, device=device, n_steps=TRAIN_STEPS,
+              batch=4, seq=128, seed=0, log_every=1, lr=row["lr"])
+    t0 = time.perf_counter()
+    run, _ = echo_run(launch_train.train, **kw)
+    t_train = time.perf_counter() - t0
+    losses, trained = run["losses"], run["state"].params
+    del run
+    require(len(losses) == TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses),
+            f"{tag}: train losses not finite: {losses}")
+    # each step draws its own batch, and at random weights a batch's CE
+    # depends on how many of its tokens the steps before it saw (the VLM's
+    # spread 10.97-13.12 at lr 3e-5, a step of 4e-6 apart): the falling
+    # loss is held on step 0's batch, before and after the training
+    pipe = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                  4, 128, split="train", device=device)
+    batch = synthetic.with_modality(pipe.get(0), cfg, 0, 0)
+    with torch.no_grad():
+        after = float(api.loss(trained, batch)[0])
+    require(after < losses[0],
+            f"{tag}: step 0's batch has loss {after} after training, "
+            f"{losses[0]} before")
+    flagged = set()
+    with deterministic_mode(flagged):
+        again, _ = echo_run(launch_train.train, **kw)
+    require(again["losses"] == losses
+            and equal_trees(again["state"].params, trained),
+            f"{tag}: the run under deterministic algorithms differs from the "
+            "first")
+    del again
+    log(f"   ({tag}a) train: losses {[round(x, 4) for x in losses]}; "
+        f"step 0's batch {losses[0]:.4f} -> {after:.4f}; "
+        f"{t_train:.2f} s for {TRAIN_STEPS} steps; the second run, under "
+        "deterministic algorithms, bitwise the first; ops flagged: "
+        f"{sorted(m[:160] for m in flagged) or 'none'}")
+    require(all("CuBLAS" in m for m in flagged),
+            f"{tag}: a nondeterministic op in the train step: {flagged}")
+    step = steps_lib.make_train_step(api, adamw.AdamWConfig())
+    train_ms = (event_ms(step, steps_lib.TrainState(trained,
+                                                    adamw.init(trained)),
+                         batch) if cuda else float("nan"))
+    del step
+    peak_train = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                  else float("nan"))
+    log(f"   ({tag}a) train step {train_ms:.2f} ms (CUDA events, median of "
+        f"steps 2-{TIMED_STEPS}); peak memory {peak_train:.2f} GiB; the "
+        "optimizer state freed")
+
+    # (b) prune the trained params in process
+    if cfg.cross_attn_every:
+        for gate, v in zip(("gate_attn", "gate_mlp"), VLM_GATES):
+            trained["cross_layers"][gate].fill_(v)
+    pattern = masks.PerRow(0.6)
+    calib = list(pruning.calibration_batches(
+        cfg, n_samples=16, seq_len=128, batch_size=4, seed=0, device=device))
+    plan = pruning.plan_pruning(api, trained, pruning.PruneRecipe.single(
+        pattern, method="sparseswaps", warmstart="wanda", t_max=T_MAX,
+        k_swaps=8))
+    ex = pruning.PruneExecutor(api, trained, plan)
+    ops.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = ex.run(calib)
+    if cuda:
+        torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_prune = (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                  else float("nan"))
+    dense = pruning.evaluate(api, trained, seed=0, device=device)
+    pruned = pruning.evaluate(api, trained, masks=rep.masks, seed=0,
+                              device=device)
+    check_pruned(api, trained, rep, launches, len(calib), pattern, dense,
+                 pruned)
+    totals["gram_xtx"] += launches["gram_xtx"] + launches["gram_xtx_bf16"]
+    totals["swap_topk"] += launches["swap_topk"]
+    log(f"   ({tag}b) prune the trained params: {t_prune:.2f} s, peak "
+        f"memory {peak_prune:.2f} GiB, launches {launches}; dense ppl "
+        f"{dense['perplexity']:.4f}, pruned ppl {pruned['perplexity']:.4f}, "
+        f"error reduction {100 * rep.mean_error_reduction():.3f}%; masks "
+        f"digest {digest(mask_leaves(rep.masks))}")
+    label, wpath, gpath = row["commit"]
+    totals["swap_commit"] += refine_candidates(f"{tag}b", [
+        (label, packed._get(trained, wpath)[0],
+         packed._get(ex.taps, gpath)["g"][0])])
+    ex.taps = ex.stats = None
+    del calib
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) recover norms_biases, then all_masked, each from the pruned model
+    step_ms, recovered = {}, None
+    batch = synthetic.with_modality(pipe.get(1), cfg, 0, 1)
+    for select in ("norms_biases", "all_masked"):
+        rep.updated_params = None
+        spec = rec_mod.RecoverSpec(select=select, steps=RECOVER_STEPS,
+                                   lr=FAMILY_RECOVER_LR[select], seed=0)
+        t0 = time.perf_counter()
+        rr = ex.recover(spec)
+        t_rec = time.perf_counter() - t0
+        ce = rr.ce_history
+        b0 = rec_mod._calib_batch_fn(cfg, spec, device)(0)
+        with torch.no_grad():
+            ce0 = float(api.loss(rr.params, b0, masks=rep.masks)[1]["ce"])
+        require(rr.steps_run == RECOVER_STEPS and not rr.diverged
+                and all(math.isfinite(c) for c in ce) and ce0 < ce[0],
+                f"{tag}: {select} recovery CE not finite and falling: {ce}; "
+                f"step 0's batch {ce0} after")
+        notes = ""
+        if select == "all_masked":
+            flat = dict(rec_mod._flat_leaves(rr.params))
+            for site, m in rec_mod._flat_leaves(rep.masks):
+                require(not bool(flat[site][m == 0].any()),
+                        f"{tag} {site}: a pruned weight is nonzero after "
+                        "recovery")
+            notes = "; pruned coordinates 0.0 in the weights"
+            del flat
+        ppl = pruning.evaluate(api, rr.params, masks=rep.masks, seed=0,
+                               device=device)["perplexity"]
+        sel = rec_mod.build_selection(trained, rep.masks, spec)
+        rstep = rec_mod._make_step(api, rep.masks, sel, spec.opt_config())
+        step_ms[select] = (event_ms(rstep, steps_lib.TrainState(
+            sel.trainable, adamw.init(sel.trainable)), trained, batch)
+            if cuda else float("nan"))
+        del sel, rstep
+        log(f"   ({tag}c) recover {select}: {t_rec:.2f} s, CE "
+            f"{ce[0]:.4f} -> {ce[-1]:.4f} over {rr.steps_run} steps (step "
+            f"0's batch {ce[0]:.4f} -> {ce0:.4f}), "
+            f"trainable {rr.trainable_count} of {rr.total_count} "
+            f"({100 * rr.trainable_frac:.4f}%), recovered ppl {ppl:.4f} "
+            f"(pruned {pruned['perplexity']:.4f}), "
+            f"step {step_ms[select]:.2f} ms{notes}")
+        if recovered is None:
+            recovered = rr.params
+        del rr
+    rep.updated_params = recovered
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) serve the norms_biases recovery, gathered (every spmm launch of
+    # this step is a gathered one: the masked engine runs none)
+    s0 = ops.LAUNCHES["spmm"]
+    prompt = synthetic.with_modality(synthetic.DataPipeline(
+        synthetic.CorpusConfig(cfg.vocab_size), 4, 32, split="val",
+        device=device).get(0), cfg, 0, 0)
+    n_first = spmm_sites(cfg, trained, prefill=True)["spmm"]
+    want_n = (n_first + (SERVE_GEN - 1) * spmm_sites(cfg, trained)["spmm"]
+              if cuda else 0)
+    want = ServeEngine(api, recovered, masks=rep.masks, fmt="gathered",
+                       device=device)
+    before = ops.LAUNCHES["spmm"]
+    lt = want.logits_trace(prompt, SERVE_GEN)
+    n = ops.LAUNCHES["spmm"] - before
+    require(n == want_n, f"{tag}: a packed generate launched {n} spmm, want "
+            f"{want_n}")
+    if serve == "export":
+        tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_"))
+        try:
+            w0 = bytes_written()
+            t0 = time.perf_counter()
+            ex.export_packed(tmp / "export", "gathered")
+            t_export = time.perf_counter() - t0
+            exported.append(bytes_written() - w0)
+            m2, p2 = packed.load_masks_and_weights(cfg, trained,
+                                                   tmp / "export")
+            via = ServeEngine(api, p2, masks=m2, fmt="gathered",
+                              device=device)
+            require(torch.equal(via.logits_trace(prompt, SERVE_GEN), lt)
+                    and torch.equal(via.generate(prompt, SERVE_GEN).tokens,
+                                    want.generate(prompt, SERVE_GEN).tokens),
+                    f"{tag}: the export's greedy tokens or logits differ "
+                    "from the in-process recovered model's")
+            log(f"   ({tag}d) export_packed (gathered) {t_export:.2f} s, "
+                f"{exported[-1] / 1e9:.3f} GB written; read back by "
+                "load_masks_and_weights and served: greedy tokens and "
+                "logits bitwise the in-process recovered model's; spmm "
+                f"launches {n} a generate")
+            del via, m2, p2
+        finally:
+            shutil.rmtree(tmp)
+    masked = ServeEngine(api, recovered, masks=rep.masks, fmt="masked",
+                         device=device)
+    ref = masked.logits_trace(prompt, SERVE_GEN)
+    toks = masked.generate(prompt, SERVE_GEN).tokens
+    err = float((forced_logits(want, prompt, toks) - ref).abs().max())
+    scale = float(ref.abs().max())
+    log(f"   ({tag}d) gathered vs masked (fed its tokens): {err / scale:.2e} "
+        f"of max|logits| {scale:.3f}"
+        + (f" (gated within {SERVE_TOL})" if serve == "in process" else "")
+        + f"; spmm launches {n} a generate")
+    if serve == "in process":
+        require(math.isfinite(err) and err <= SERVE_TOL * scale,
+                f"{tag}: gathered vs masked beyond {SERVE_TOL} of "
+                "max|logits|")
+    totals["spmm_gather"] += ops.LAUNCHES["spmm"] - s0
+    del want, masked, ex, rep, recovered, trained
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"   ({tag}) train step {train_ms:.2f} ms, recover steps "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items())
+        + f"; peak memory train {peak_train:.2f} GiB, prune "
+        f"{peak_prune:.2f} GiB; {smi}")
+    return totals
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -4253,6 +4560,17 @@ def main() -> int:
                                          deterministic=True, tag="9m")
         log(f"   launches {moe_rec}; spmm_stacked calls by (E, T, d_out, "
             f"d_in, format): {dict(sorted(calls.stacked.items()))}")
+    fam_rec, exported = [], []
+    for row in FAMILY_TRAIN:
+        torch.cuda.empty_cache()
+        where = ("from its export" if row["serve"] == "export"
+                 else "in process")
+        with Phase(f"{row['tag']} {row['name']} training and recovery: "
+                   "train, prune, recover norms_biases and all_masked, "
+                   f"serve the recovery {where}"):
+            fam_rec.append(family_train_path(row, smi, exported=exported))
+            log(f"   launches {fam_rec[-1]}")
+    log(f"   9z / 9r / 9e exports: {sum(exported) / 2**30:.2f} GiB written")
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o.get("serve"))
@@ -4260,7 +4578,7 @@ def main() -> int:
                   vlm)]
     served = [s for _, s in runs if s is not None]
     # the continuous runs (6c, 6mc) and the served exports (9, 9m)
-    later = [cont_launches, rec_launches, moe_rec] + [
+    later = [cont_launches, rec_launches, moe_rec, *fam_rec] + [
         o["continuous"] for o in moe.values() if "continuous" in o]
     more = lambda k: sum(x.get(k, 0) for x in later)  # noqa: E731
     launches = {"gram_xtx": sum(p["gram_xtx_bf16"] + p["gram_xtx"]
@@ -4273,7 +4591,8 @@ def main() -> int:
                 + more("swap_topk"),
                 "swap_argmin": argmin_launches,
                 "swap_commit": commit_launches + sum(
-                    o["swap_commit"] for o in (zamba, rwkv, seamless, vlm)),
+                    o["swap_commit"] for o in (zamba, rwkv, seamless, vlm))
+                + more("swap_commit"),
                 "spmm": sum(s["nm24_2:4"]["spmm"] for s in served)
                 + more("spmm"),
                 "spmm_gather": sum(s["gathered_0.6"]["spmm"]

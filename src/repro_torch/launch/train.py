@@ -60,7 +60,10 @@ def train(arch: str, *, tiny: bool = False, n_steps: int = 100,
         pipe = synthetic.DataPipeline(
             synthetic.CorpusConfig(cfg.vocab_size, seed=seed), batch, seq,
             split="train", device=dev)
-        get_batch = pipe.get
+        # the frontend states a cross-attention family reads, keyed as
+        # calibration's and recovery's are
+        get_batch = lambda i: synthetic.with_modality(  # noqa: E731
+            pipe.get(i), cfg, seed, i)
 
     state = steps_lib.init_state(api, seed=seed, device=dev)
     start_step = 0

@@ -155,6 +155,18 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
     return out.to(x.dtype)
 
 
+def inclusive_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum(x, dim)`` as a product with a lower-triangular ones
+    matrix over that (short: a scan chunk's) axis. torch.cumsum has no
+    deterministic implementation for floating CUDA tensors; a matmul sums
+    in an order fixed by the shape, on the card (TF32 off) and the CPU,
+    in the forward and the backward."""
+    n = x.shape[dim]
+    tri = torch.ones((n, n), dtype=x.dtype, device=x.device).tril()
+    return torch.movedim(torch.matmul(tri, torch.movedim(x, dim, -2)), -2,
+                         dim)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

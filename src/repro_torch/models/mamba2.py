@@ -12,7 +12,14 @@ two differ only in the rounding of the fp32 sums). As in the reference,
 decay factors appear only as ``exp(b_t - b_i)`` with ``b_t <= b_i``
 subtracted before the exp, so the chunked path is stable for any dt, and
 a ragged last chunk is zero-padded (dt = 0: decay 1, no input), which
-leaves the final state and the real outputs exact.
+leaves the final state and the real outputs exact. The in-chunk decay
+sums b_t are ``common.inclusive_sum`` (a triangular product, fixed order
+on the card), not ``torch.cumsum``, which has no deterministic CUDA
+implementation: training's backward repeats bitwise. The intra-chunk
+decay is masked above the diagonal before its exp, where the reference
+masks after it: the same values, but the reference's backward is NaN
+once a chunk's decay sum passes fp32's exp range (zamba2-7b at full
+width: a step's loss is finite, its gradients NaN).
 
 ``ssd_chunked`` is plain torch in both packages (the reference's is plain
 ``jnp``, no Pallas kernel). ``in_proj`` and ``out_proj`` go through
@@ -127,14 +134,18 @@ def ssd_chunked(x, Bm, Cm, dt, A, *, chunk: int, h0=None):
     dtc = dt.reshape(Bsz, NC, Q, H).float()
 
     la = dtc * A                                     # log decay, <= 0
-    b = torch.cumsum(la, dim=2)                      # inclusive (B,NC,Q,H)
+    b = common.inclusive_sum(la, 2)                  # inclusive (B,NC,Q,H)
     b_last = b[:, :, -1:, :]                         # (B,NC,1,H)
 
     # intra-chunk: scores_ti = (C_t . B_i) * exp(b_t - b_i) * dt_i, i <= t
     CB = torch.einsum("bnqs,bnks->bnqk", Cc, Bc)     # (B,NC,Q,Q)
     ldiff = b[:, :, :, None, :] - b[:, :, None, :, :]          # (B,NC,Q,Q,H)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tri[None, None, :, :, None], torch.exp(ldiff), 0.0)
+    # masked before the exp: above the diagonal b_t - b_i > 0 can pass
+    # fp32's exp range (a 64-step chunk at full width), and exp's backward
+    # there would be 0 * inf = NaN; below it the values are exp's own
+    L = torch.exp(torch.where(tri[None, None, :, :, None], ldiff,
+                              float("-inf")))
     scores = CB[..., None] * L * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bnqkh,bnkhd->bnqhd", scores, xc)
 

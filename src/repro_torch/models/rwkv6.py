@@ -20,7 +20,9 @@ to [LOGW_MIN, 0), C = 16), inside fp32's range and far outside bf16's,
 so every exponent and product here is fp32. The reference combines the
 chunk states with ``lax.associative_scan``; the port passes them from
 chunk to chunk in a Python loop, as ``models.mamba2.ssd_chunked`` does:
-the two differ only in the order of the fp32 sums.
+the two differ only in the order of the fp32 sums. b_t is
+``common.inclusive_sum``, a triangular product in a fixed order on the
+card, where ``torch.cumsum`` has no deterministic implementation.
 
 The WKV and the token-shift interpolation (``_ddlerp``, whose small
 LoRA products are fp32 matmuls) are plain torch in both packages, no
@@ -153,7 +155,7 @@ def wkv_chunked(r, k, v, logw, u, *, chunk: int, s0=None):
     vs = v.reshape(B, NC, C, H, dh).float()
     lw = logw.reshape(B, NC, C, H, dh).float()
 
-    b = torch.cumsum(lw, dim=2)                       # inclusive
+    b = common.inclusive_sum(lw, 2)                   # inclusive
     b_prev = b - lw                                   # exclusive (b_{t-1})
     b_last = b[:, :, -1]                              # (B, NC, H, dh)
     beta = 0.5 * b_last[:, :, None]                   # midpoint

@@ -7,16 +7,17 @@ normed inputs of the time-mix and the channel-mix). Layer params are
 stacked on a leading L axis with the prunable leaves under ``"tm"``; the
 mask tree mirrors it, so each layer's mask slice hands its ``"tm"``
 subtree to both mixers. Taps come back stacked on L per tap name, as the
-transformer's do. Where the reference scans over layers, the port loops.
-
-Training this family comes with its own slice (ROADMAP A1): ``forward``
-takes no per-layer activation checkpoint (``cfg.remat``). The cache's
+transformer's do. Where the reference scans over layers, the port loops
+(``transformer.layer_loop``); with ``cfg.remat`` under autograd each
+layer (time-mix plus channel-mix) runs under ``torch.utils.checkpoint``,
+the reference's per-layer ``jax.checkpoint``. The cache's
 clock ``t`` is a host int (the fixed-batch path); continuous batching is
 refused for this family, as in the reference
 (``serve.engine.ServeEngine.supports_continuous``).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -24,7 +25,7 @@ import torch
 from . import common
 from . import rwkv6
 from .transformer import (_apply_norm, _index, _norm_params, _stack,
-                          _TapStack, ce_loss, lm_head)
+                          _TapStack, ce_loss, layer_loop, lm_head, remat_on)
 
 
 class RWKVDecodeCache(NamedTuple):
@@ -78,6 +79,10 @@ def rwkv_layer(p, x, cfg, *, masks=None, taps=None, cache=None):
     return x + f, rwkv6.RWKVCache(s=s_fin, x_tm=x_tm_last, x_cm=x_cm_last)
 
 
+def _body(p, x, *, cfg, masks=None, taps=None):
+    return rwkv_layer(p, x, cfg, masks=masks, taps=taps)[0], None
+
+
 def _embed(params, tokens, cfg):
     x = torch.nn.functional.embedding(tokens, params["embed"])
     return _apply_norm(params["ln_in"], x, cfg)
@@ -93,15 +98,14 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     x = _embed(params, batch["tokens"], cfg)
     m_layers = None if masks is None else masks["layers"]
     stacked = _TapStack((cfg.n_layers,)) if want_taps else None
-    for i in range(cfg.n_layers):
-        taps = common.Taps(tap_policy) if want_taps else None
-        x, _ = rwkv_layer(_index(params["layers"], i), x, cfg,
-                          masks=_index(m_layers, i), taps=taps)
-        if want_taps:
-            stacked.put((i,), taps.entries)
+    aux = torch.zeros((), device=x.device)
+    x, aux = layer_loop(functools.partial(_body, cfg=cfg), params["layers"],
+                        x, range(cfg.n_layers), m_layers, aux,
+                        remat=remat_on(cfg, want_taps), taps=stacked,
+                        tap_policy=tap_policy)
     x = _apply_norm(params["ln_f"], x, cfg)
     taps = stacked.tree if want_taps else {}
-    return x, taps, torch.zeros((), device=x.device)
+    return x, taps, aux
 
 
 def loss_fn(params, batch, cfg, *, masks=None, want_taps=False,

@@ -13,9 +13,10 @@ L copies of the block's Grams. A ``TapPolicy`` that skips a shared tap
 leaves no entry for it, as in the reference.
 
 Taps come back as ``{"shared": {name: entry}, "mamba": {name: (L, ...)
-stacked entry}}``. Where the reference scans over layers, the port loops.
-Training the hybrid comes with its own slice (ROADMAP A1): ``forward``
-takes no per-layer activation checkpoint (``cfg.remat``).
+stacked entry}}``. Where the reference scans over layers, the port loops;
+with ``cfg.remat`` under autograd each layer (the shared block where it
+runs, then the Mamba2 layer) runs under ``torch.utils.checkpoint``, the
+reference's per-layer ``jax.checkpoint`` of its scan body.
 
 Serving: Mamba states are O(1) a sequence; the shared block keeps one KV
 cache per invocation site. The cache's clock ``t`` is a host int (the
@@ -28,13 +29,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as attn
 from . import common
 from . import mamba2
 from . import mlp as mlp_lib
 from .transformer import (_apply_norm, _index, _norm_params, _stack,
-                          _TapStack, ce_loss, lm_head)
+                          _TapStack, ce_loss, lm_head, remat_on)
 
 
 class ZambaCache(NamedTuple):
@@ -107,6 +109,16 @@ def mamba_layer(p, x, cfg, *, masks=None, taps=None):
     return x + mamba2.mamba_block(p["mamba"], h, cfg, masks=mm, taps=taps)
 
 
+def _layer(lp, sp, x, x0, positions, cfg, *, site: bool, masks=None,
+           m_shared=None, taps=None, shared_taps=None):
+    """One backbone layer: the shared block first at a site, then the
+    Mamba2 layer."""
+    if site:
+        x = shared_block(sp, x, x0, positions, cfg, masks=m_shared,
+                         taps=shared_taps)
+    return mamba_layer(lp, x, cfg, masks=masks, taps=taps)
+
+
 def _masks(masks):
     if masks is None:
         return None, None
@@ -123,7 +135,8 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
 
     Returns (hidden (B, S, D), taps, aux = 0). ``taps`` is empty unless
     ``want_taps``; then the shared block's entries are summed over its
-    sites and the mamba entries stacked on L.
+    sites and the mamba entries stacked on L. With ``cfg.remat`` and
+    autograd on (no taps), each layer runs under ``torch.utils.checkpoint``.
     """
     tokens = batch["tokens"]
     x = torch.nn.functional.embedding(tokens, params["embed"])
@@ -132,13 +145,18 @@ def forward(params, batch, cfg, *, masks=None, want_taps=False,
     m_layers, m_shared = _masks(masks)
     shared_taps = common.Taps(tap_policy) if want_taps else None
     stacked = _TapStack((cfg.n_layers,)) if want_taps else None
+    remat = remat_on(cfg, want_taps)
     for i in range(cfg.n_layers):
-        if i % cfg.shared_attn_every == 0:
-            x = shared_block(params["shared"], x, x0, positions, cfg,
-                             masks=m_shared, taps=shared_taps)
+        kw = dict(site=i % cfg.shared_attn_every == 0,
+                  masks=_index(m_layers, i), m_shared=m_shared)
+        args = (_index(params["layers"], i), params["shared"], x, x0,
+                positions, cfg)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_layer, *args, **kw,
+                                                  use_reentrant=False)
+            continue
         taps = common.Taps(tap_policy) if want_taps else None
-        x = mamba_layer(_index(params["layers"], i), x, cfg,
-                        masks=_index(m_layers, i), taps=taps)
+        x = _layer(*args, **kw, taps=taps, shared_taps=shared_taps)
         if want_taps:
             stacked.put((i,), taps.entries)
     x = _apply_norm(params["ln_f"], x, cfg)

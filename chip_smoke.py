@@ -95,6 +95,31 @@ and its time:
    more rows scored with it and fewer at that ``eps``; and on 256 rows
    the kernel path's masks equal the plain chunked search and commit on
    the card.
+4d. mesh prune (run last, after 9v, so that a process group and two
+   spawned ranks come after every profiled phase; phase 4's model and
+   batches made again from seed 0, phase 5's Grams made again and held to
+   them by digest, phase 4's masks digest and phase 5's candidate run on
+   w_down kept from then): (a) this process as a one-rank NCCL world
+   on a file:// store, the (1, 1) ("data", "model") host mesh:
+   ``prune_model(mesh=)`` at PerRow(0.6) from phase 5's Grams gives phase
+   4's masks digest and at 2:4 the single-device run's digest (every group
+   rows-sharded); ``accumulate_stats(mesh=)`` the single-device Grams
+   within the Gram tolerance; ``refine_rows_sharded`` with the candidate
+   commit on layer 0's w_down phase 5's candidate run's masks and losses
+   bitwise; its Gram, swap_topk and swap_commit launches those of phases
+   4 and 5. (b) MESH_RANKS spawned ranks sharing the card over gloo (NCCL
+   refuses two ranks on one device; the collectives stage CUDA tensors
+   through the host), the (2, 1) mesh, each rank: the single-device Grams
+   made again, held to phase 5's by digest (2.4 GB, past the write budget
+   as a file); calibration of the first MESH_CALIB_BATCHES batches split
+   over "data" within the Gram tolerance of the single-device Grams of
+   those batches; ``prune_model(mesh=)`` PerRow(0.6) from the
+   single-device Grams: phase 4's masks digest; ``refine_g_sharded`` on
+   w_down's first MESH_G_ROWS rows (its full 14336 columns split over the
+   two ranks) at k = 1 and 8, t_max = T_MAX: masks and losses bitwise the
+   single-device refine's; each rank's launches exactly phase 4's Gram
+   launches a batch times MESH_CALIB_BATCHES, and phase 4's swap_topk.
+   Prints each run's time beside phase 4's and the card line.
 6. serve path — the same model and params: PerRow(0.6) masks from phase
    4 and Wanda 2:4 masks (``prune_model(method="none")``, same
    calibration). ``ServeEngine`` for dense, masked (both mask sets),
@@ -402,7 +427,8 @@ and its time:
    at T = 40 and gathered PerRow(0.6) at T = 4, their launches phases
    6m's, 6mc's and 9m's; the zamba and rwkv phases' Gram, swap_topk,
    swap_commit and spmm launches among them, and those of the
-   cross-attention phases), the card line, and last
+   cross-attention phases and of phase 4d's mesh runs: its Grams,
+   swap_topk and swap_commit), the card line, and last
    {"ok": true, "device": ...}.
 
 Where the main path's device time goes is measured apart from this
@@ -4294,6 +4320,270 @@ def family_train_path(row: dict, smi: str, *, exported: list, base=None,
     return totals
 
 
+MESH_RANKS = 2            # phase 4d (b): ranks sharing the one card over gloo
+MESH_CALIB_BATCHES = 1    # 4d (b): calibration batches split over "data"
+MESH_G_ROWS = 32          # 4d (b): w_down rows through the Gram-sharded refiner
+MESH_JOIN_S = 300         # 4d (b): the ranks' time limit
+
+
+def gram_gap(got: dict, want: dict, tokens: int) -> float:
+    """The largest |G - G'| / max|G'| over two tap trees' Gram leaves, held
+    to the Gram's tolerance at ``tokens`` summed tokens (1e-5 of max|G| at
+    T <= 512, growing as sqrt(T / 512) past it)."""
+    import torch
+
+    worst = 0.0
+    for k in sorted(want):
+        if isinstance(want[k], dict):
+            worst = max(worst, gram_gap(got[k], want[k], tokens))
+        elif k == "g":
+            ref = want[k].float()
+            gap = float((got[k].float() - ref).abs().max() / ref.abs().max())
+            worst = max(worst, gap)
+    tol = 1e-5 * max(1.0, tokens / 512) ** 0.5
+    require(worst <= tol, f"mesh Grams off by {worst:.3g} of max|G| "
+                          f"(tolerance {tol:.3g})")
+    return worst
+
+
+def mesh_one_rank(api, params, batches, taps, pattern, digest60: str,
+                  cand, store: Path, device: str = "cuda") -> dict:
+    """Phase 4d (a): this process as a one-rank NCCL world on a file://
+    store, the (1, 1) host mesh. prune_model(mesh=) at PerRow(0.6) from
+    phase 4's Grams must give phase 4's masks (digest) and at 2:4 the
+    single-device masks; accumulate_stats(mesh=) the single-device Grams;
+    the rows-sharded refiner with the candidate commit (swap_commit) on
+    layer 0's w_down phase 5's candidate run (``cand``: its mask and
+    losses on the host), bitwise. Returns the launches of the mesh runs and
+    their times."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import pruning
+    from repro_torch.core import masks
+    from repro_torch.core.warmstart import warmstart_mask
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.pruning import distributed
+
+    mesh_lib.init_distributed(device, init_method=f"file://{store}",
+                              rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        log(f"   (a) {mesh}, backend {dist.get_backend()}")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rep = pruning.prune_model(api, params, None, pattern, t_max=T_MAX,
+                                  taps=taps, mesh=mesh)
+        sync(device == "cuda")
+        t60 = time.perf_counter() - t0
+        paths = {g.engine_path for g in rep.plan.groups}
+        got = digest(mask_leaves(rep.masks))
+        require(paths == {"rows-sharded"}, f"4d (a) engine paths {paths}")
+        require(got == digest60, f"4d (a): mesh PerRow(0.6) masks {got}, "
+                                 f"phase 4's {digest60}")
+        log(f"   (a) prune_model(mesh) PerRow(0.6): {t60:.2f} s (phase 4's "
+            f"single-device run above), masks digest {got} == phase 4's")
+        nm = masks.NM(2, 4)
+        t0 = time.perf_counter()
+        rep24 = pruning.prune_model(api, params, None, nm, t_max=T_MAX,
+                                    taps=taps, mesh=mesh)
+        sync(device == "cuda")
+        t24 = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        one = pruning.prune_model(api, params, None, nm, t_max=T_MAX,
+                                  taps=taps)
+        d24, want24 = (digest(mask_leaves(r.masks)) for r in (rep24, one))
+        require(d24 == want24, f"4d (a): mesh 2:4 masks {d24}, single "
+                               f"device {want24}")
+        log(f"   (a) prune_model(mesh) 2:4: {t24:.2f} s, masks digest {d24}"
+            f" == the single-device run's")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st = pruning.accumulate_stats(api, params, batches, mesh=mesh)
+        sync(device == "cuda")
+        t_cal = time.perf_counter() - t0
+        gap = gram_gap(st.full_taps(), taps, 512 * len(batches))
+        log(f"   (a) accumulate_stats(mesh): {t_cal:.2f} s, Grams within "
+            f"{gap:.3g} of max|G| of phase 5's")
+        del st
+        W = params["layers"]["mlp"]["w_down"][0]
+        G = taps["w_down"]["g"][0]
+        m0 = warmstart_mask(W.float(), G, pattern, "wanda")
+        t0 = time.perf_counter()
+        m, _, l1 = distributed.refine_rows_sharded(
+            W, G, m0, pattern, mesh, t_max=T_MAX, k_swaps=8,
+            commit_mode="candidates")
+        sync(device == "cuda")
+        t_c = time.perf_counter() - t0
+        require(torch.equal(m.cpu(), cand[0])
+                and torch.equal(l1.cpu(), cand[1]),
+                "4d (a): the rows-sharded candidate refine differs from "
+                "phase 5's")
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        log(f"   (a) refine_rows_sharded(candidates) on w_down: {t_c:.2f} s,"
+            f" masks and losses bitwise phase 5's candidate run")
+        log(f"   (a) launches {launches}")
+        return {"launches": launches, "prune_s": t60}
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank: int, root: str, device: str = "cuda",
+              tiny: bool = False) -> None:
+    """Phase 4d (b), one of MESH_RANKS processes sharing the card over gloo
+    (NCCL refuses two ranks on one device): calibration split over "data"
+    against the single-device Grams, prune_model(mesh=) at PerRow(0.6)
+    from the single-device Grams, and the Gram-sharded refiner on w_down's
+    first rows at k = 1 and 8 against the single-device refine. Results
+    (or the traceback) to ``root/rank<r>.json``."""
+    out = Path(root) / f"rank{rank}.json"
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch import configs, models, pruning
+        from repro_torch.core import masks, sparseswaps
+        from repro_torch.core.warmstart import warmstart_mask
+        from repro_torch.kernels import ops
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.pruning import distributed
+
+        res = {}
+        mesh_lib.init_distributed(device, backend="gloo",
+                                  init_method=f"file://{root}/store",
+                                  rank=rank, world_size=MESH_RANKS)
+        mesh = mesh_lib.make_host_mesh()
+        dev = torch.device(device)
+        cfg = (configs.get_tiny("llama31-8b") if tiny
+               else configs.get("llama31-8b").replace(n_layers=2))
+        api = models.build(cfg)
+        params = api.init(seed=0, device=dev)
+        batches = list(pruning.calibration_batches(
+            cfg, n_samples=16, seq_len=128, batch_size=4, seed=0,
+            device=dev))
+        pattern = masks.PerRow(0.6)
+        # the single-device Grams, made here as phase 4 made them (their
+        # 2.4 GB would not fit the run's write budget as a file): held to
+        # phase 5's by digest
+        taps = pruning.accumulate(api, params, batches)
+        res["taps_digest"] = digest(_leaves_of(taps))
+        first = pruning.accumulate(api, params, batches[:MESH_CALIB_BATCHES])
+        ops.reset_launches()
+        sync(device == "cuda")
+        t0 = time.perf_counter()
+        st = pruning.accumulate_stats(api, params,
+                                      batches[:MESH_CALIB_BATCHES],
+                                      mesh=mesh)
+        sync(device == "cuda")
+        res["calib_s"] = time.perf_counter() - t0
+        res["gram_gap"] = gram_gap(st.full_taps(), first,
+                                   512 * MESH_CALIB_BATCHES)
+        del st, first
+        sync(device == "cuda")
+        t0 = time.perf_counter()
+        rep = pruning.prune_model(api, params, None, pattern, t_max=T_MAX,
+                                  taps=taps, mesh=mesh)
+        sync(device == "cuda")
+        res["prune_s"] = time.perf_counter() - t0
+        res["launches"] = dict(ops.LAUNCHES)
+        res["digest60"] = digest(mask_leaves(rep.masks))
+        del rep
+        W = params["layers"]["mlp"]["w_down"][0][:MESH_G_ROWS]
+        G = taps["w_down"]["g"][0]
+        m0 = warmstart_mask(W.float(), G, pattern, "wanda")
+        for k in (1, 8):
+            sync(device == "cuda")
+            t0 = time.perf_counter()
+            m, _, l1 = distributed.refine_g_sharded(W, G, m0, pattern, mesh,
+                                                    t_max=T_MAX, k_swaps=k)
+            sync(device == "cuda")
+            t_g = time.perf_counter() - t0
+            one = sparseswaps.refine(W, G, m0, pattern, t_max=T_MAX,
+                                     k_swaps=k)
+            res[f"gram_k{k}"] = {
+                "s": t_g, "swaps": int((m - m0).abs().sum()) // 2,
+                "masks_equal": bool(torch.equal(m, one.mask)),
+                "losses_equal": bool(torch.equal(l1, one.loss_final)),
+                "digest": digest([m > 0.5])}
+        out.write_text(json.dumps(res))
+        torch.distributed.destroy_process_group()
+    except Exception:
+        import traceback
+
+        # the traceback for the parent's failure message, then raised
+        out.with_suffix(".err").write_text(traceback.format_exc())
+        raise
+
+
+def _leaves_of(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    return [tree]
+
+
+def mesh_two_ranks(digest60: str, taps_digest: str, device: str = "cuda",
+                   tiny: bool = False) -> dict:
+    """Phase 4d (b): MESH_RANKS spawned ranks on the card over gloo, (2, 1)
+    ("data", "model"). Each must find the single-device Grams of phase 5,
+    calibration Grams within tolerance, phase 4's masks, and the
+    Gram-sharded refine bitwise the single-device one at k = 1 and 8.
+    Returns the ranks' launches summed and their times."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_4d_") as root:
+        procs = [ctx.Process(target=mesh_rank, args=(r, root, device, tiny))
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, MESH_JOIN_S - (time.perf_counter() - t0)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        wall = time.perf_counter() - t0
+        errs = [Path(root, f"rank{r}.err") for r in range(MESH_RANKS)]
+        errs = [e.read_text() for e in errs if e.exists()]
+        codes = [p.exitcode for p in procs]
+        require(not errs and codes == [0] * MESH_RANKS,
+                f"4d (b): exit codes {codes}\n" + "\n".join(errs))
+        res = [json.loads(Path(root, f"rank{r}.json").read_text())
+               for r in range(MESH_RANKS)]
+    for r, x in enumerate(res):
+        require(x["taps_digest"] == taps_digest,
+                f"4d (b) rank {r}: its single-device Grams are not phase "
+                f"5's ({x['taps_digest']} vs {taps_digest})")
+        require(x["digest60"] == digest60,
+                f"4d (b) rank {r}: mesh PerRow(0.6) masks {x['digest60']}, "
+                f"phase 4's {digest60}")
+        for k in (1, 8):
+            g = x[f"gram_k{k}"]
+            require(g["masks_equal"] and g["losses_equal"] and g["swaps"],
+                    f"4d (b) rank {r}: Gram-sharded refine at k = {k}: {g}")
+        log(f"   (b) rank {r}: calibration over data ({MESH_CALIB_BATCHES} "
+            f"batches) {x['calib_s']:.2f} s, Grams within "
+            f"{x['gram_gap']:.3g} of max|G|; prune_model(mesh) "
+            f"{x['prune_s']:.2f} s, masks digest {x['digest60']} == phase "
+            f"4's; Gram-sharded w_down[:{MESH_G_ROWS}] k=1 "
+            f"{x['gram_k1']['s']:.2f} s ({x['gram_k1']['swaps']} swaps, "
+            f"digest {x['gram_k1']['digest']}), k=8 {x['gram_k8']['s']:.2f} "
+            f"s ({x['gram_k8']['swaps']} swaps, digest "
+            f"{x['gram_k8']['digest']}), bitwise the single-device refine; "
+            f"launches {x['launches']}")
+    log(f"   (b) {MESH_RANKS} ranks over gloo: {wall:.2f} s wall, spawn "
+        f"included")
+    launches = {k: sum(x["launches"][k] for x in res)
+                for k in res[0]["launches"]}
+    return {"launches": launches, "per_rank": [x["launches"] for x in res],
+            "prune_s": max(x["prune_s"] for x in res)}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -4393,7 +4683,8 @@ def main() -> int:
         log(f"   dense  ppl {dense['perplexity']:.4f} acc {dense['accuracy']:.4f}")
         log(f"   pruned ppl {pruned['perplexity']:.4f} acc {pruned['accuracy']:.4f}")
         log(f"   launches {main_launches}")
-        log(f"   masks digest {digest(mask_leaves(report.masks))}")
+        digest60 = digest(mask_leaves(report.masks))
+        log(f"   masks digest {digest60}")
         check_pruned(api, params, report, main_launches, len(batches),
                      pattern, dense, pruned)
 
@@ -4480,7 +4771,14 @@ def main() -> int:
                 "kernel and plain candidate refinement disagree (256 rows)")
         log(f"   256 rows: kernel path == plain chunked path "
             f"({int(kern.swaps.sum())} swaps, {kern.iters} passes)")
-        del taps, G, W
+        del G, W
+
+    # phase 4d, run last, holds the mesh path to these: phase 4's masks
+    # digest, phase 5's Grams (by digest) and its candidate run on w_down
+    taps_digest = digest(_leaves_of(taps))
+    cand, cand_l = runs[0.0, 0][0], runs[0.0, 0][3]
+    cand = (cand.mask.cpu(), cand.loss_final.cpu())
+    del taps
 
     with Phase("6 serve path: dense / masked / nm24 / gathered"):
         from repro_torch.data import synthetic
@@ -4571,6 +4869,49 @@ def main() -> int:
             fam_rec.append(family_train_path(row, smi, exported=exported))
             log(f"   launches {fam_rec[-1]}")
     log(f"   9z / 9r / 9e exports: {sum(exported) / 2**30:.2f} GiB written")
+    torch.cuda.empty_cache()
+    # last: a process group (NCCL) and two spawned ranks in a long run
+    # come after every profiled phase
+    with Phase("4d mesh prune: one rank over NCCL, two ranks on the card "
+               "over gloo"):
+        import tempfile
+
+        api = models.build(cfg)
+        params = api.init(seed=0, device=dev)      # phase 4's params
+        batches = list(pruning.calibration_batches(
+            cfg, n_samples=16, seq_len=128, batch_size=4, seed=0,
+            device=dev))
+        taps = pruning.accumulate(api, params, batches)
+        require(digest(_leaves_of(taps)) == taps_digest,
+                "4d: phase 5's Grams were not made again bitwise")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_4d_") as tmp:
+            mesh_one = mesh_one_rank(api, params, batches, taps, pattern,
+                                     digest60, cand, Path(tmp) / "store")
+        n_batches = len(batches)
+        del api, params, batches, taps
+        torch.cuda.empty_cache()
+        mesh_two = mesh_two_ranks(digest60, taps_digest)
+        one_l = mesh_one["launches"]
+        require(one_l["gram_xtx_bf16"] == main_launches["gram_xtx_bf16"]
+                and one_l["swap_topk"] == (main_launches["swap_topk"]
+                                           + cand_l["swap_topk"])
+                and one_l["swap_commit"] == cand_l["swap_commit"],
+                f"4d (a) launches {one_l}: not phase 4's Grams and "
+                f"swap_topk with phase 5's candidate run's swap_topk and "
+                f"swap_commit")
+        # each rank runs the forward on its half of every batch (one Gram
+        # a tap and batch) and refines its half of every instance's rows
+        # (one swap_topk a pass, as phase 4's single-device run)
+        per_rank = {"gram_xtx_bf16": main_launches["gram_xtx_bf16"]
+                    * MESH_CALIB_BATCHES // n_batches,
+                    "swap_topk": main_launches["swap_topk"]}
+        for r, got in enumerate(mesh_two["per_rank"]):
+            require(all(got[k] == v for k, v in per_rank.items()),
+                    f"4d (b) rank {r} launches {got}, want {per_rank}")
+        log(f"   prune_model PerRow(0.6): one device {t_prune:.2f} s "
+            f"(phase 4), a one-rank mesh {mesh_one['prune_s']:.2f} s, "
+            f"{MESH_RANKS} ranks sharing the card "
+            f"{mesh_two['prune_s']:.2f} s (the slower rank); {smi}")
 
     runs = [(main_launches, serve_launches)] + [
         (o["prune"], o.get("serve"))
@@ -4580,6 +4921,9 @@ def main() -> int:
     # the continuous runs (6c, 6mc) and the served exports (9, 9m)
     later = [cont_launches, rec_launches, moe_rec, *fam_rec] + [
         o["continuous"] for o in moe.values() if "continuous" in o]
+    # phase 4d's mesh runs, their Grams on both input paths
+    later += [dict(x, gram_xtx=x["gram_xtx"] + x["gram_xtx_bf16"])
+              for x in (mesh_one["launches"], mesh_two["launches"])]
     more = lambda k: sum(x.get(k, 0) for x in later)  # noqa: E731
     launches = {"gram_xtx": sum(p["gram_xtx_bf16"] + p["gram_xtx"]
                                 for p, _ in runs) + more("gram_xtx"),

@@ -13,7 +13,7 @@ included. Of the execution knobs the port keeps the two training reads, ``remat`
 ``grad_accum`` (microbatches per train step), and the MoE block's two:
 ``moe_group_size`` (dispatch-group tokens) and ``moe_parallelism``, where
 on one device "tp" and "local" run the same code and "ep" (experts
-sharded over devices) raises (ROADMAP A5).
+sharded over devices) raises (ROADMAP A5, item 2).
 """
 from __future__ import annotations
 

@@ -7,7 +7,9 @@ activations laid out (..., tokens, d_in).
 * per-feature activation norms ‖X_{j,:}‖₂ (the Wanda scale) are
   sqrt(diag(G)), so no extra state is needed;
 * ``GramState`` adds the feature means/variances DSnoT needs, merged with
-  the Chan et al. parallel-variance update.
+  the Chan et al. parallel-variance update;
+* ``psum_gram`` merges per-rank partial states over a process group
+  (data-sharded calibration).
 """
 from __future__ import annotations
 
@@ -83,3 +85,21 @@ def moments_from_state(state: GramState) -> tuple:
     """Inverse of ``state_from_moments``: (g, s, n) raw sums."""
     n = state.count
     return state.G, state.mean * n, n[..., 0]
+
+
+def psum_gram(state: GramState, group) -> GramState:
+    """Combine per-rank partial Gram statistics over ``group`` (a
+    ``dist.groups.Group``: data-sharded calibration).
+
+    G, the count, Σx and Σx² are additive, so they are summed and the
+    merged mean and m2 are derived again from the sums, as the reference
+    does."""
+    sum_x = state.mean * state.count
+    sum_x2 = state.m2 + state.count * state.mean ** 2          # = Σ x²
+    G = group.all_reduce(state.G)
+    count = group.all_reduce(state.count)
+    sum_x = group.all_reduce(sum_x)
+    sum_x2 = group.all_reduce(sum_x2)
+    mean = sum_x / torch.clamp(count, min=1.0)
+    m2 = sum_x2 - count * mean ** 2
+    return GramState(G=G, count=count, mean=mean, m2=m2)

@@ -42,17 +42,34 @@ batch, sequence length and seed; the flag overrides a recipe's
 ``--calib-ckpt-every k`` as its checkpoint period. The recovered model
 is evaluated, ``report.json`` gains ``recovered`` and ``recovery``, and
 its changed leaves go to ``D/weights``, so ``launch.serve --masks-from
-D`` serves the recovered model. ``--mesh`` is not ported (ROADMAP A5).
+D`` serves the recovered model.
+
+``--mesh host`` (every rank of the world) or ``--mesh production``
+(16 x 16, 256 ranks) runs under ``torchrun``:
+
+    torchrun --standalone --nproc-per-node N -m repro_torch.launch.prune \
+        --arch llama31-8b --mesh host ...
+
+Calibration batches split over the data axes where they divide, the
+sparseswaps groups refine over the mesh (``pruning.distributed``: rows
+split, or G's columns past the replication budget; the masks bitwise a
+single device's), and only rank 0 prints the report and writes
+``--out-dir``. One process per card runs NCCL; ``--device cpu`` runs gloo.
+Recovery on a mesh is not ported (ROADMAP A5) and raises before any work.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 from pathlib import Path
 
+import torch.distributed as dist
+
 from repro_torch import ckpt, configs, models, pruning
 from repro_torch.device import disable_tf32, resolve_device
+from repro_torch.dist import groups as groups_lib
 from repro_torch.pruning.executor import changed_leaves
 from repro_torch.train import steps as steps_lib
 
@@ -77,6 +94,7 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
           calib_stats: str = "full", device="cuda", n_layers: int | None = None,
           from_ckpt: str | None = None, recover: str | None = None,
           recover_steps: int = 50, recover_lr: float = 1e-3,
+          mesh: str | None = None,
           callback: pruning.PruneCallback | None = None,
           verbose: bool = True) -> dict:
     """The launcher as a function. ``n_layers`` cuts the depth (the
@@ -88,82 +106,114 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
     "norms_biases", "all_masked", "lora") runs post-prune recovery for
     ``recover_steps`` steps at ``recover_lr`` on the calibration stream,
     checkpointed every ``calib_ckpt_every`` steps; it overrides a recipe's
-    ``recover``. Returns the report, the evaluations, the plan, the
-    calibration statistics and the executor (for ``export_packed``), and
-    with recovery its result and evaluation."""
+    ``recover``. ``mesh``: None (one device), "host" (every rank of the
+    world) or "production" (16 x 16); the process group comes from
+    torchrun's environment unless one exists already (and is then left
+    for its owner to destroy). Returns the report, the evaluations, the
+    plan, the calibration statistics and the executor (for
+    ``export_packed``), and with recovery its result and evaluation."""
     dev = resolve_device(device)
     disable_tf32()
-    cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
-    if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
-    api = models.build(cfg)
-    rec = _build_recipe(pattern, recipe=recipe, warmstart=warmstart,
-                        method=method, t_max=t_max, k_swaps=k_swaps)
-    if recover is not None:
-        # the flag wins over a recipe's spec; the calibration stream's
-        # geometry and seed are the pruning run's own
-        rec = dataclasses.replace(rec, recover=pruning.RecoverSpec(
-            select=recover, steps=recover_steps, lr=recover_lr,
-            batch_size=calib_batch, seq_len=calib_seq, seed=seed))
+    with _mesh_of(mesh, dev) as mesh_obj:
+        if not groups_lib.is_main(mesh_obj):      # rank 0 alone prints
+            verbose, callback = False, None
+        cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
+        if n_layers is not None:
+            cfg = cfg.replace(n_layers=n_layers)
+        api = models.build(cfg)
+        rec = _build_recipe(pattern, recipe=recipe, warmstart=warmstart,
+                            method=method, t_max=t_max, k_swaps=k_swaps)
+        if recover is not None:
+            # the flag wins over a recipe's spec; the calibration stream's
+            # geometry and seed are the pruning run's own
+            rec = dataclasses.replace(rec, recover=pruning.RecoverSpec(
+                select=recover, steps=recover_steps, lr=recover_lr,
+                batch_size=calib_batch, seq_len=calib_seq, seed=seed))
 
-    if plan_only:
-        # shapes only: no weight materialized, no FLOP spent
-        plan = pruning.plan_pruning(api, api.init(seed=seed, device="meta"),
-                                    rec, compact_every=compact_every)
-        print(plan.describe())
-        return {"plan": plan}
+        if plan_only:
+            # shapes only: no weight materialized, no FLOP spent
+            plan = pruning.plan_pruning(
+                api, api.init(seed=seed, device="meta"), rec, mesh=mesh_obj,
+                compact_every=compact_every)
+            print(plan.describe())
+            return {"plan": plan}
 
-    params = (steps_lib.restore_params(api, from_ckpt, device=dev)
-              if from_ckpt else api.init(seed=seed, device=dev))
-    plan = pruning.plan_pruning(api, params, rec, compact_every=compact_every)
-    if verbose:
-        print(plan.describe())
-    batches = list(pruning.calibration_batches(
-        cfg, n_samples=n_calib, seq_len=calib_seq, batch_size=calib_batch,
-        seed=seed, device=dev))
-    # recipe-aware calibration driven by the executor: skip-rule taps never
-    # accumulate; "minimal" drops dsnot-only sites to feature moments
-    executor = pruning.PruneExecutor(
-        api, params, plan,
-        calib_spec=plan.calib_spec(minimal=(calib_stats == "minimal")),
-        calib_ckpt_every=calib_ckpt_every,
-        ckpt_dir=Path(out_dir) / "prune_ckpt" if out_dir else None,
-        callback=callback if callback is not None
-        else (pruning.PrintProgress() if verbose else None))
-    report = executor.run(batches)
-    eval_params = (report.updated_params if report.updated_params is not None
-                   else params)
-    dense_eval = pruning.evaluate(api, params, seed=seed, device=dev)
-    sparse_eval = pruning.evaluate(api, eval_params, masks=report.masks,
-                                   seed=seed, device=dev)
-    if verbose:
-        print(report.summary())
-        print(f"dense : ppl {dense_eval['perplexity']:.2f}  "
-              f"acc {100*dense_eval['accuracy']:.2f}%")
-        print(f"pruned: ppl {sparse_eval['perplexity']:.2f}  "
-              f"acc {100*sparse_eval['accuracy']:.2f}%")
-    result = {"report": report, "dense": dense_eval, "pruned": sparse_eval,
-              "plan": plan, "stats": executor.stats, "executor": executor}
-    if plan.recover is not None:
-        rec_res = executor.recover(checkpoint_every=calib_ckpt_every,
-                                   verbose=verbose)
-        result["recover_result"] = rec_res
-        result["recovered"] = pruning.evaluate(
-            api, report.updated_params, masks=report.masks, seed=seed,
-            device=dev)
+        params = (steps_lib.restore_params(api, from_ckpt, device=dev)
+                  if from_ckpt else api.init(seed=seed, device=dev))
+        plan = pruning.plan_pruning(api, params, rec, mesh=mesh_obj,
+                                    compact_every=compact_every)
         if verbose:
-            rv = result["recovered"]
-            print(f"recovered ({plan.recover.select}, "
-                  f"{rec_res.steps_run + rec_res.start_step} steps, "
-                  f"{100*rec_res.trainable_frac:.2f}% of params): "
-                  f"ppl {rv['perplexity']:.2f}  "
-                  f"acc {100*rv['accuracy']:.2f}%")
-    if out_dir:
-        write_out_dir(Path(out_dir), arch, rec, params, report, dense_eval,
-                      sparse_eval, recovered=result.get("recovered"),
-                      recover_result=result.get("recover_result"))
-    return result
+            print(plan.describe())
+        batches = list(pruning.calibration_batches(
+            cfg, n_samples=n_calib, seq_len=calib_seq,
+            batch_size=calib_batch, seed=seed, device=dev))
+        # recipe-aware calibration driven by the executor: skip-rule taps
+        # never accumulate; "minimal" drops dsnot-only sites to moments;
+        # on a mesh, batches split over its data axes
+        executor = pruning.PruneExecutor(
+            api, params, plan,
+            calib_spec=plan.calib_spec(minimal=(calib_stats == "minimal")),
+            calib_ckpt_every=calib_ckpt_every,
+            ckpt_dir=Path(out_dir) / "prune_ckpt" if out_dir else None,
+            callback=callback if callback is not None
+            else (pruning.PrintProgress() if verbose else None))
+        report = executor.run(batches)
+        eval_params = (report.updated_params
+                       if report.updated_params is not None else params)
+        dense_eval = pruning.evaluate(api, params, seed=seed, device=dev)
+        sparse_eval = pruning.evaluate(api, eval_params, masks=report.masks,
+                                       seed=seed, device=dev)
+        if verbose:
+            print(report.summary())
+            print(f"dense : ppl {dense_eval['perplexity']:.2f}  "
+                  f"acc {100*dense_eval['accuracy']:.2f}%")
+            print(f"pruned: ppl {sparse_eval['perplexity']:.2f}  "
+                  f"acc {100*sparse_eval['accuracy']:.2f}%")
+        result = {"report": report, "dense": dense_eval,
+                  "pruned": sparse_eval, "plan": plan,
+                  "stats": executor.stats, "executor": executor}
+        if plan.recover is not None:
+            rec_res = executor.recover(checkpoint_every=calib_ckpt_every,
+                                       verbose=verbose)
+            result["recover_result"] = rec_res
+            result["recovered"] = pruning.evaluate(
+                api, report.updated_params, masks=report.masks, seed=seed,
+                device=dev)
+            if verbose:
+                rv = result["recovered"]
+                print(f"recovered ({plan.recover.select}, "
+                      f"{rec_res.steps_run + rec_res.start_step} steps, "
+                      f"{100*rec_res.trainable_frac:.2f}% of params): "
+                      f"ppl {rv['perplexity']:.2f}  "
+                      f"acc {100*rv['accuracy']:.2f}%")
+        if out_dir:
+            if groups_lib.is_main(mesh_obj):
+                write_out_dir(Path(out_dir), arch, rec, params, report,
+                              dense_eval, sparse_eval,
+                              recovered=result.get("recovered"),
+                              recover_result=result.get("recover_result"))
+            if mesh_obj is not None:
+                groups_lib.axis_group(mesh_obj,
+                                      groups_lib.all_axes(mesh_obj)).barrier()
+        return result
 
+
+@contextlib.contextmanager
+def _mesh_of(name: str | None, dev):
+    """The launcher's mesh (None without ``name``); a process group made
+    here is destroyed on the way out."""
+    if name is None:
+        yield None
+        return
+    from repro_torch.launch import mesh as mesh_lib
+
+    owned = mesh_lib.init_distributed(dev)
+    try:
+        yield (mesh_lib.make_production_mesh() if name == "production"
+               else mesh_lib.make_host_mesh())
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
 def write_out_dir(out: Path, arch: str, recipe, params, report,
                   dense_eval: dict, sparse_eval: dict, *,
@@ -248,6 +298,9 @@ def main(argv=None):
                     help="recovery AdamW steps over the calibration stream")
     ap.add_argument("--recover-lr", type=float, default=1e-3,
                     help="recovery peak learning rate (warmup-cosine)")
+    ap.add_argument("--mesh", default=None, choices=["host", "production"],
+                    help="refine over a mesh of the torchrun world "
+                         "(host: every rank; production: 16 x 16)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -259,7 +312,8 @@ def main(argv=None):
           calib_stats=args.calib_stats,
           calib_ckpt_every=args.calib_ckpt_every, device=args.device,
           from_ckpt=args.from_ckpt, recover=args.recover,
-          recover_steps=args.recover_steps, recover_lr=args.recover_lr)
+          recover_steps=args.recover_steps, recover_lr=args.recover_lr,
+          mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ heartbeat file under ``<ckpt-dir>/hb`` is pinged while it runs.
 
 prunes the trained model. It runs on ``--device cuda`` unless asked for
 the CPU, and raises when the card is missing; TF32 is off. The
-reference's mesh flags have no counterpart (ROADMAP A5).
+reference's mesh flags have no counterpart (ROADMAP A5, item 1).
 """
 from __future__ import annotations
 

@@ -23,7 +23,8 @@ runs ``models.encdec`` (batches carry ``src``), the hybrid family
 (zamba2-7b) ``models.zamba`` and rwkv6-1.6b ``models.rwkv_model``. The
 continuous scheduler refuses all but the plain decoder-only transformers
 (``ServeEngine.supports_continuous``), as the reference does. Rolling
-caches (the reference's long-context serving) wait for ROADMAP A5.
+caches (the reference's long-context serving) wait for ROADMAP A5, item
+3.
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ RoPE is applied at write time with absolute positions, so cached keys
 never need re-rotation. A sliding window (mixtral-8x7b's 4096) masks
 keys more than ``sliding_window - 1`` positions back in every path; the
 cache still holds every position (rolling caches, which the reference
-uses for long-context serving, wait for ROADMAP A5).
+uses for long-context serving, wait for ROADMAP A5, item 3).
 
 Cross-attention (the VLM's gated cross layers, the encoder-decoder's
 decoder): queries from the hidden states, keys and values from fixed

@@ -185,7 +185,7 @@ def moe_block(p, x: torch.Tensor, cfg, *, masks=None,
     if cfg.moe_parallelism == "ep":
         raise NotImplementedError(
             "expert-parallel MoE shards experts over devices; the port runs "
-            "one device (ROADMAP A5: distribution)")
+            "one device (ROADMAP A5, item 2: moe_parallelism='ep')")
     B, S, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     gs = (cfg.moe_group_size if cfg.moe_group_size

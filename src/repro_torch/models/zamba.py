@@ -21,7 +21,7 @@ reference's per-layer ``jax.checkpoint`` of its scan body.
 Serving: Mamba states are O(1) a sequence; the shared block keeps one KV
 cache per invocation site. The cache's clock ``t`` is a host int (the
 fixed-batch path). Rolling caches for long-context serving wait for
-ROADMAP A5; continuous batching is refused for this family, as in the
+ROADMAP A5, item 3; continuous batching is refused for this family, as in the
 reference (``serve.engine.ServeEngine.supports_continuous``).
 """
 from __future__ import annotations

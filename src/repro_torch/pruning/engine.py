@@ -13,12 +13,19 @@ Registered: ``none`` (warmstart only), ``sparseswaps`` (with active-row
 compaction under ``ctx.compact_every``), ``dsnot`` (runs off moments
 alone) and ``sparsegpt`` (mask + updated weights).
 ``refine_instance`` / ``refine_group_reference`` keep the per-instance
-loop the batched engine is held against. Mesh-sharded refinement is not
-ported yet (ROADMAP A5).
+loop the batched engine is held against.
+
+Mesh dispatch (``ctx.mesh``): the sparseswaps refiner routes each
+instance through ``distributed.refine_rows_sharded`` (rows over every
+mesh axis, G replicated). Unstructured sites whose fp32 Gram exceeds
+``ctx.gram_budget_bytes`` (granite-34b's and the VLM's w_down) take the
+column-sharded ``refine_g_sharded`` instead. Both give the single-device
+masks bitwise.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -29,9 +36,14 @@ from repro_torch.core.dsnot import _dsnot_rows, dsnot as _dsnot
 from repro_torch.core.sparsegpt import sparsegpt as _sparsegpt
 from repro_torch.core.warmstart import warmstart_mask
 
+from repro_torch.dist import groups as groups_lib
+
+from . import distributed
 from . import sites as sites_lib
 
 CHUNK = 512   # p-columns per step of the CPU chunked search
+# G replicated on every rank while its rows refine: at most 1 GiB of fp32
+DEFAULT_GRAM_BUDGET = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +52,15 @@ class RefineContext:
 
     ``k_swaps``: candidate swaps committed per search pass (None = auto,
     8). ``t_max`` bounds search PASSES. ``compact_every``: gather converged
-    rows out of the working set every S passes (None/0 = off). The search
-    runs the CUDA kernels for tensors on the card and the reference's
-    dense/chunked rule on the CPU.
+    rows out of the working set every S passes (None/0 = off; not on a
+    mesh). The search runs the CUDA kernels for tensors on the card and
+    the reference's dense/chunked rule on the CPU. ``mesh``: refine
+    sparseswaps groups over this mesh (``launch.mesh``);
+    ``gram_budget_bytes``: the largest fp32 Gram the rows regime
+    replicates. It picks the regime only: the Gram-sharded regime splits
+    the search's columns, but every rank still receives G whole and takes
+    the initial carry over all rows (ROADMAP A5 item 5), so it does not
+    bound a rank's peak.
     """
 
     warmstart: str = "wanda"
@@ -50,6 +68,8 @@ class RefineContext:
     eps: float = 0.0
     k_swaps: int | None = None
     compact_every: int | None = None
+    mesh: object = None
+    gram_budget_bytes: int = DEFAULT_GRAM_BUDGET
 
     def with_overrides(self, **overrides) -> "RefineContext":
         """Per-group context: replace only the knobs a recipe rule sets
@@ -147,7 +167,10 @@ def _refine_none(W, gram, pattern, ctx):
 
 @register("sparseswaps")
 def _refine_sparseswaps(W, gram, pattern, ctx):
-    """The paper's swap refinement (k-swap), per instance."""
+    """The paper's swap refinement (k-swap), per instance (or sharded
+    over the mesh: ``_refine_sparseswaps_sharded``)."""
+    if ctx.mesh is not None:
+        return _refine_sparseswaps_sharded(W, gram, pattern, ctx)
     N, R, d = W.shape
     m0 = _warmstart_batch(W, gram.G, pattern, ctx.warmstart)
     # auto budgets against N·R rows, as the reference's batched call does
@@ -211,6 +234,60 @@ def _refine_sparsegpt(W, gram, pattern, ctx):
                       for i in range(W.shape[0])])
     return GroupResult(masks=m1, loss_init=l0, loss_final=l1,
                        swaps=_no_swaps(W), new_weights=W1)
+
+
+# ---------------------------------------------------------------------------
+# mesh dispatch (sparseswaps only: the distributed refiners implement it)
+# ---------------------------------------------------------------------------
+
+def _sharded_regime(pattern, d_in: int, mesh, budget: int) -> str:
+    """"rows" unless G cannot be replicated, then "gram" (column-shard G).
+
+    N:M always refines rows-sharded: its swaps stay within a block, so
+    only G's block diagonal is read.
+    """
+    if pattern.block(d_in) is not None or d_in * d_in * 4 <= budget:
+        return "rows"
+    n = groups_lib.mesh_size(mesh)
+    if d_in % n:
+        warnings.warn(
+            f"Gram ({d_in}x{d_in} fp32) exceeds the per-device replication "
+            f"budget but d_in is not divisible by {n} devices — "
+            "column-sharded fallback unavailable, replicating G anyway")
+        return "rows"
+    return "gram"
+
+
+def _refine_sparseswaps_sharded(W, gram, pattern, ctx):
+    """Each instance from its own warmstart through the mesh's refiner;
+    every rank returns every row. No compaction here."""
+    N, R, d = W.shape
+    mesh = ctx.mesh
+    regime = _sharded_regime(pattern, d, mesh, ctx.gram_budget_bytes)
+    k = sparseswaps._pick_k(ctx.k_swaps, d, pattern.block(d))
+    outs, m0s = [], []
+    for i in range(N):
+        Wi = W[i].float()
+        Gi = gram.G[i]
+        m0 = warmstart_mask(Wi, Gi, pattern, ctx.warmstart)
+        if regime == "gram":
+            out = distributed.refine_g_sharded(
+                Wi, Gi, m0, pattern, mesh, t_max=ctx.t_max, eps=ctx.eps,
+                k_swaps=k)
+        else:
+            out = distributed.refine_rows_sharded(
+                Wi, Gi, m0, pattern, mesh, t_max=ctx.t_max, eps=ctx.eps,
+                chunk=CHUNK, k_swaps=k)
+        sparseswaps.record_search_passes(ctx.t_max, R)
+        outs.append(out)
+        m0s.append(m0)
+    stack = lambda j: torch.stack([o[j] for o in outs])
+    m = stack(0)
+    # the sharded loops do not count acceptances; each accepted swap flips
+    # two entries, so the net mask distance / 2 (a lower bound)
+    swaps = ((m - torch.stack(m0s)).abs().sum(2) / 2).to(torch.int64)
+    return GroupResult(masks=m, loss_init=stack(1), loss_final=stack(2),
+                       swaps=swaps)
 
 
 # ---------------------------------------------------------------------------

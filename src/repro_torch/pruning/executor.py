@@ -16,6 +16,12 @@ its 2-byte patterns) followed by the fp32 Gram (or, at the moments level,
 the Gram diagonal and the feature means). Each package resumes from the
 other's group checkpoints.
 
+On a mesh (``plan.mesh``) calibration shards over the data axes, the
+sparseswaps groups refine through the mesh's refiners and every rank
+ends with every mask; group checkpoints are written by rank 0 only, each
+write followed by a barrier, and read by every rank. Each group's Gram is
+gathered whole (from its "model" column blocks) when the group refines.
+
 Progress flows through a callback protocol (``PruneCallback``);
 ``PrintProgress`` prints one line per group. After ``run``, ``recover``
 trains the PERP selection on top of the run's weights (under
@@ -28,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch import ckpt
 from repro_torch.core import masks as masks_lib
+from repro_torch.dist import groups as groups_lib
 from repro_torch.models import ModelApi
 from repro_torch.runtime import fault_tolerance as ft
 
@@ -181,6 +189,12 @@ def _data_fingerprint(g: sites_lib.SiteGroup) -> str:
     return h.hexdigest()
 
 
+def _nest(path: tuple[str, ...], leaf) -> dict:
+    for k in reversed(path):
+        leaf = {k: leaf}
+    return leaf
+
+
 def _summarize(values: list[str], *, empty: str = "-") -> str:
     uniq = sorted(set(values))
     return uniq[0] if len(uniq) == 1 else ("mixed" if uniq else empty)
@@ -252,6 +266,24 @@ class PruneExecutor:
     def _group_dir(self, name: str) -> Path:
         return self.ckpt_dir / "groups" / name
 
+    def _on_main(self, write) -> None:
+        """Run ``write()`` on the rank that writes (every process without
+        a mesh), then hold the mesh's ranks until it is done."""
+        mesh = self.plan.mesh
+        if groups_lib.is_main(mesh):
+            write()
+        if mesh is not None:
+            groups_lib.axis_group(mesh, groups_lib.all_axes(mesh)).barrier()
+
+    def _site_group(self, name: str) -> sites_lib.SiteGroup:
+        """Group ``name`` with its statistics, the Gram whole."""
+        taps = self.taps
+        if self.stats is not None and self.stats.model is not None:
+            tpath = sites_lib.tap_path(self.api.cfg, name)
+            taps = _nest(tpath, self.stats.entry(tpath))
+        return sites_lib.enumerate_sites(self.api.cfg, self.params, taps,
+                                         only={name})[0]
+
     def _restore_group(self, pg: plan_lib.PlannedGroup,
                        g: sites_lib.SiteGroup,
                        fingerprint: str) -> engine_lib.GroupResult | None:
@@ -287,15 +319,19 @@ class PruneExecutor:
         if res.new_weights is not None:
             tree["new_weights"] = res.new_weights
         gdir = self._group_dir(pg.name)
-        # a stale checkpoint (e.g. from an earlier recipe) may occupy this
-        # step — publish past it, then drop everything but the newest
-        existing = ckpt.steps(gdir)
-        step = index if not existing else max(max(existing) + 1, index)
-        ft.retry(ckpt.save, gdir, step, tree, retries=3, base_delay=0.05,
-                 max_delay=1.0,
-                 extra={"rule": _rule_tag(pg), "data": fingerprint,
-                        "engine_path": pg.engine_path})
-        ckpt.gc(gdir, keep=1)
+
+        def write():
+            # a stale checkpoint (e.g. from an earlier recipe) may occupy
+            # this step — publish past it, then drop all but the newest
+            existing = ckpt.steps(gdir)
+            step = index if not existing else max(max(existing) + 1, index)
+            ft.retry(ckpt.save, gdir, step, tree, retries=3,
+                     base_delay=0.05, max_delay=1.0,
+                     extra={"rule": _rule_tag(pg), "data": fingerprint,
+                            "engine_path": pg.engine_path})
+            ckpt.gc(gdir, keep=1)
+
+        self._on_main(write)
 
     # -- execution ----------------------------------------------------------
 
@@ -306,6 +342,14 @@ class PruneExecutor:
         plan = self.plan
         self.callback.on_plan(plan)
 
+        single = plan.single_device_groups()
+        if single:
+            # once a run: the plan's describe() already marked them
+            warnings.warn(
+                f"mesh= is only honored by method='sparseswaps'; "
+                f"{len(single)} group(s) refine single-device: "
+                + ", ".join(single))
+
         if self.taps is None:
             if calib_batches is None:
                 raise ValueError("no taps and no calib_batches to "
@@ -314,16 +358,11 @@ class PruneExecutor:
                     else plan.calib_spec(minimal=False))
             self.stats = stats_lib.accumulate_stats(
                 self.api, self.params, calib_batches, spec=spec,
-                ckpt_dir=(self.ckpt_dir / "calib"
+                mesh=plan.mesh, ckpt_dir=(self.ckpt_dir / "calib"
                           if self.ckpt_dir is not None else None),
                 checkpoint_every=self.calib_ckpt_every)
             self.taps = self.stats.taps
         active = [pg for pg in plan.groups if not pg.skip]
-        # skip-listed groups never touch their (absent) taps
-        groups = {g.name: g for g in sites_lib.enumerate_sites(
-            self.api.cfg, self.params, self.taps,
-            only={pg.name for pg in active})}
-
         run_fn = {"batched": engine_lib.refine_group,
                   "reference": engine_lib.refine_group_reference}[
                       self.engine_mode]
@@ -333,8 +372,10 @@ class PruneExecutor:
 
         site_masks: dict[str, torch.Tensor] = {}
         reports: list[SiteReport] = []
+        groups: dict[str, sites_lib.SiteGroup] = {}
         for i, pg in enumerate(active):
-            g = groups[pg.name]
+            # skip-listed groups never touch their (absent) taps
+            g = self._site_group(pg.name)
             self.callback.on_group_start(pg, i, len(active))
             fp = _data_fingerprint(g) if self.ckpt_dir is not None else ""
             res = self._restore_group(pg, g, fp)
@@ -359,6 +400,8 @@ class PruneExecutor:
             if res.new_weights is not None:
                 _write_updated_weights(new_params, g, res.new_weights)
             self.callback.on_group_done(pg, rep, restored=restored)
+            # the mask tree needs the group's layout, not its statistics
+            groups[g.name] = dataclasses.replace(g, gram=None)
 
         mask_tree = sites_lib.build_mask_tree(
             self.api.cfg, site_masks, [groups[pg.name] for pg in active])

@@ -11,8 +11,9 @@ packages identical Grams this way. ``ckpt_dir`` opts into the executor's
 group-granular resume.
 
 Methods (the ``engine`` registry): "none" (warmstart only),
-"sparseswaps", "dsnot", "sparsegpt". Mesh sharding is not ported yet
-(ROADMAP A5).
+"sparseswaps", "dsnot", "sparsegpt". ``mesh`` (``launch.mesh``) shards
+calibration over the data axes and the sparseswaps refinement over the
+mesh, with the single-device masks bitwise.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Iterable
 from repro_torch.core import masks as masks_lib
 from repro_torch.models import ModelApi
 
+from .engine import DEFAULT_GRAM_BUDGET
 from .executor import (PruneCallback, PruneExecutor, PruneReport,
                        PrintProgress, SiteReport)
 from .plan import plan_pruning
@@ -43,6 +45,8 @@ def prune_model(
     compact_every: int | None = None,
     taps: dict | None = None,
     progress: bool = False,
+    mesh=None,
+    gram_budget_bytes: int = DEFAULT_GRAM_BUDGET,
     ckpt_dir=None,
     callback: PruneCallback | None = None,
 ) -> PruneReport:
@@ -51,10 +55,14 @@ def prune_model(
     ``k_swaps`` (None = auto, 8): swaps committed per search pass;
     ``t_max`` bounds passes, so the swap budget is ``t_max · k_swaps``.
     ``compact_every``: active-row compaction period (``core.sparseswaps``).
+    ``mesh``: refine over this mesh; a site whose fp32 Gram exceeds
+    ``gram_budget_bytes`` takes the column-sharded refiner.
     """
     recipe = PruneRecipe.single(pattern, method=method, warmstart=warmstart,
                                 t_max=t_max, k_swaps=k_swaps)
-    plan = plan_pruning(api, params, recipe, compact_every=compact_every)
+    plan = plan_pruning(api, params, recipe, mesh=mesh,
+                        gram_budget_bytes=gram_budget_bytes,
+                        compact_every=compact_every)
     if callback is None and progress:
         callback = PrintProgress()
     ex = PruneExecutor(api, params, plan, taps=taps, ckpt_dir=ckpt_dir,

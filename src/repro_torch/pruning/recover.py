@@ -325,7 +325,7 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
             live on their device.
         masks: the executed plan's mask tree (``PruneReport.masks``).
         spec: a ``RecoverSpec``; default ``RecoverSpec()``.
-        mesh: sharded recovery is not ported (ROADMAP A5); raises.
+        mesh: sharded recovery is not ported (ROADMAP A5, item 1); raises.
         ckpt_dir: the executor's checkpoint root; recovery state lives
             under ``<ckpt_dir>/recover`` keyed by ``spec.fingerprint()``.
         checkpoint_every: persist the TrainState every k steps (plus a
@@ -335,8 +335,8 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh-sharded recovery is not ported yet (ROADMAP A5: "
-            "distribution)")
+            "mesh-sharded recovery is not ported yet (ROADMAP A5, item 1: "
+            "sharded recovery)")
     spec = spec if spec is not None else RecoverSpec()
     sel = build_selection(params, masks, spec)
     opt_cfg = spec.opt_config()

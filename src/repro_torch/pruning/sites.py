@@ -287,6 +287,14 @@ def enumerate_sites(cfg: ArchConfig, params: dict, taps: dict, *,
     return groups
 
 
+def tap_path(cfg: ArchConfig, name: str) -> tuple[str, ...]:
+    """The tap tree path whose statistics feed site group ``name``."""
+    for site, _, tpath, _ in _table(cfg):
+        if site == name:
+            return tpath
+    raise KeyError(name)
+
+
 def site_specs(cfg: ArchConfig, params: dict) -> list[SiteSpec]:
     """Prunable sites from shapes alone (no taps, no FLOPs)."""
     specs = []

@@ -1,4 +1,4 @@
-"""Streaming, recipe-aware calibration statistics (one device).
+"""Streaming, recipe-aware, mesh-sharded calibration statistics.
 
 The refinement needs only G = XᵀX "accumulated on-the-fly as calibration
 samples pass through the layer" (paper §2.1.2), and different methods
@@ -17,24 +17,32 @@ module plans, accumulates and checkpoints exactly that state:
   agree bit for bit). Gram contributions go through
   ``kernels.ops.gram_xtx``: the CUDA kernel for activations on the card,
   its plain version on the CPU.
+* ``mesh=``: a batch whose leaves' leading dims divide the data-parallel
+  size splits over the data axes; each rank runs the forward on its shard
+  and the partial statistics merge by ``core.gram.psum_gram``. A batch
+  that does not split is accumulated whole on every rank (with a
+  warning). The Gram leaves follow ``dist.specs.calib_pspecs``: each rank
+  keeps its column block over "model", and ``CalibStats.entry`` /
+  ``full_taps`` gather the whole G where a group is refined.
 * checkpoint/resume under ``ckpt_dir`` in the reference's format, keyed by
   the spec fingerprint, so a resumed job never mixes statistics from a
-  different recipe.
-
-Mesh-sharded accumulation is not ported yet (ROADMAP A5): ``mesh=``
-raises ``NotImplementedError``.
+  different recipe. On a mesh rank 0 writes the whole state and every
+  rank reads it on resume.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import warnings
 from pathlib import Path
 
 import torch
 
 from repro_torch import ckpt
 from repro_torch.core import gram as gram_lib
+from repro_torch.dist import groups as groups_lib
+from repro_torch.dist import specs as specs_lib
 from repro_torch.kernels import ops
 from repro_torch.models import ModelApi
 from repro_torch.models import common as common_lib
@@ -137,22 +145,40 @@ class _SpecTapPolicy(common_lib.TapPolicy):
 class CalibStats:
     """Accumulated calibration statistics: the model-structured tap tree
     of raw additive moments (absent keys for skipped taps, "d" in place of
-    "g" at the moments level), and the number of batches folded in."""
+    "g" at the moments level), and the number of batches folded in.
+
+    On a mesh with a "model" axis, ``col_specs`` (``calib_pspecs`` of the
+    whole tree) marks the leaves whose columns ``model`` splits: ``taps``
+    then holds this rank's column block of them."""
 
     taps: dict
     spec: CalibSpec
     batches: int = 0
+    model: groups_lib.Group | None = None
+    col_specs: dict | None = None
 
     def tap_bytes(self) -> int:
-        """Total accumulator footprint in bytes."""
+        """Accumulator footprint in bytes (this rank's, on a mesh)."""
         return sum(leaf.numel() * leaf.element_size()
                    for _, leaf in _flatten(self.taps))
 
-    def gram_state(self, path: tuple[str, ...]) -> gram_lib.GramState:
-        """One tap entry as a ``core.gram.GramState`` (stacked dims kept)."""
-        ent = self.taps
+    def entry(self, path: tuple[str, ...]) -> dict:
+        """One tap entry {g|d, s, n}, its Gram whole."""
+        ent, specs = self.taps, self.col_specs
         for k in path:
             ent = ent[k]
+            specs = specs[k] if specs is not None else None
+        return ent if self.model is None else _whole(ent, specs, self.model)
+
+    def full_taps(self) -> dict:
+        """The whole tap tree (every column block gathered)."""
+        if self.model is None:
+            return self.taps
+        return _whole(self.taps, self.col_specs, self.model)
+
+    def gram_state(self, path: tuple[str, ...]) -> gram_lib.GramState:
+        """One tap entry as a ``core.gram.GramState`` (stacked dims kept)."""
+        ent = self.entry(path)
         g = ent["g"] if "g" in ent else ent["d"]
         return gram_lib.state_from_moments(g, ent["s"], ent["n"])
 
@@ -174,6 +200,73 @@ def _add_into(acc: dict, new: dict) -> None:
             _add_into(acc[k], v)
         else:
             acc[k] += v
+
+
+def _is_entry(node) -> bool:
+    return isinstance(node, dict) and "n" in node and not isinstance(
+        node["n"], dict)
+
+
+def _map_entries(tree: dict, fn) -> dict:
+    """``fn(entry)`` for every {g|d, s, n} entry of a tap tree."""
+    if _is_entry(tree):
+        return fn(tree)
+    return {k: _map_entries(v, fn) for k, v in tree.items()}
+
+
+def _psum_taps(taps: dict, data: groups_lib.Group) -> dict:
+    """Merge every entry's per-rank partial moments over the data group."""
+
+    def merge(ent):
+        key = "g" if "g" in ent else "d"
+        st = gram_lib.psum_gram(
+            gram_lib.state_from_moments(ent[key], ent["s"], ent["n"]), data)
+        g, s_, n = gram_lib.moments_from_state(st)
+        return {key: g, "s": s_, "n": n.to(ent["n"].dtype)}
+
+    return _map_entries(taps, merge)
+
+
+def _cols(tree, specs, grp: groups_lib.Group):
+    """This rank's column block of every leaf ``specs`` shards over
+    "model" (a copy, so the whole leaf can be freed)."""
+    if isinstance(tree, dict):
+        return {k: _cols(v, specs[k], grp) for k, v in tree.items()}
+    if specs[-1:] != ("model",):
+        return tree
+    n = tree.shape[-1] // grp.size
+    return tree[..., grp.index * n:(grp.index + 1) * n].contiguous()
+
+
+def _whole(tree, specs, grp: groups_lib.Group):
+    """Inverse of ``_cols``: all-gather the column blocks over "model"."""
+    if isinstance(tree, dict):
+        return {k: _whole(v, specs[k], grp) for k, v in tree.items()}
+    if specs[-1:] != ("model",):
+        return tree
+    parts = grp.all_gather(tree)                   # (P, ..., d, cols)
+    return torch.cat(list(parts), dim=-1)
+
+
+def _shard_batch(batch, data: groups_lib.Group):
+    """This rank's slice of every leaf's leading dim."""
+    if isinstance(batch, dict):
+        return {k: _shard_batch(v, data) for k, v in batch.items()}
+    n = batch.shape[0] // data.size
+    return batch[data.index * n:(data.index + 1) * n]
+
+
+def batch_shardable(batch: dict, mesh) -> bool:
+    """True iff every batch leaf's leading dim splits over the DP axes
+    (and there is more than one data-parallel rank to split over)."""
+    n = _dp_size(mesh)
+    return n > 1 and all(leaf.ndim and leaf.shape[0] % n == 0
+                         for _, leaf in _flatten(batch))
+
+
+def _dp_size(mesh) -> int:
+    sizes = groups_lib.axis_sizes(mesh)
+    return specs_lib._axes_size(sizes, specs_lib._dp_axes(sizes))
 
 
 def _expected_leaves(api: ModelApi, params, spec: CalibSpec) -> dict:
@@ -218,41 +311,72 @@ def accumulate_stats(api: ModelApi, params, batches, *,
                      ckpt_dir=None, checkpoint_every: int = 0) -> CalibStats:
     """Stream calibration batches into a ``CalibStats`` accumulator.
 
-    ``ckpt_dir`` + ``checkpoint_every``: persist the accumulator every k
-    batches and resume a matching interrupted run, keyed by the spec
-    fingerprint (a different recipe recomputes).
+    ``mesh``: a ``launch.mesh`` mesh; batches split over its data axes
+    where they divide, and Gram columns over "model" (see the module
+    docstring). ``ckpt_dir`` + ``checkpoint_every``: persist the
+    accumulator every k batches and resume a matching interrupted run,
+    keyed by the spec fingerprint (a different recipe recomputes).
     """
+    data = model = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded calibration is not ported yet (ROADMAP A5: "
-            "distribution)")
+        sizes = groups_lib.axis_sizes(mesh)
+        data = groups_lib.axis_group(mesh, specs_lib._dp_axes(sizes))
+        if sizes.get("model", 1) > 1:
+            model = groups_lib.axis_group(mesh, "model")
     spec = spec if spec is not None else CalibSpec.full(api.cfg)
     policy = spec.policy()
-    start, total = 0, None
+    start, total, col_specs = 0, None, None
     if ckpt_dir is not None:
         ckpt_dir = Path(ckpt_dir)
         start, total = _try_resume(ckpt_dir, spec,
                                    _expected_leaves(api, params, spec),
                                    _device_of(params))
-    done = start
+        if total is not None and model is not None:
+            col_specs = specs_lib.calib_pspecs(total, mesh)
+            total = _cols(total, col_specs, model)
+    done, warned = start, False
     for i, batch in enumerate(batches):
         if i < start:
             continue
-        _, aux = api.loss(params, batch, masks=None, want_taps=True,
+        split = mesh is not None and batch_shardable(batch, mesh)
+        if mesh is not None and not split and data.size > 1 and not warned:
+            # said, not silent: data parallelism was there but the batch
+            # does not split over it
+            warnings.warn(
+                "calibration batches not sharded: leading dims do not "
+                f"divide the data-parallel axes ({sizes}); accumulating "
+                "each batch whole")
+            warned = True
+        _, aux = api.loss(params, _shard_batch(batch, data) if split
+                          else batch, masks=None, want_taps=True,
                           tap_policy=policy)
-        if total is None:
-            total = aux["taps"]
-        else:
-            _add_into(total, aux["taps"])
+        taps = aux["taps"]
         # the batch's taps are not held through the next batch's forward:
         # the peak is the accumulator and one batch's taps
         del aux
+        if split:
+            taps = _psum_taps(taps, data)
+        if model is not None:
+            col_specs = col_specs or specs_lib.calib_pspecs(taps, mesh)
+            taps = _cols(taps, col_specs, model)
+        if total is None:
+            total = taps
+        else:
+            _add_into(total, taps)
+        del taps
         done = i + 1
         if (ckpt_dir is not None and checkpoint_every
                 and done % checkpoint_every == 0):
-            ckpt.save(ckpt_dir, done, total,
-                      extra={"calib_spec": spec.fingerprint()})
-            ckpt.gc(ckpt_dir, keep=1)
+            whole = (total if model is None
+                     else _whole(total, col_specs, model))
+            if groups_lib.is_main(mesh):
+                ckpt.save(ckpt_dir, done, whole,
+                          extra={"calib_spec": spec.fingerprint()})
+                ckpt.gc(ckpt_dir, keep=1)
+            if mesh is not None:
+                groups_lib.axis_group(
+                    mesh, groups_lib.all_axes(mesh)).barrier()
     if done == 0:
         raise ValueError("no calibration batches provided")
-    return CalibStats(taps=total, spec=spec, batches=done)
+    return CalibStats(taps=total, spec=spec, batches=done, model=model,
+                      col_specs=col_specs)

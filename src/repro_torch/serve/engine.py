@@ -29,7 +29,8 @@ the engine keeps the reference's compiled-function keys as its registry
 of the shapes it has run (``compiled_fn_keys``), the keys under which a
 decode loop would be captured as a CUDA graph. ``decode_chunk`` makes no
 host read inside its loop: per-row clocks, sampling knobs and the
-active mask stay on the device. Meshes are not ported (ROADMAP A5).
+active mask stay on the device. Meshes are not ported (ROADMAP A5, item
+2: serving on a mesh).
 
 ``bench_rows`` gives one prefill row and one decode row per format.
 """

@@ -29,7 +29,7 @@ excluded). ``defrag`` compacts live pages to the front of the pool (one
 gather) and rewrites the tables. Host spills (``spill`` /
 ``restore_spill``) hold evicted sessions in CPU tensors: the design's host
 memory, counted in ``spilled_bytes_*``. A mesh-sharded pool is not ported
-(ROADMAP A5).
+(ROADMAP A5, item 2: serving on a mesh).
 """
 from __future__ import annotations
 
@@ -90,14 +90,15 @@ class PagedKVCache:
         page_size: tokens per page. Slot capacities handed to ``load``
             must divide by it.
         device: where the pool lives (the engine's device).
-        mesh: not ported; a mesh raises (ROADMAP A5).
+        mesh: not ported; a mesh raises (ROADMAP A5, item 2).
     """
 
     def __init__(self, cfg, *, n_pages: int, page_size: int, device="cpu",
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh-sharded page pool is not ported (ROADMAP A5)")
+                "a mesh-sharded page pool is not ported (ROADMAP A5, "
+                "item 2: serving on a mesh)")
         if getattr(cfg, "cross_attn_every", 0) or not getattr(
                 cfg, "n_kv_heads", 0):
             raise NotImplementedError(

@@ -98,7 +98,7 @@ pools are empty. All of it is counted in ``counters`` (shed / expired
 failure is deterministically injectable for chaos runs.
 
 Meshes (``prefill_mesh`` / ``decode_mesh``) are not ported and raise
-(ROADMAP A5).
+(ROADMAP A5, item 2: serving on a mesh).
 """
 from __future__ import annotations
 
@@ -288,8 +288,8 @@ class ContinuousScheduler:
             ahead of free decode slots. Default False — single pool,
             today's interleaved mode.
         prefill_mesh / decode_mesh: not ported; a mesh raises
-            ``NotImplementedError`` (ROADMAP A5). Both pools live on the
-            engine's device.
+            ``NotImplementedError`` (ROADMAP A5, item 2). Both pools live
+            on the engine's device.
         n_prefill_pages: prefill-pool size in pages (disaggregated
             only); defaults to ``n_pages``.
         admission: "raise" (default — queue overflow and draining raise
@@ -328,7 +328,8 @@ class ContinuousScheduler:
         engine._require_continuous()
         if prefill_mesh is not None or decode_mesh is not None:
             raise NotImplementedError(
-                "mesh-placed page pools are not ported (ROADMAP A5)")
+                "mesh-placed page pools are not ported (ROADMAP A5, item 2: "
+                "serving on a mesh)")
         if max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, "
                              f"got {max_batch}")

@@ -438,5 +438,5 @@ def test_spec_covers_fingerprint_and_errors():
     assert a.covers(b) and not b.covers(a)
     with pytest.raises(ValueError, match="unknown levels"):
         tstats.CalibSpec(levels=(("wq", "huge"),))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstats.accumulate_stats(None, None, [], mesh=object())

@@ -160,7 +160,8 @@ def test_plan_costs_and_paths_match_reference(apis):
 
 def test_recovery_and_mesh_raise(apis):
     """A recipe's recovery rides the plan (``PruneExecutor.recover`` runs
-    it; ``tests/test_torch_recover.py``); a mesh still raises (A5)."""
+    it; ``tests/test_torch_recover.py``); a mesh with a recovery still
+    raises (A5: sharded recovery)."""
     _, _, tapi, tmeta = apis
     spec = tpruning.RecoverSpec(select="lora", steps=7)
     rec = tpruning.PruneRecipe.single("0.6", recover=spec)
@@ -168,8 +169,7 @@ def test_recovery_and_mesh_raise(apis):
     assert plan.recover == spec
     assert "recovery (PERP): select=lora steps=7" in plan.describe()
     with pytest.raises(NotImplementedError, match="A5"):
-        tpruning.plan_pruning(tapi, tmeta, tpruning.PruneRecipe.single("0.6"),
-                              mesh=object())
+        tpruning.plan_pruning(tapi, tmeta, rec, mesh={"data": 2})
 
 
 def test_cli_recipe_plan_only_and_resume(tmp_path, capsys):

@@ -62,7 +62,9 @@ and its time:
    torch.profiler sums the kernels of each call (spmm: the product kernel
    and its split reduction; the library call: every kernel it launched;
    the flush's kernel excluded by name), so the host's work in the
-   wrapper is never counted; the median and min-max of 20 calls of the
+   wrapper is never counted (where five traces in a row lose records,
+   each call is timed by CUDA events behind its flush instead, and
+   stderr says so); the median and min-max of 20 calls of the
    kernel, of ``torch.matmul(x, (W*mask).T)`` on the dense masked weight
    (``library_ms``, the masked format's cost) and of the plain version,
    and the bound max(2*T*d_out*K at the bf16 tensor-core peak, bytes at
@@ -109,16 +111,30 @@ and its time:
    bitwise; its Gram, swap_topk and swap_commit launches those of phases
    4 and 5. (b) MESH_RANKS spawned ranks sharing the card over gloo (NCCL
    refuses two ranks on one device; the collectives stage CUDA tensors
-   through the host), the (2, 1) mesh, each rank: the single-device Grams
-   made again, held to phase 5's by digest (2.4 GB, past the write budget
-   as a file); calibration of the first MESH_CALIB_BATCHES batches split
-   over "data" within the Gram tolerance of the single-device Grams of
-   those batches; ``prune_model(mesh=)`` PerRow(0.6) from the
-   single-device Grams: phase 4's masks digest; ``refine_g_sharded`` on
-   w_down's first MESH_G_ROWS rows (its full 14336 columns split over the
-   two ranks) at k = 1 and 8, t_max = T_MAX: masks and losses bitwise the
-   single-device refine's; each rank's launches exactly phase 4's Gram
-   launches a batch times MESH_CALIB_BATCHES, and phase 4's swap_topk.
+   through the host), each rank: the single-device Grams made again,
+   held to phase 5's by digest (2.4 GB, past the write budget as a file);
+   on the (2, 1) mesh calibration of the first MESH_CALIB_BATCHES batches
+   split over "data" within the Gram tolerance of the single-device Grams
+   of those batches, and ``prune_model(mesh=)`` PerRow(0.6) from the
+   single-device Grams: phase 4's masks digest; each rank's launches
+   exactly phase 4's Gram launches a batch times MESH_CALIB_BATCHES, and
+   phase 4's swap_topk. On the (1, 2) mesh ``accumulate_stats(mesh=)``
+   of all 16 batches splits every Gram's columns over "model" (w_down's
+   shard bitwise the single-device Gram's columns; phase 4's Gram
+   launches on each rank), and w_down's first MESH_G_ROWS rows refine
+   through the engine in the Gram regime (its 0.82 GB G past
+   MESH_GRAM_BUDGET) on the rank's (14336, 7168) calibration shard at
+   k = 1 and 8, t_max = T_MAX: masks and losses bitwise
+   ``distributed.refine_split_single`` (one device's run of the same
+   column split), each rank's peak memory during the group under the
+   plan's per-rank reckoning (``PrunePlan.refine_costs``). Then 9d (b)
+   (``mesh_train_rank``) at phase 9's configuration: a (1, 2) train step
+   bitwise one device's, the state's bytes a rank the reckoning; a (2, 1)
+   norms_biases recovery of MESH_RECOVER_STEPS steps in float32 within
+   MESH_RTOL of one device's (CE, and all but 1e-3 of the entries), the
+   same in bf16 with its gap printed (the halves' bf16 products round by
+   their row count); the float32 run's (2, 1) checkpoint, and the layer
+   stack written (2, 1)-sharded, read on one device bitwise.
    Prints each run's time beside phase 4's and the card line.
 6. serve path — the same model and params: PerRow(0.6) masks from phase
    4 and Wanda 2:4 masks (``prune_model(method="none")``, same
@@ -136,7 +152,8 @@ and its time:
    fewer weight bytes than masked. Prints per format the prefill ms, decode tok/s,
    weight bytes and ``kernel_used`` (best of 3 warm runs), and per packed
    engine the device time of its spmm kernels in one more warm
-   ``generate`` (torch.profiler; the trace must hold every launch).
+   ``generate`` (torch.profiler; the trace must hold every launch, or
+   the time is printed as not measured).
 6c. continuous serving (run after phase 8, on the params of phase 4 made
    again from seed 0) — phase 4's PerRow(0.6) masks and phase 6's Wanda
    2:4 masks, dense / masked PerRow(0.6) / nm24 (2:4) /
@@ -167,8 +184,8 @@ and its time:
    continuous for masked, nm24 and gathered at 8 arrivals/s (below the
    continuous path's saturation, 13-19/s by host, from
    ``launch/profile_serve.py``'s sweep; a saturated queue is driven by
-   6mc, which saturates at this rate), over a window of 100 / 8 seconds
-   (89 requests from seed 0); and
+   6mc, which saturates at this rate), over a window of LOAD_REQUESTS /
+   8 seconds (64 / 8, seed 0: the count is printed); and
    nm24 continuous vs fixed over the first 2 s at 8/s (15 requests; the
    fixed path, each prompt length alone, saturates by 2/s). Offered and
    delivered tok/s, TTFT, queue wait and per-token p50 / p99, wasted
@@ -266,7 +283,8 @@ and its time:
    bitwise, in 64-token windows; nm24 == gathered bitwise on the 2:4
    masks; (d) nm24 under ``FaultPlan.chaos(0)``; (e) every scheduler run
    launched spmm 4 and spmm_stacked 3 x layers x dispatches; (f) the
-   first 32 requests of phase 6c's stream at 8/s in 64-token windows:
+   first MOE_LOAD_REQUESTS (20) requests of phase 6c's stream at 8/s in
+   64-token windows:
    every request completed and no page left, TTFT, per-token latency,
    goodput and drops printed for masked, nm24 and gathered; nm24 on the
    first 8 requests under torch.profiler: the device-busy share and
@@ -378,7 +396,11 @@ and its time:
    checkpoint every 4 steps, stopped by SIGTERM after step 3 (the
    preemption path: one checkpoint, at step 4), and rerun: it resumes at
    step 4 and ends with the uninterrupted run's losses and params
-   bitwise;
+   bitwise; these two runs are phase 9d (a)'s: this process is a
+   one-rank NCCL world, and they train on its (1, 1) mesh
+   (``launch.train(mesh="host")``: the TrainState sharded by
+   ``state_pspecs``, the checkpoint written and resumed in the sharded
+   layout);
    (b) ``launch.prune.prune(from_ckpt=...)`` of the trained checkpoint,
    PerRow(0.6), Wanda, SparseSwaps, k = 8, t_max = 4 with phase 4's gates
    and launch arithmetic, the pruned params the trained ones;
@@ -387,8 +409,12 @@ and its time:
    coordinates 0.0 in the recovered weights and in the saved m and v;
    the step-20 checkpoint deleted, a rerun prints "recover: resumed at
    step 10", runs 10 steps and gives the recovered params and CE
-   bitwise; then ``--recover norms`` into the same out dir (how many norm
-   scale elements moved is printed); (d) ``export_packed``, gathered for
+   bitwise; then ``--recover norms_biases`` into the same out dir (how
+   many norm scale elements moved is printed), and 9d (a): the same
+   command with ``mesh="host"`` and no out dir (every group computed on
+   the one-rank mesh): report, masks, recovered params, CE and
+   perplexities bitwise the single-device command's, its Gram and
+   swap_topk launches (b)'s; (d) ``export_packed``, gathered for
    these PerRow(0.6) masks and nm24 for a 2:4 run (recovered
    all_masked), each served by ``launch.serve.serve(masks_from=...,
    from_ckpt=...)``: greedy tokens and logits bitwise those of the
@@ -439,6 +465,7 @@ script is not inside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -611,17 +638,23 @@ def require(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+# bytes of the files phase 4d (b)'s spawned ranks wrote (their wchar
+# would count gloo's socket traffic too)
+CHILD_WRITES = [0]
+
+
 def bytes_written() -> int:
     """Bytes this process has handed to write calls so far (``wchar`` of
-    /proc/self/io; 0 where the file is missing): the run's disk writes,
-    its checkpoints and out dirs, held under WRITE_BUDGET."""
+    /proc/self/io; 0 where the file is missing), and the files its spawned
+    ranks wrote: the run's disk writes, its checkpoints and out dirs,
+    held under WRITE_BUDGET."""
     try:
         for line in Path("/proc/self/io").read_text().splitlines():
             if line.startswith("wchar:"):
-                return int(line.split()[1])
+                return int(line.split()[1]) + CHILD_WRITES[0]
     except OSError:
         pass
-    return 0
+    return CHILD_WRITES[0]
 
 
 class Phase:
@@ -669,7 +702,9 @@ def kernel_ms(fn, kernel: str, *, reps: int, tries: int = 5) -> float:
     ``kernel``, per call of ``fn()``, by torch.profiler: the kernel alone,
     without the host time of its wrapper between launches. A trace that
     lost records (the profiler drops some late in a long process) is
-    taken again, up to ``tries`` times."""
+    taken again, up to ``tries`` times; past that the whole call is timed
+    by CUDA events, an upper bound of the kernel, and a line on stderr
+    says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -677,6 +712,7 @@ def kernel_ms(fn, kernel: str, *, reps: int, tries: int = 5) -> float:
 
     fn()
     torch.cuda.synchronize()
+    us: list[float] = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             profiler_preroll()
@@ -687,8 +723,10 @@ def kernel_ms(fn, kernel: str, *, reps: int, tries: int = 5) -> float:
               if e.device_type == DeviceType.CUDA and kernel in e.name]
         if len(us) == reps:
             return sum(us) / 1e3 / reps
-    raise AssertionError(f"the profiler saw {len(us)} {kernel} launches, "
-                         f"want {reps} ({tries} tries)")
+    print(f"kernel_ms: the profiler saw {len(us)} {kernel} launches, want "
+          f"{reps} ({tries} tries); the whole call timed by CUDA events "
+          f"instead", file=sys.stderr, flush=True)
+    return cuda_ms(fn, reps=reps)
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32
@@ -1447,16 +1485,18 @@ def routed_pair(eng, ref_eng, prompt: dict, tokens, tag: str) -> float:
 
 
 def spmm_device_ms(eng, prompt: dict, launches: int,
-                   tries: int = 5) -> tuple[float, float]:
+                   tries: int = 5) -> tuple[float | None, float]:
     """Device time in ms of the spmm kernels (product and split reduction)
     of one warm ``generate`` by torch.profiler, and the generate's wall
     ms. The profiler must see all ``launches`` product kernels: a trace
-    that lost records is taken again, up to ``tries`` times."""
+    that lost records is taken again, up to ``tries`` times, and past
+    that the device time is None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.profile_spmm import profiler_preroll
 
+    n, wall = 0, 0.0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             profiler_preroll()
@@ -1473,8 +1513,10 @@ def spmm_device_ms(eng, prompt: dict, launches: int,
                 n += "spmm_" in e.name
         if n == launches:
             return ms, 1e3 * wall
-    raise AssertionError(f"the profiler saw {n} spmm product kernels of a "
-                         f"generate, want {launches} ({tries} tries)")
+    print(f"spmm_device_ms: the profiler saw {n} spmm product kernels of a "
+          f"generate, want {launches} ({tries} tries)", file=sys.stderr,
+          flush=True)
+    return None, 1e3 * wall
 
 
 def serve_bench(engines: dict, prompt: dict, launches: dict) -> dict:
@@ -1496,8 +1538,10 @@ def serve_bench(engines: dict, prompt: dict, launches: dict) -> dict:
     for name, eng in engines.items():
         if launches[name]:
             ms, wall = spmm_device_ms(eng, prompt, launches[name])
+            ms = ("not measured (the profiler lost records)" if ms is None
+                  else f"{ms:.4f} ms")
             log(f"   {name:13s} one warm generate: spmm device time "
-                f"{ms:.4f} ms (all {launches[name]} product kernels "
+                f"{ms} (all {launches[name]} product kernels "
                 f"and their split reductions), generate {wall:.3f} ms wall")
     return warm
 
@@ -1732,7 +1776,7 @@ def check_cross_path(engines: dict, prompt: dict, other: dict,
 CHUNK_W = 64
 CHUNK_PROMPTS = (100, 300, 500)
 LOAD_RATES = (8.0,)
-LOAD_REQUESTS = 100
+LOAD_REQUESTS = 64
 FIXED_REQUESTS = 16
 
 
@@ -2123,7 +2167,7 @@ def continuous_path(api, params, masks60: dict, masks24: dict) -> dict:
 # phase 6mc: continuous serving of mixtral-8x7b. The load rows serve the
 # first MOE_LOAD_REQUESTS requests of phase 6c's stream at its lower rate,
 # in CHUNK_W-token prefill windows.
-MOE_LOAD_REQUESTS, PROFILED_REQUESTS = 32, 8
+MOE_LOAD_REQUESTS, PROFILED_REQUESTS = 20, 8
 
 
 def sync(cuda: bool) -> None:
@@ -3659,15 +3703,32 @@ def deterministic_mode(seen: set):
 # checkpoint period in steps (0: none), rerun to resume). Phase 9 resumes
 # all_masked; 9m checkpoints all_masked once (its m and v are read there)
 # and resumes lora, whose checkpoints hold only the adapters: the write
-# budget.
-RECOVERIES_9 = (("all_masked", RECOVER_CKPT, True), ("norms", 0, False))
+# budget. Phase 9's norms_biases run (llama31-8b has no biases: its norm
+# scales) is the single-device command 9d (a) holds its mesh run to.
+RECOVERIES_9 = (("all_masked", RECOVER_CKPT, True),
+                ("norms_biases", 0, False))
 RECOVERIES_9M = (("all_masked", RECOVER_STEPS, False),
                  ("lora", RECOVER_CKPT, True))
 
 
+@contextlib.contextmanager
+def one_rank_world(store: Path, device):
+    """This process as a one-rank world (NCCL on the card, gloo on the
+    CPU) on a file:// store, destroyed on the way out."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_distributed(device, init_method=f"file://{store}", rank=0,
+                              world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def train_recover_path(cfg, smi: str, device="cuda", *,
                        recoveries=RECOVERIES_9, deterministic=False,
-                       tag: str = "9") -> dict:
+                       tag: str = "9", mesh: bool = False) -> dict:
     """Phase 9 (and 9m) on ``cfg`` (registered under its name for the
     launchers): train -> prune the trained checkpoint -> recover each of
     ``recoveries`` into one out dir (a rerun of the resumed one) -> export
@@ -3675,9 +3736,12 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
     uninterrupted run must repeat the first bitwise, and the preempted
     and resumed runs (and the uninterrupted run they are held to) train
     under ``deterministic_mode``: every op it flags is printed, and any
-    but cuBLAS's workspace notice fails the phase. Returns the kernel
-    launches of its prune and serve runs."""
-    import contextlib
+    but cuBLAS's workspace notice fails the phase. With ``mesh`` (phase
+    9d (a)) the process is a one-rank world: the preempted and resumed
+    runs train on its (1, 1) mesh (``launch.train(mesh="host")``, sharded
+    checkpoints), and ``launch.prune(mesh="host")`` with the last of
+    ``recoveries`` is held bitwise to the single-device command. Returns
+    the kernel launches of its prune and serve runs."""
     import importlib
     import os
     import shutil
@@ -3724,8 +3788,8 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
         its n-th call (the launcher's PreemptionGuard catches it)."""
         real = steps_lib.make_train_step
 
-        def make(api, opt_cfg, *, masks=None):
-            step, calls = real(api, opt_cfg, masks=masks), [0]
+        def make(api, opt_cfg, **kw):
+            step, calls = real(api, opt_cfg, **kw), [0]
 
             def wrapped(state, batch):
                 out = step(state, batch)
@@ -3741,7 +3805,9 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
     t_phase = time.perf_counter()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, (
+            one_rank_world(Path(tmp) / "store", device) if mesh
+            else contextlib.nullcontext()):
         work = Path(tmp)
         tdir = work / "train"
         # (a) train uninterrupted (no checkpoint); then with checkpoints,
@@ -3776,7 +3842,8 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
                         and equal_trees(ref["state"].params, params1))
                 losses, params1 = ref["losses"], ref["state"].params
                 del ref
-            kw.update(ckpt_dir=str(tdir), ckpt_every=TRAIN_CKPT)
+            kw.update(ckpt_dir=str(tdir), ckpt_every=TRAIN_CKPT,
+                      **({"mesh": "host"} if mesh else {}))
             real_make = steps_lib.make_train_step
             steps_lib.make_train_step = sigterm_after(TRAIN_CKPT)
             try:
@@ -3790,6 +3857,9 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
                     and ckpt.steps(tdir) == [TRAIN_CKPT],
                     f"SIGTERM did not stop the run at step {TRAIN_CKPT} with "
                     f"one checkpoint: {ckpt.steps(tdir)}")
+            require(cut["losses"] == losses[:TRAIN_CKPT],
+                    "the checkpointed run's losses differ from the "
+                    "uninterrupted run's")
             del cut
             t0 = time.perf_counter()
             run2, _ = echo_run(launch_train.train, **kw)
@@ -3800,14 +3870,18 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
         require(run2["losses"] == losses[TRAIN_CKPT:],
                 "the resumed run's losses differ from the uninterrupted "
                 "run's")
-        require(equal_trees(run2["state"].params, params1),
+        require(equal_trees(run2["params"], params1),
                 "the resumed run's params differ from the uninterrupted "
                 "run's")
         log(f"   ({tag}a) train: losses {[round(x, 4) for x in losses]}; "
             f"{t_full:.2f} s for {TRAIN_STEPS} steps; with checkpoints "
             f"{t_cut:.2f} s to the SIGTERM and its step-{TRAIN_CKPT} "
-            f"checkpoint, {t_run2:.2f} s resumed to the end: losses and "
-            "params bitwise the uninterrupted run's")
+            f"checkpoint, {t_run2:.2f} s resumed to the end"
+            + (" on a one-rank mesh (9d a: the state sharded by "
+               "state_pspecs, the checkpoint in the sharded layout)"
+               if mesh else "")
+            + ": losses and params bitwise the uninterrupted single-device "
+            "run's")
         if deterministic:
             log(f"   ({tag}a) two uninterrupted runs bitwise equal; under "
                 f"deterministic algorithms (the preempted and resumed runs "
@@ -3821,7 +3895,7 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
         step = steps_lib.make_train_step(api, adamw.AdamWConfig())
         train_ms = (event_ms(step, run2["state"], pipe.get(0)) if cuda
                     else float("nan"))
-        trained = run2["state"].params
+        trained = run2["params"]
         del run2, params1, step
 
         # (b) prune the trained checkpoint, (c) each recovery into the same
@@ -3885,7 +3959,7 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
                             "coordinate")
                 del saved
                 notes += ", m and v"
-            if select == "norms":
+            if select.startswith("norms"):
                 base = dict(rec_mod._flat_leaves(trained))
                 notes = "; norm scale elements changed: " + str(
                     {n: f"{int((a != base[n]).sum())}/{a.numel()} {a.dtype}"
@@ -3929,8 +4003,51 @@ def train_recover_path(cfg, smi: str, device="cuda", *,
                                if cuda else float("nan"))
             del sel, rstep, rstate
             if first is None:
-                first = res
+                first, first_launches = res, launches
+            last = res
             del res
+        if mesh:
+            # 9d (a): the last recovery's command on the one-rank mesh,
+            # computing every group (no out dir): bitwise the single-device
+            # command's report, masks, recovery and evaluations
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            got, _ = echo_run(launch_prune.prune, **dict(
+                pkw, recover=recoveries[-1][0], calib_ckpt_every=0,
+                out_dir=None, mesh="host"))
+            t_mesh = time.perf_counter() - t0
+            mesh_launches = dict(ops.LAUNCHES)
+            count(mesh_launches)
+            a, b = got["report"], last["report"]
+            ra, rb = got["recover_result"], last["recover_result"]
+            same = {
+                "masks": digest(mask_leaves(a.masks))
+                == digest(mask_leaves(b.masks)),
+                # (the mesh's swap counts are its net mask distance / 2)
+                "site losses": all(
+                    torch.equal(getattr(x, f), getattr(y, f))
+                    for x, y in zip(a.sites, b.sites)
+                    for f in ("row_loss_init", "row_loss_final")),
+                "recovered params": equal_trees(a.updated_params,
+                                                b.updated_params),
+                "trained leaves": equal_trees(ra.trainable, rb.trainable),
+                "CE": ra.ce_history == rb.ce_history,
+                "evaluations": all(got[k] == last[k] for k in
+                                   ("dense", "pruned", "recovered"))}
+            require(all(same.values()),
+                    f"(9d a) prune --mesh host --recover {recoveries[-1][0]}"
+                    f" vs the single-device command, equal: {same}")
+            require(all(mesh_launches[k] == first_launches[k]
+                        for k in ("gram_xtx_bf16", "swap_topk")),
+                    f"(9d a) the mesh run's launches {mesh_launches}, the "
+                    f"single-device prune's {first_launches}")
+            log(f"   (9d a) prune --from-ckpt --mesh host --recover "
+                f"{recoveries[-1][0]} on a one-rank mesh: {t_mesh:.2f} s, "
+                f"launches {mesh_launches}; report, masks (digest "
+                f"{digest(mask_leaves(a.masks))}), recovered params, CE and "
+                "perplexities bitwise the single-device command's")
+            del got, a, b
+        del last
 
         # (d) export and serve the first recovery: PerRow(0.6) gathered;
         # a 2:4 run for nm24
@@ -4324,6 +4441,11 @@ MESH_RANKS = 2            # phase 4d (b): ranks sharing the one card over gloo
 MESH_CALIB_BATCHES = 1    # 4d (b): calibration batches split over "data"
 MESH_G_ROWS = 32          # 4d (b): w_down rows through the Gram-sharded refiner
 MESH_JOIN_S = 300         # 4d (b): the ranks' time limit
+# 4d (b): the Gram budget of the (1, 2) run: below w_down's 0.82 GB fp32 G
+# (14336 wide), above the 4096-wide taps' 64 MiB
+MESH_GRAM_BUDGET = 512 * 2**20
+MESH_RECOVER_STEPS = 4    # 9d (b): the (2, 1) norms_biases recovery
+MESH_RTOL = 1e-5          # 9d (b): a data-split step's fp32 sums reordered
 
 
 def gram_gap(got: dict, want: dict, tokens: int) -> float:
@@ -4429,14 +4551,235 @@ def mesh_one_rank(api, params, batches, taps, pattern, digest60: str,
         dist.destroy_process_group()
 
 
+def magnitude_masks(cfg, params, pattern) -> dict:
+    """|W| masks under ``pattern`` for every prunable site, as the masks
+    tree ``loss`` takes (phase 9d (b)'s recovery: the masks need no
+    calibration)."""
+    from repro_torch.core import masks
+    from repro_torch.pruning import sites
+
+    import torch
+
+    tree = {}
+    for _, ppath, _, n_stack in sites._table(cfg):
+        w = sites._get(params, ppath)
+        flat = w.reshape(-1, *w.shape[n_stack:]).float().abs()
+        m = torch.stack([masks.make_mask(x, pattern) for x in flat])
+        node = tree
+        for k in ppath[:-1]:
+            node = node.setdefault(k, {})
+        node[ppath[-1]] = m.reshape(w.shape)
+    return tree
+
+
+def gram_regime_rank(rank: int, api, params, batches, taps, pattern,
+                     device: str) -> dict:
+    """Phase 4d (b) on the (1, 2) ("data", "model") mesh: calibration
+    splits every Gram's columns over "model"; w_down's first MESH_G_ROWS
+    rows refine through the engine in the Gram regime (its 0.82 GB G past
+    MESH_GRAM_BUDGET) on this rank's (14336, 7168) calibration shard, at
+    k = 1 and 8, against one device's run of the same column split, with
+    this rank's peak memory during the group beside the plan's reckoning."""
+    import torch
+    from repro_torch import pruning
+    from repro_torch.core import sparseswaps
+    from repro_torch.core.warmstart import warmstart_mask
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.pruning import distributed, engine
+    from repro_torch.pruning import sites as sites_lib
+
+    cuda = device == "cuda"
+    mesh = mesh_lib.make_host_mesh(data=1, model=MESH_RANKS)
+    sync(cuda)
+    t0 = time.perf_counter()
+    st = pruning.accumulate_stats(api, params, batches, mesh=mesh)
+    sync(cuda)
+    res = {"calib_s": time.perf_counter() - t0,
+           "launches": dict(ops.LAUNCHES)}
+    ent = st.gram_block(("w_down",), mesh)
+    G = taps["w_down"]["g"][0]
+    d, cols = G.shape[0], ent["g"].shape[-1]
+    res["block"] = list(ent["g"].shape)
+    # the rank's calibration shard is the single-device Gram's columns
+    # (one rank of "data": each rank runs every batch whole)
+    res["shard_equal"] = all(
+        bool(torch.equal(ent["g"][i], taps["w_down"]["g"][i][
+            :, rank * cols:(rank + 1) * cols]))
+        for i in range(ent["g"].shape[0]))
+    plan = pruning.plan_pruning(
+        api, api.init(device="meta"),
+        pruning.PruneRecipe.single(pattern, t_max=T_MAX), mesh=mesh,
+        gram_budget_bytes=MESH_GRAM_BUDGET)
+    paths = {g.name: g.engine_path for g in plan.groups}
+    res["paths"] = paths
+    reckon = plan.refine_costs()["layers.mlp.w_down"]
+    res["reckoning"] = reckon
+    res["reckoning_rows"] = distributed.refine_bytes(
+        "gram", MESH_G_ROWS, d, mesh)["total"]
+    W = params["layers"]["mlp"]["w_down"][0][:MESH_G_ROWS]
+    group = sites_lib.SiteGroup(
+        name="layers.mlp.w_down", weights=W[None],
+        gram=sites_lib._gram_batch({k: v[:1] for k, v in ent.items()}),
+        mask_path=("layers", "mlp", "w_down"), stack_shape=(1,))
+    m0 = warmstart_mask(W.float(), G, pattern, "wanda")
+    for k in (1, 8):
+        ctx = engine.RefineContext(t_max=T_MAX, k_swaps=k, mesh=mesh,
+                                   gram_budget_bytes=MESH_GRAM_BUDGET)
+        sync(cuda)
+        base = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.refine_group("sparseswaps", group, pattern, ctx)
+        sync(cuda)
+        t_g = time.perf_counter() - t0
+        # the group's bytes: what it allocated at its peak, and the block
+        # it reads where calibration left it
+        peak = ((torch.cuda.max_memory_allocated() - base) if cuda
+                else 0) + d * cols * 4
+        m, l1 = out.masks[0], out.loss_final[0]
+        one = distributed.refine_split_single(
+            W, G, m0, pattern, n_cols=MESH_RANKS, t_max=T_MAX, k_swaps=k)
+        whole = sparseswaps.refine(W, G, m0, pattern, t_max=T_MAX,
+                                   k_swaps=k)
+        res[f"gram_k{k}"] = {
+            "s": t_g, "swaps": int((m - m0).abs().sum()) // 2,
+            "masks_equal": bool(torch.equal(m, one[0])),
+            "losses_equal": bool(torch.equal(l1, one[2])),
+            "all_columns_masks_equal": bool(torch.equal(m, whole.mask)),
+            "peak": peak, "digest": digest([m > 0.5])}
+    del st, ent, group
+    return res
+
+
+def mesh_train_rank(rank: int, root: str, mesh21, mesh12, device: str,
+                    tiny: bool) -> dict:
+    """Phase 9d (b): phase 9's configuration (llama31-8b's widths, depth
+    P9_LAYERS, vocabulary P9_VOCAB) on the two ranks: a (1, 2) train step
+    against one device's, bitwise; a (2, 1) norms_biases recovery within
+    MESH_RTOL of one device's in float32 (in bf16 the gap is printed);
+    its (2, 1) checkpoint, and the (2, 1) shards of the layer stack,
+    restored on one device bitwise."""
+    import torch
+    from repro_torch import ckpt, configs, models, pruning
+    from repro_torch.core import masks
+    from repro_torch.data import synthetic
+    from repro_torch.dist import placement
+    from repro_torch.dist import specs as specs_lib
+    from repro_torch.optim import adamw
+    from repro_torch.pruning.recover import build_selection
+    from repro_torch.train import steps
+
+    cuda = device == "cuda"
+    dev = torch.device(device)
+    base = (configs.get_tiny("llama31-8b") if tiny
+            else configs.get("llama31-8b"))
+    cfg = base.replace(name=f"{base.name}-L{P9_LAYERS}-V{P9_VOCAB}",
+                       n_layers=P9_LAYERS,
+                       vocab_size=min(P9_VOCAB, base.vocab_size))
+    api = models.build(cfg)
+    params = api.init(seed=0, device=dev)
+    batch = synthetic.DataPipeline(synthetic.CorpusConfig(cfg.vocab_size),
+                                   4, 128, split="train",
+                                   device=dev).get(0)
+    opt = adamw.AdamWConfig()
+    res = {}
+    # (1, 2): one step, the state sharded over "model"
+    one, om = steps.train_step_fn(api, opt)(
+        steps.TrainState(params, adamw.init(params)), batch)
+    layout = steps.state_layout(api, mesh12)
+    state = steps.shard_state(steps.TrainState(params, adamw.init(params)),
+                              layout)
+    fn = steps.train_step_fn(api, opt, mesh=mesh12)
+    sync(cuda)
+    t0 = time.perf_counter()
+    state, m = fn(state, batch)
+    sync(cuda)
+    res["step12_s"] = time.perf_counter() - t0
+    want = placement.shard(one, layout.specs, mesh12)
+    got_l, want_l = adamw.tree_leaves(state.params), adamw.tree_leaves(
+        want.params)
+    res["step12_equal"] = (
+        float(m["loss"]) == float(om["loss"])
+        and all(torch.equal(a, b) for a, b in zip(got_l, want_l))
+        and all(torch.equal(a, b) for a, b in zip(
+            adamw.tree_leaves(state.opt.m), adamw.tree_leaves(want.opt.m))))
+    res["step12_loss"] = float(m["loss"])
+    res["state_bytes"] = (
+        sum(t.numel() * t.element_size() for t in got_l
+            + adamw.tree_leaves(state.opt.m) + adamw.tree_leaves(state.opt.v))
+        + 4, placement.bytes_per_rank(steps.abstract_state(api),
+                                      layout.specs, mesh12))
+    del one, state, want, got_l, want_l
+    # (2, 1): norms_biases recovery, its batches split over "data": in
+    # float32 held to one device within MESH_RTOL (the split reorders
+    # fp32 sums); in bf16, phase 9's dtype, the gap printed (the halves'
+    # bf16 products round by their row count on the card)
+    spec = pruning.RecoverSpec(select="norms_biases",
+                               steps=MESH_RECOVER_STEPS, batch_size=4,
+                               seq_len=128, seed=0)
+    rdir = Path(root) / "rec21"
+    for dtype in ("float32", "bfloat16"):
+        a32 = models.build(cfg.replace(dtype=dtype))
+        p32 = a32.init(seed=0, device=dev)
+        msk = magnitude_masks(cfg, p32, masks.PerRow(0.6))
+        single = pruning.recover(a32, p32, msk, spec)
+        gated = dtype == "float32"
+        sync(cuda)
+        t0 = time.perf_counter()
+        rec = pruning.recover(a32, p32, msk, spec, mesh=mesh21,
+                              **({"ckpt_dir": rdir, "checkpoint_every": 2}
+                                 if gated else {}))
+        sync(cuda)
+        worst, off = 0.0, 0
+        for (_, a), (_, b) in zip(sorted(rec.trainable.items()),
+                                  sorted(single.trainable.items())):
+            gap = (a.float() - b.float()).abs()
+            worst = max(worst, float(gap.max()))
+            off += int((gap > 1e-6 + MESH_RTOL * b.float().abs()).sum())
+        res[f"recover21_{dtype}"] = {
+            "s": time.perf_counter() - t0, "max_abs": worst, "off": off,
+            "n": sum(t.numel() for t in rec.trainable.values()),
+            "ce": rec.ce_history, "ce_one": single.ce_history}
+        if gated:
+            kept = (a32, p32, msk, rec)
+        del a32, p32, msk, single, rec
+    api32, params32, msk, rec = kept
+    sel = build_selection(params32, msk, spec)
+    like = placement.like(steps.TrainState(sel.trainable,
+                                           adamw.init(sel.trainable)))
+    back, _ = ckpt.restore_like(rdir / "recover", MESH_RECOVER_STEPS, like,
+                                device=dev)
+    res["recover21_ckpt_equal"] = all(
+        torch.equal(back.params[k], rec.trainable[k]) for k in rec.trainable)
+    del api32, params32, msk, rec, kept, sel, back
+    # the layer stack (2, 1)-sharded, written, and read on one device
+    tree = {"layers": params["layers"]}
+    lay = placement.Layout(specs_lib.param_pspecs(cfg, tree, mesh21), mesh21)
+    t0 = time.perf_counter()
+    ckpt.save(Path(root) / "layers21", 0,
+              placement.shard(tree, lay.specs, mesh21), shardings=lay)
+    res["layers21_save_s"] = time.perf_counter() - t0
+    back, man = ckpt.restore_like(Path(root) / "layers21", 0, tree,
+                                  device=dev)
+    res["layers21_equal"] = all(
+        torch.equal(a, b) for a, b in zip(adamw.tree_leaves(back),
+                                          adamw.tree_leaves(tree)))
+    res["layers21_shards"] = sorted({len(e["shards"])
+                                     for e in man["leaves"]})
+    return res
+
+
 def mesh_rank(rank: int, root: str, device: str = "cuda",
               tiny: bool = False) -> None:
     """Phase 4d (b), one of MESH_RANKS processes sharing the card over gloo
-    (NCCL refuses two ranks on one device): calibration split over "data"
-    against the single-device Grams, prune_model(mesh=) at PerRow(0.6)
-    from the single-device Grams, and the Gram-sharded refiner on w_down's
-    first rows at k = 1 and 8 against the single-device refine. Results
-    (or the traceback) to ``root/rank<r>.json``."""
+    (NCCL refuses two ranks on one device): on the (2, 1) mesh
+    calibration split over "data" against the single-device Grams and
+    prune_model(mesh=) at PerRow(0.6) from the single-device Grams; on
+    (1, 2) the Gram-sharded w_down on its calibration shard
+    (``gram_regime_rank``); then phase 9d (b) (``mesh_train_rank``).
+    Results (or the traceback) to ``root/rank<r>.json``."""
     out = Path(root) / f"rank{rank}.json"
     try:
         sys.path.insert(0, str(SRC))
@@ -4445,11 +4788,9 @@ def mesh_rank(rank: int, root: str, device: str = "cuda",
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         from repro_torch import configs, models, pruning
-        from repro_torch.core import masks, sparseswaps
-        from repro_torch.core.warmstart import warmstart_mask
+        from repro_torch.core import masks
         from repro_torch.kernels import ops
         from repro_torch.launch import mesh as mesh_lib
-        from repro_torch.pruning import distributed
 
         res = {}
         mesh_lib.init_distributed(device, backend="gloo",
@@ -4491,23 +4832,16 @@ def mesh_rank(rank: int, root: str, device: str = "cuda",
         res["launches"] = dict(ops.LAUNCHES)
         res["digest60"] = digest(mask_leaves(rep.masks))
         del rep
-        W = params["layers"]["mlp"]["w_down"][0][:MESH_G_ROWS]
-        G = taps["w_down"]["g"][0]
-        m0 = warmstart_mask(W.float(), G, pattern, "wanda")
-        for k in (1, 8):
-            sync(device == "cuda")
-            t0 = time.perf_counter()
-            m, _, l1 = distributed.refine_g_sharded(W, G, m0, pattern, mesh,
-                                                    t_max=T_MAX, k_swaps=k)
-            sync(device == "cuda")
-            t_g = time.perf_counter() - t0
-            one = sparseswaps.refine(W, G, m0, pattern, t_max=T_MAX,
-                                     k_swaps=k)
-            res[f"gram_k{k}"] = {
-                "s": t_g, "swaps": int((m - m0).abs().sum()) // 2,
-                "masks_equal": bool(torch.equal(m, one.mask)),
-                "losses_equal": bool(torch.equal(l1, one.loss_final)),
-                "digest": digest([m > 0.5])}
+        ops.reset_launches()
+        res["gram"] = gram_regime_rank(rank, api, params, batches, taps,
+                                       pattern, device)
+        del taps, params, batches
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        res["train"] = mesh_train_rank(
+            rank, root, mesh, mesh_lib.make_host_mesh(data=1,
+                                                      model=MESH_RANKS),
+            device, tiny)
         out.write_text(json.dumps(res))
         torch.distributed.destroy_process_group()
     except Exception:
@@ -4526,11 +4860,14 @@ def _leaves_of(tree) -> list:
 
 def mesh_two_ranks(digest60: str, taps_digest: str, device: str = "cuda",
                    tiny: bool = False) -> dict:
-    """Phase 4d (b): MESH_RANKS spawned ranks on the card over gloo, (2, 1)
-    ("data", "model"). Each must find the single-device Grams of phase 5,
-    calibration Grams within tolerance, phase 4's masks, and the
-    Gram-sharded refine bitwise the single-device one at k = 1 and 8.
-    Returns the ranks' launches summed and their times."""
+    """Phase 4d (b) and 9d (b): MESH_RANKS spawned ranks on the card over
+    gloo. On (2, 1) each must find the single-device Grams of phase 5,
+    calibration Grams within tolerance and phase 4's masks; on (1, 2) its
+    calibration shard of w_down's Gram bitwise the single-device Gram's
+    columns, the Gram-sharded refine bitwise one device's run of the same
+    column split at k = 1 and 8, and its peak under the plan's per-rank
+    reckoning; and 9d (b)'s gates (``mesh_train_rank``). Returns the
+    ranks' launches summed and per rank, and their times."""
     import multiprocessing as mp
     import tempfile
 
@@ -4555,6 +4892,11 @@ def mesh_two_ranks(digest60: str, taps_digest: str, device: str = "cuda",
                 f"4d (b): exit codes {codes}\n" + "\n".join(errs))
         res = [json.loads(Path(root, f"rank{r}.json").read_text())
                for r in range(MESH_RANKS)]
+        # every file the ranks wrote is still there (no checkpoint was
+        # superseded): their stores, checkpoints and JSON
+        written = sum(f.stat().st_size for f in Path(root).rglob("*")
+                      if f.is_file())
+    CHILD_WRITES[0] += written
     for r, x in enumerate(res):
         require(x["taps_digest"] == taps_digest,
                 f"4d (b) rank {r}: its single-device Grams are not phase "
@@ -4562,25 +4904,91 @@ def mesh_two_ranks(digest60: str, taps_digest: str, device: str = "cuda",
         require(x["digest60"] == digest60,
                 f"4d (b) rank {r}: mesh PerRow(0.6) masks {x['digest60']}, "
                 f"phase 4's {digest60}")
-        for k in (1, 8):
-            g = x[f"gram_k{k}"]
-            require(g["masks_equal"] and g["losses_equal"] and g["swaps"],
-                    f"4d (b) rank {r}: Gram-sharded refine at k = {k}: {g}")
-        log(f"   (b) rank {r}: calibration over data ({MESH_CALIB_BATCHES} "
-            f"batches) {x['calib_s']:.2f} s, Grams within "
-            f"{x['gram_gap']:.3g} of max|G|; prune_model(mesh) "
+        log(f"   (b) rank {r}, (2, 1): calibration over data "
+            f"({MESH_CALIB_BATCHES} batches) {x['calib_s']:.2f} s, Grams "
+            f"within {x['gram_gap']:.3g} of max|G|; prune_model(mesh) "
             f"{x['prune_s']:.2f} s, masks digest {x['digest60']} == phase "
-            f"4's; Gram-sharded w_down[:{MESH_G_ROWS}] k=1 "
-            f"{x['gram_k1']['s']:.2f} s ({x['gram_k1']['swaps']} swaps, "
-            f"digest {x['gram_k1']['digest']}), k=8 {x['gram_k8']['s']:.2f} "
-            f"s ({x['gram_k8']['swaps']} swaps, digest "
-            f"{x['gram_k8']['digest']}), bitwise the single-device refine; "
-            f"launches {x['launches']}")
+            f"4's; launches {x['launches']}")
+        g = x["gram"]
+        require(g["paths"]["layers.mlp.w_down"] == "gram-sharded"
+                and g["shard_equal"],
+                f"4d (b) rank {r}, (1, 2): w_down {g['paths']}, its "
+                f"calibration shard bitwise the Gram's columns: "
+                f"{g['shard_equal']}")
+        total = g["reckoning"]["total"]
+        for k in (1, 8):
+            gk = g[f"gram_k{k}"]
+            require(gk["masks_equal"] and gk["losses_equal"] and gk["swaps"],
+                    f"4d (b) rank {r}: Gram-sharded refine at k = {k}: {gk}")
+            # the reckoning at the rows refined here, and below what a
+            # rank holding w_down's G whole beside its block would take
+            whole_g = 4 * g["block"][-2] ** 2 + 4 * g["block"][-2] * g[
+                "block"][-1]
+            require(gk["peak"] <= min(total, g["reckoning_rows"])
+                    and gk["peak"] < whole_g,
+                    f"4d (b) rank {r}: the Gram-sharded group's peak "
+                    f"{gk['peak'] / 1e9:.3f} GB is over the plan's "
+                    f"reckoning {total / 1e9:.3f} GB, its reckoning at "
+                    f"{MESH_G_ROWS} rows {g['reckoning_rows'] / 1e9:.3f} "
+                    f"GB, or G whole and the block {whole_g / 1e9:.3f} GB")
+        log(f"   (b) rank {r}, (1, 2): calibration (16 batches, Grams over "
+            f"\"model\") {g['calib_s']:.2f} s, w_down's block "
+            f"{g['block']} bitwise the Gram's columns; Gram-sharded "
+            f"w_down[:{MESH_G_ROWS}] through the engine k=1 "
+            f"{g['gram_k1']['s']:.2f} s ({g['gram_k1']['swaps']} swaps, "
+            f"digest {g['gram_k1']['digest']}), k=8 "
+            f"{g['gram_k8']['s']:.2f} s ({g['gram_k8']['swaps']} swaps, "
+            f"digest {g['gram_k8']['digest']}), bitwise one device's run "
+            f"of the same column split (the all-columns carry's masks "
+            f"equal: k=1 {g['gram_k1']['all_columns_masks_equal']}, k=8 "
+            f"{g['gram_k8']['all_columns_masks_equal']}); peak during the "
+            f"group k=1 {g['gram_k1']['peak'] / 1e9:.3f} GB, k=8 "
+            f"{g['gram_k8']['peak'] / 1e9:.3f} GB, under the plan's "
+            f"per-rank reckoning {total / 1e9:.3f} GB (G block "
+            f"{g['reckoning']['gram'] / 1e9:.3f} GB, w_down's whole G "
+            f"{g['block'][-2] ** 2 * 4 / 1e9:.3f}; at {MESH_G_ROWS} rows "
+            f"{g['reckoning_rows'] / 1e9:.3f} GB); launches "
+            f"{g['launches']}")
+        t = x["train"]
+        rec, rbf = t["recover21_float32"], t["recover21_bfloat16"]
+        require(t["step12_equal"],
+                f"9d (b) rank {r}: the (1, 2) train step differs from one "
+                "device's")
+        require(t["state_bytes"][0] == t["state_bytes"][1],
+                f"9d (b) rank {r}: state bytes {t['state_bytes']}")
+        require(rec["off"] <= 1e-3 * rec["n"]
+                and rec["max_abs"] <= 1e-3 * MESH_RECOVER_STEPS
+                and all(math.isclose(a, b, rel_tol=MESH_RTOL)
+                        for a, b in zip(rec["ce"], rec["ce_one"])),
+                f"9d (b) rank {r}: the float32 (2, 1) recovery is off one "
+                f"device's: {rec}")
+        require(t["recover21_ckpt_equal"] and t["layers21_equal"],
+                f"9d (b) rank {r}: a (2, 1) checkpoint read on one device "
+                "differs")
+        log(f"   (9d b) rank {r}: (1, 2) train step {t['step12_s']:.2f} s, "
+            f"loss {t['step12_loss']:.4f}, params and moments bitwise one "
+            f"device's, {t['state_bytes'][0] / 1e9:.3f} GB of state a rank "
+            f"== the reckoning; (2, 1) norms_biases recovery "
+            f"{MESH_RECOVER_STEPS} steps in float32 {rec['s']:.2f} s, CE "
+            f"{[round(c, 6) for c in rec['ce']]} (one device "
+            f"{[round(c, 6) for c in rec['ce_one']]}), {rec['off']} of "
+            f"{rec['n']} trained entries past 1e-6 + {MESH_RTOL}·|one "
+            f"device's| (max |diff| {rec['max_abs']:.3g}); in bf16 (not "
+            f"gated) {rbf['s']:.2f} s, CE {[round(c, 4) for c in rbf['ce']]}"
+            f" (one device {[round(c, 4) for c in rbf['ce_one']]}), "
+            f"{rbf['off']} entries past it (max |diff| "
+            f"{rbf['max_abs']:.3g}); its float32 step-"
+            f"{MESH_RECOVER_STEPS} checkpoint and the (2, 1) layer stack "
+            f"(shards a leaf {t['layers21_shards']}, saved in "
+            f"{t['layers21_save_s']:.2f} s) read on one device bitwise")
     log(f"   (b) {MESH_RANKS} ranks over gloo: {wall:.2f} s wall, spawn "
-        f"included")
-    launches = {k: sum(x["launches"][k] for x in res)
-                for k in res[0]["launches"]}
-    return {"launches": launches, "per_rank": [x["launches"] for x in res],
+        f"included, {written / 1e9:.3f} GB of files written")
+    per_rank = [{k: x["launches"][k] + x["gram"]["launches"][k]
+                 for k in x["launches"]} for x in res]
+    launches = {k: sum(x[k] for x in per_rank) for k in per_rank[0]}
+    return {"launches": launches, "per_rank": per_rank,
+            "per_rank_21": [x["launches"] for x in res],
+            "per_rank_12": [x["gram"]["launches"] for x in res],
             "prune_s": max(x["prune_s"] for x in res)}
 
 
@@ -4836,12 +5244,13 @@ def main() -> int:
         del api, params, masks_6c
     torch.cuda.empty_cache()
     with Phase("9 training and recovery: train, prune --from-ckpt, "
-               "recover, export, serve the export"):
+               "recover, export, serve the export; 9d (a) on a one-rank "
+               "mesh"):
         cfg9 = cfg.replace(name=f"{cfg.name}-L{P9_LAYERS}-V{P9_VOCAB}",
                            n_layers=P9_LAYERS, vocab_size=P9_VOCAB)
         log(f"   config: {cfg9.name}: llama31-8b's layer widths, depth "
             f"{P9_LAYERS}, vocabulary {P9_VOCAB} (the write budget)")
-        rec_launches = train_recover_path(cfg9, smi)
+        rec_launches = train_recover_path(cfg9, smi, mesh=True)
         log(f"   launches {rec_launches}")
     torch.cuda.empty_cache()
     with Phase("9m MoE training and recovery: train, prune --from-ckpt, "
@@ -4872,8 +5281,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # last: a process group (NCCL) and two spawned ranks in a long run
     # come after every profiled phase
-    with Phase("4d mesh prune: one rank over NCCL, two ranks on the card "
-               "over gloo"):
+    with Phase("4d mesh prune and 9d (b) mesh training: one rank over "
+               "NCCL, two ranks on the card over gloo"):
         import tempfile
 
         api = models.build(cfg)
@@ -4905,9 +5314,17 @@ def main() -> int:
         per_rank = {"gram_xtx_bf16": main_launches["gram_xtx_bf16"]
                     * MESH_CALIB_BATCHES // n_batches,
                     "swap_topk": main_launches["swap_topk"]}
-        for r, got in enumerate(mesh_two["per_rank"]):
+        for r, got in enumerate(mesh_two["per_rank_21"]):
             require(all(got[k] == v for k, v in per_rank.items()),
                     f"4d (b) rank {r} launches {got}, want {per_rank}")
+        # (1, 2): each rank runs every batch whole (one Gram a tap and
+        # batch); the Gram-sharded search is plain torch
+        per_rank = {"gram_xtx_bf16": main_launches["gram_xtx_bf16"],
+                    "swap_topk": 0}
+        for r, got in enumerate(mesh_two["per_rank_12"]):
+            require(all(got[k] == v for k, v in per_rank.items()),
+                    f"4d (b) rank {r}, (1, 2): launches {got}, want "
+                    f"{per_rank}")
         log(f"   prune_model PerRow(0.6): one device {t_prune:.2f} s "
             f"(phase 4), a one-rank mesh {mesh_one['prune_s']:.2f} s, "
             f"{MESH_RANKS} ranks sharing the card "

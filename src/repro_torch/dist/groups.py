@@ -180,6 +180,15 @@ def axis_group(mesh, axes) -> Group:
     return Group(pg=pg, order=order, index=linear(dist.get_rank()))
 
 
+def coords(mesh, rank: int | None = None) -> dict[str, int]:
+    """{axis: coordinate} of ``rank`` (default: this process's) on the
+    row-major mesh."""
+    sizes = axis_sizes(mesh)
+    rank = dist.get_rank() if rank is None else rank
+    return dict(zip(sizes, (int(c) for c in np.unravel_index(
+        rank, tuple(sizes.values())))))
+
+
 def all_axes(mesh) -> tuple[str, ...]:
     return tuple(axis_sizes(mesh))
 

@@ -84,6 +84,25 @@ def make_host_mesh(*, data: int | None = None, model: int = 1):
 
 
 @contextlib.contextmanager
+def launcher_mesh(name: str | None, device):
+    """A launcher's ``--mesh``: None without ``name``, else "production"
+    (``make_production_mesh``) or "host" (``make_host_mesh``) over the
+    process group from torchrun's environment. A group made here is
+    destroyed on the way out; one that existed already is left for its
+    owner."""
+    if name is None:
+        yield None
+        return
+    owned = init_distributed(device)
+    try:
+        yield (make_production_mesh() if name == "production"
+               else make_host_mesh())
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
 def activate(mesh, cfg_arch=None, *, seq_parallel: bool = True):
     """Install the logical-axis rules that match ``mesh`` and the config
     for the extent of the block."""

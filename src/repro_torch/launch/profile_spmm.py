@@ -28,7 +28,9 @@ clock64 counters (``PHASES``); it is not timed, but prints, per shape on
 PerRow(0.6), where the scatter warps and the multiplying (and copying)
 warps spend their clocks. ``--variants shipped`` builds no copies, so
 the script also runs on an older tree of the repository (copied into
-it) to time that tree's kernels. Needs the card, nvcc and the CUDA toolkit; writes
+it) to time that tree's kernels. ``--events`` also times each call by
+CUDA events behind its flush, the fallback ``cold_device_ms`` takes
+where the profiler loses records. Needs the card, nvcc and the CUDA toolkit; writes
 only under ``build/repro_torch/``.
 """
 from __future__ import annotations
@@ -37,6 +39,7 @@ import argparse
 import ctypes
 import statistics
 import subprocess
+import sys
 
 import torch
 
@@ -282,14 +285,17 @@ def cold_device_ms(fn, reps: int = REPS,
     (for spmm the product kernel and its split reduction) — the flush's
     kernel excluded by name, the host's work between launches never
     counted. A trace that lost kernel records (fewer flushes than calls)
-    is measured again, up to ``tries`` times. ``chip_smoke.py`` times
-    spmm and the Gram with it too."""
+    is measured again, up to ``tries`` times; past that the calls are
+    timed by CUDA events (``events_cold_ms``) and a line on stderr says
+    so. ``chip_smoke.py`` times spmm and the Gram with it too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(128 * 2**20 // 4, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
+    calls: list[float] = []
+    seen = 0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             profiler_preroll()          # before the first flush: not counted
@@ -297,18 +303,40 @@ def cold_device_ms(fn, reps: int = REPS,
                 flush.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
-        calls: list[float] = []
+        calls, seen = [], 0
         for e in sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start):
+            seen += 1
             if FLUSH in e.name:
                 calls.append(0.0)
             elif calls:
                 calls[-1] += e.time_range.elapsed_us() / 1e3
         if len(calls) == reps and all(c > 0 for c in calls):
             return statistics.median(calls), min(calls), max(calls)
-    raise RuntimeError(f"the profiler saw {len(calls)} flushed calls, want "
-                       f"{reps}, each with a kernel ({tries} tries)")
+    print(f"cold_device_ms: the profiler saw {len(calls)} of {reps} flushed "
+          f"calls ({seen} device records in its last trace, {tries} tries);"
+          f" timed by CUDA events instead", file=sys.stderr, flush=True)
+    calls = events_cold_ms(fn, reps, flush)
+    return statistics.median(calls), min(calls), max(calls)
+
+
+def events_cold_ms(fn, reps: int, flush: torch.Tensor) -> list[float]:
+    """Each of ``reps`` calls of ``fn()`` in ms, by a pair of CUDA events
+    around it, with ``flush`` rewritten before each: the device's time
+    from the flush's end to the call's last kernel. The host queues the
+    call while the flush runs (it moves 256 MB), so a call whose
+    launches take less host time than that is timed as device work; a
+    longer one counts the device's wait for the host too."""
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        flush.bitwise_not_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in marks]
 
 
 def main() -> None:
@@ -316,6 +344,10 @@ def main() -> None:
     ap.add_argument("--variants", default="all",
                     help="comma list of shipped, cut names and phases, or "
                          "all")
+    ap.add_argument("--events", action="store_true",
+                    help="also time each call by CUDA events, as "
+                         "cold_device_ms does where the profiler loses "
+                         "records")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_spmm: needs a CUDA device")
@@ -361,9 +393,14 @@ def main() -> None:
                     runs = runs[1:]
                 for name, lib in runs:
                     med, lo, hi = cold_device_ms(_runner(lib, x, pw, y))
+                    ev = (cold_device_ms(_runner(lib, x, pw, y), tries=0)
+                          if args.events else None)
                     print(f"{tag} ({d_out}x{d_in}) T={T} {fmt} {mask_tag} "
                           f"K={pw.k} {name:10s} {med:.4f} [{lo:.4f}-{hi:.4f}] "
-                          "ms", flush=True)
+                          "ms" + ("" if ev is None else
+                                  f", CUDA events {ev[0]:.4f} "
+                                  f"[{ev[1]:.4f}-{ev[2]:.4f}] ms"),
+                          flush=True)
                 if phase_lib is not None and fmt == "gathered" \
                         and mask_tag == "0.6":
                     print_phases(phase_lib, tag, T, x, pw, y)

@@ -52,24 +52,26 @@ D`` serves the recovered model.
 
 Calibration batches split over the data axes where they divide, the
 sparseswaps groups refine over the mesh (``pruning.distributed``: rows
-split, or G's columns past the replication budget; the masks bitwise a
-single device's), and only rank 0 prints the report and writes
-``--out-dir``. One process per card runs NCCL; ``--device cpu`` runs gloo.
-Recovery on a mesh is not ported (ROADMAP A5) and raises before any work.
+split, or G's columns past the replication budget, each rank on its
+column block), ``--recover`` trains its selection sharded over the mesh
+(``pruning.recover``: the state by ``state_pspecs``, the batches over the
+data axes, checkpoints in the sharded layout), and only rank 0 evaluates,
+prints the report and writes ``--out-dir``. One process per card runs
+NCCL; ``--device cpu`` runs gloo; two ranks sharing one card pass
+``backend="gloo"`` to ``launch.mesh.init_distributed`` before calling
+``prune``.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 from pathlib import Path
 
-import torch.distributed as dist
-
 from repro_torch import ckpt, configs, models, pruning
 from repro_torch.device import disable_tf32, resolve_device
 from repro_torch.dist import groups as groups_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.pruning.executor import changed_leaves
 from repro_torch.train import steps as steps_lib
 
@@ -109,12 +111,13 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
     ``recover``. ``mesh``: None (one device), "host" (every rank of the
     world) or "production" (16 x 16); the process group comes from
     torchrun's environment unless one exists already (and is then left
-    for its owner to destroy). Returns the report, the evaluations, the
-    plan, the calibration statistics and the executor (for
-    ``export_packed``), and with recovery its result and evaluation."""
+    for its owner to destroy). Returns the report, the evaluations (None
+    on a mesh's other ranks: rank 0 alone evaluates), the plan, the
+    calibration statistics and the executor (for ``export_packed``), and
+    with recovery its result and evaluation."""
     dev = resolve_device(device)
     disable_tf32()
-    with _mesh_of(mesh, dev) as mesh_obj:
+    with mesh_lib.launcher_mesh(mesh, dev) as mesh_obj:
         if not groups_lib.is_main(mesh_obj):      # rank 0 alone prints
             verbose, callback = False, None
         cfg = configs.get_tiny(arch) if tiny else configs.get(arch)
@@ -158,11 +161,15 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
             callback=callback if callback is not None
             else (pruning.PrintProgress() if verbose else None))
         report = executor.run(batches)
+        main = groups_lib.is_main(mesh_obj)
         eval_params = (report.updated_params
                        if report.updated_params is not None else params)
-        dense_eval = pruning.evaluate(api, params, seed=seed, device=dev)
-        sparse_eval = pruning.evaluate(api, eval_params, masks=report.masks,
-                                       seed=seed, device=dev)
+        dense_eval = sparse_eval = None
+        if main:
+            dense_eval = pruning.evaluate(api, params, seed=seed, device=dev)
+            sparse_eval = pruning.evaluate(api, eval_params,
+                                           masks=report.masks, seed=seed,
+                                           device=dev)
         if verbose:
             print(report.summary())
             print(f"dense : ppl {dense_eval['perplexity']:.2f}  "
@@ -178,7 +185,7 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
             result["recover_result"] = rec_res
             result["recovered"] = pruning.evaluate(
                 api, report.updated_params, masks=report.masks, seed=seed,
-                device=dev)
+                device=dev) if main else None
             if verbose:
                 rv = result["recovered"]
                 print(f"recovered ({plan.recover.select}, "
@@ -187,7 +194,7 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
                       f"ppl {rv['perplexity']:.2f}  "
                       f"acc {100*rv['accuracy']:.2f}%")
         if out_dir:
-            if groups_lib.is_main(mesh_obj):
+            if main:
                 write_out_dir(Path(out_dir), arch, rec, params, report,
                               dense_eval, sparse_eval,
                               recovered=result.get("recovered"),
@@ -197,23 +204,6 @@ def prune(arch: str, *, tiny: bool = False, pattern="0.6",
                                       groups_lib.all_axes(mesh_obj)).barrier()
         return result
 
-
-@contextlib.contextmanager
-def _mesh_of(name: str | None, dev):
-    """The launcher's mesh (None without ``name``); a process group made
-    here is destroyed on the way out."""
-    if name is None:
-        yield None
-        return
-    from repro_torch.launch import mesh as mesh_lib
-
-    owned = mesh_lib.init_distributed(dev)
-    try:
-        yield (mesh_lib.make_production_mesh() if name == "production"
-               else mesh_lib.make_host_mesh())
-    finally:
-        if owned:
-            dist.destroy_process_group()
 
 def write_out_dir(out: Path, arch: str, recipe, params, report,
                   dense_eval: dict, sparse_eval: dict, *,
@@ -299,8 +289,9 @@ def main(argv=None):
     ap.add_argument("--recover-lr", type=float, default=1e-3,
                     help="recovery peak learning rate (warmup-cosine)")
     ap.add_argument("--mesh", default=None, choices=["host", "production"],
-                    help="refine over a mesh of the torchrun world "
-                         "(host: every rank; production: 16 x 16)")
+                    help="prune (and recover) over a mesh of the "
+                         "torchrun world (host: every rank; production: "
+                         "16 x 16)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -85,8 +85,13 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: AdamWState, params,
-           masks=None) -> tuple[Any, AdamWState, dict]:
+           masks=None, *, gnorm=None) -> tuple[Any, AdamWState, dict]:
     """Returns (new_params, new_state, metrics).
+
+    ``gnorm``: the clip's global norm, when the caller took it over more
+    than these leaves (a rank's shards of a train state on a mesh: the
+    norm of the whole gradient tree, ``train.steps.sharded_update``);
+    default: ``global_norm`` of the (masked) ``grads``.
 
     With ``masks`` the mask invariant holds through the whole update:
     gradients are masked before the norm and the clip (``grad_norm``
@@ -98,7 +103,8 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params,
     if masks is not None:
         grads = apply_masks(grads, masks)
         params = apply_masks(params, masks)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                             1.0)
     step = state.step + 1

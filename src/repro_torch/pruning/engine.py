@@ -19,8 +19,12 @@ Mesh dispatch (``ctx.mesh``): the sparseswaps refiner routes each
 instance through ``distributed.refine_rows_sharded`` (rows over every
 mesh axis, G replicated). Unstructured sites whose fp32 Gram exceeds
 ``ctx.gram_budget_bytes`` (granite-34b's and the VLM's w_down) take the
-column-sharded ``refine_g_sharded`` instead. Both give the single-device
-masks bitwise.
+column-sharded ``refine_g_sharded`` instead, on this rank's (d, d / n)
+column block (``distributed.gram_split``; the executor hands it over,
+cut from calibration's "model" shard), warmstarted from the diagonal
+gathered from the blocks. The rows regime gives the single-device masks
+bitwise; the Gram regime gives them wherever the ΔL gaps exceed the
+rounding of its block-by-block initial carry.
 """
 from __future__ import annotations
 
@@ -57,10 +61,9 @@ class RefineContext:
     the reference's dense/chunked rule on the CPU. ``mesh``: refine
     sparseswaps groups over this mesh (``launch.mesh``);
     ``gram_budget_bytes``: the largest fp32 Gram the rows regime
-    replicates. It picks the regime only: the Gram-sharded regime splits
-    the search's columns, but every rank still receives G whole and takes
-    the initial carry over all rows (ROADMAP A5 item 5), so it does not
-    bound a rank's peak.
+    replicates; a larger one refines Gram-sharded, each rank holding its
+    column block (``PrunePlan.refine_bytes_per_device`` reckons a rank's
+    refine).
     """
 
     warmstart: str = "wanda"
@@ -269,12 +272,16 @@ def _refine_sparseswaps_sharded(W, gram, pattern, ctx):
     for i in range(N):
         Wi = W[i].float()
         Gi = gram.G[i]
-        m0 = warmstart_mask(Wi, Gi, pattern, ctx.warmstart)
         if regime == "gram":
+            # Gi: this rank's column block; the warmstart reads diag(G)
+            row_axes, col_axes = distributed.gram_split(mesh)
+            m0 = warmstart_mask(Wi, distributed.gram_diag(Gi, mesh),
+                                pattern, ctx.warmstart)
             out = distributed.refine_g_sharded(
                 Wi, Gi, m0, pattern, mesh, t_max=ctx.t_max, eps=ctx.eps,
-                k_swaps=k)
+                row_axes=row_axes, col_axes=col_axes, k_swaps=k)
         else:
+            m0 = warmstart_mask(Wi, Gi, pattern, ctx.warmstart)
             out = distributed.refine_rows_sharded(
                 Wi, Gi, m0, pattern, mesh, t_max=ctx.t_max, eps=ctx.eps,
                 chunk=CHUNK, k_swaps=k)

@@ -19,8 +19,12 @@ other's group checkpoints.
 On a mesh (``plan.mesh``) calibration shards over the data axes, the
 sparseswaps groups refine through the mesh's refiners and every rank
 ends with every mask; group checkpoints are written by rank 0 only, each
-write followed by a barrier, and read by every rank. Each group's Gram is
-gathered whole (from its "model" column blocks) when the group refines.
+write followed by a barrier, and read by every rank. A Gram-sharded
+group refines on this rank's column block of its Gram
+(``CalibStats.gram_block``), never gathered; its checkpoint's data hash
+covers the weights and the digests of every rank's block, so it resumes
+a mesh run of the same split. Every other group's Gram is gathered whole
+(from its "model" column blocks) when the group refines.
 
 Progress flows through a callback protocol (``PruneCallback``);
 ``PrintProgress`` prints one line per group. After ``run``, ``recover``
@@ -46,6 +50,7 @@ from repro_torch.dist import groups as groups_lib
 from repro_torch.models import ModelApi
 from repro_torch.runtime import fault_tolerance as ft
 
+from . import distributed
 from . import engine as engine_lib
 from . import plan as plan_lib
 from . import sites as sites_lib
@@ -189,6 +194,12 @@ def _data_fingerprint(g: sites_lib.SiteGroup) -> str:
     return h.hexdigest()
 
 
+def _walk(tree: dict, path: tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def _nest(path: tuple[str, ...], leaf) -> dict:
     for k in reversed(path):
         leaf = {k: leaf}
@@ -275,14 +286,38 @@ class PruneExecutor:
         if mesh is not None:
             groups_lib.axis_group(mesh, groups_lib.all_axes(mesh)).barrier()
 
-    def _site_group(self, name: str) -> sites_lib.SiteGroup:
-        """Group ``name`` with its statistics, the Gram whole."""
-        taps = self.taps
-        if self.stats is not None and self.stats.model is not None:
-            tpath = sites_lib.tap_path(self.api.cfg, name)
+    def _site_group(self, pg: plan_lib.PlannedGroup) -> sites_lib.SiteGroup:
+        """Group ``pg`` with its statistics: a Gram-sharded group's Gram as
+        this rank's column block, every other group's whole."""
+        taps, mesh = self.taps, self.plan.mesh
+        tpath = sites_lib.tap_path(self.api.cfg, pg.name)
+        if pg.engine_path == "gram-sharded":
+            if self.stats is not None:
+                ent = self.stats.gram_block(tpath, mesh)
+            else:
+                ent = stats_lib.gram_block(_walk(taps, tpath), None, mesh)
+            taps = _nest(tpath, ent)
+        elif self.stats is not None and self.stats.model is not None:
             taps = _nest(tpath, self.stats.entry(tpath))
         return sites_lib.enumerate_sites(self.api.cfg, self.params, taps,
-                                         only={name})[0]
+                                         only={pg.name})[0]
+
+    def _fingerprint(self, pg: plan_lib.PlannedGroup,
+                     g: sites_lib.SiteGroup) -> str:
+        """``_data_fingerprint``; a Gram-sharded group hashes its weights
+        and the digests of every rank's column block, in block order."""
+        if self.ckpt_dir is None:
+            return ""
+        if pg.engine_path != "gram-sharded":
+            return _data_fingerprint(g)
+        mesh = self.plan.mesh
+        cg = groups_lib.axis_group(mesh, distributed.gram_split(mesh)[1])
+        mine = hashlib.sha256(_raw_bytes(g.gram.G)).digest()
+        digests = cg.all_gather(torch.frombuffer(
+            bytearray(mine), dtype=torch.uint8).to(g.gram.G.device))
+        h = hashlib.sha256(_raw_bytes(g.weights))
+        h.update(digests.cpu().numpy().tobytes())
+        return h.hexdigest()
 
     def _restore_group(self, pg: plan_lib.PlannedGroup,
                        g: sites_lib.SiteGroup,
@@ -375,9 +410,9 @@ class PruneExecutor:
         groups: dict[str, sites_lib.SiteGroup] = {}
         for i, pg in enumerate(active):
             # skip-listed groups never touch their (absent) taps
-            g = self._site_group(pg.name)
+            g = self._site_group(pg)
             self.callback.on_group_start(pg, i, len(active))
-            fp = _data_fingerprint(g) if self.ckpt_dir is not None else ""
+            fp = self._fingerprint(pg, g)
             res = self._restore_group(pg, g, fp)
             restored = res is not None
             if res is None:
@@ -432,7 +467,8 @@ class PruneExecutor:
         the report's ``updated_params`` when the refiner produced them
         (sparsegpt), checkpoints under ``<ckpt_dir>/recover``, and
         installs the recovered tree in the report: the next
-        ``export_packed()`` ships it.
+        ``export_packed()`` ships it. On the plan's mesh it trains sharded
+        (``pruning.recover``), and every rank ends with the whole tree.
         """
         # ``from . import recover`` would resolve to the re-exported
         # function on the package, not this submodule
@@ -447,7 +483,7 @@ class PruneExecutor:
         base = (report.updated_params
                 if report.updated_params is not None else self.params)
         res = _recover(self.api, base, report.masks, spec,
-                       ckpt_dir=self.ckpt_dir,
+                       mesh=self.plan.mesh, ckpt_dir=self.ckpt_dir,
                        checkpoint_every=checkpoint_every, batches=batches,
                        verbose=verbose)
         report.updated_params = res.params

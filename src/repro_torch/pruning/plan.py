@@ -27,6 +27,7 @@ import warnings
 from repro_torch.dist import groups as groups_lib
 from repro_torch.dist import specs as specs_lib
 
+from . import distributed
 from . import engine as engine_lib
 from . import recipe as recipe_lib
 from . import sites as sites_lib
@@ -163,10 +164,33 @@ class PrunePlan:
 
     def calib_bytes_per_device(self, *, minimal: bool = True) -> int:
         """The calibration accumulator's bytes on one rank (Gram columns
-        over "model", as ``calib_pspecs`` splits them). The refine gathers
-        a group's Gram whole on every rank; that is not counted here."""
+        over "model", as ``calib_pspecs`` splits them). The refine's own
+        bytes are ``refine_bytes_per_device``'s."""
         return sum(self._calib_device_bytes(t, lvl)
                    for t, lvl in self.calib_costs(minimal=minimal))
+
+    def refine_costs(self) -> dict:
+        """{group: ``distributed.refine_bytes`` of one instance on one
+        rank} for every active group: the Gram regime's (d, d / n) column
+        block, or G whole in the rows regime (and on one device), plus
+        the carry and the ΔL blocks."""
+        mesh = self.mesh if self.mesh is not None else {"data": 1}
+        out = {}
+        for g in self.active_groups:
+            if g.engine_path in ("rows-sharded", "gram-sharded"):
+                regime, on = g.engine_path.split("-")[0], mesh
+            else:
+                regime, on = "rows", {"data": 1}
+            out[g.name] = distributed.refine_bytes(
+                regime, g.spec.d_out, g.spec.d_in, on)
+        return out
+
+    def refine_bytes_per_device(self) -> int:
+        """The largest group's refine reckoning on one rank (its Gram there
+        plus the carry and the ΔL blocks, ``refine_costs``); 0 when no
+        group refines."""
+        return max((c["total"] for c in self.refine_costs().values()),
+                   default=0)
 
     def describe(self) -> str:
         """The dry-run table: every group, its treatment, its cost."""
@@ -203,6 +227,15 @@ class PrunePlan:
             f"{self.total_weight_bytes()/2**20:.1f} MiB, G "
             f"{self.total_gram_bytes()/2**20:.1f} MiB (budget "
             f"{self.gram_budget_bytes/2**20:.0f} MiB/device)")
+        costs = self.refine_costs()
+        if costs:
+            name = max(costs, key=lambda k: costs[k]["total"])
+            c = costs[name]
+            lines.append(
+                f"refine: {c['total']/2**20:.1f} MiB/device at the largest "
+                f"group ({name}: G {c['gram']/2**20:.1f}, rows "
+                f"{c['rows']/2**20:.1f}, carry {c['carry']/2**20:.1f}, "
+                f"ΔL {c['delta']/2**20:.1f} MiB)")
         single = self.single_device_groups()
         if single:
             lines.append(
@@ -263,14 +296,9 @@ def plan_pruning(api, params, recipe: recipe_lib.PruneRecipe, *,
 
     Pure shape arithmetic: ``params`` may live on ``device="meta"`` and no
     calibration is required. A recipe's attached recovery (``recover=``)
-    rides along as ``PrunePlan.recover``; with a ``mesh`` it raises
-    ``NotImplementedError`` here, before any work (sharded recovery is
-    ROADMAP A5).
+    rides along as ``PrunePlan.recover``; on a mesh it trains sharded
+    (``pruning.recover``).
     """
-    if mesh is not None and recipe.recover is not None:
-        raise NotImplementedError(
-            "recovery on a mesh is not ported yet (ROADMAP A5, item 1: "
-            "sharded recovery)")
     specs = sites_lib.site_specs(api.cfg, params)
     recipe.validate(specs)
     groups = []

@@ -17,6 +17,14 @@ of the pruning-induced loss at a fraction of the cost:
   ``<ckpt_dir>/recover`` keyed by the spec's fingerprint, in the
   reference's format and leaf paths: a rerun with other knobs recomputes,
   never restores, and each package resumes the other's run.
+* ``recover(mesh=)`` holds the selection's TrainState sharded by
+  ``dist.specs.state_pspecs`` and splits each batch over the data axes
+  (``batch_pspecs``): a step gathers the selection, runs its slice,
+  all-reduces the gradients and updates the rank's shard
+  (``train.steps.mesh_value_and_grad`` / ``sharded_update``). Its
+  checkpoints are the sharded layout (``ckpt.save(shardings=)``), and a
+  resume restores each rank's block. One rank, or a mesh whose data axes
+  are 1, gives one device's recovery bitwise.
 * The result's ``params`` is a full spliced tree: ``PruneExecutor.recover``
   installs it as the report's ``updated_params``, ``export_packed``
   dumps the changed leaves, and ``launch.serve --masks-from`` splices
@@ -41,6 +49,8 @@ import torch
 
 from repro_torch import ckpt
 from repro_torch.core.packed import _copy_dicts as _copy
+from repro_torch.dist import groups as groups_lib
+from repro_torch.dist import placement
 from repro_torch.core.packed import _get, _set
 from repro_torch.models import ModelApi
 from repro_torch.optim import adamw
@@ -262,9 +272,24 @@ def build_selection(params, masks, spec: RecoverSpec) -> _Selection:
 # ---------------------------------------------------------------------------
 
 def _make_step(api: ModelApi, masks, sel: _Selection,
-               opt_cfg: adamw.AdamWConfig):
+               opt_cfg: adamw.AdamWConfig,
+               layout: placement.Layout | None = None):
     """(base, state, batch) -> (state, metrics); ``base`` is the frozen
-    full tree, the state's params the trainable leaves."""
+    full tree, the state's params the trainable leaves (this rank's
+    shards of them on ``layout``'s mesh)."""
+    if layout is not None:
+        mesh = layout.mesh
+
+        def mesh_step(base, state, batch):
+            tr = placement.gather(state.params, layout.specs.params, mesh)
+            loss, aux, grads = steps_lib.mesh_value_and_grad(
+                api, lambda t: sel.merge(base, t), tr, batch, mesh,
+                masks=masks)
+            new_state, om = steps_lib.sharded_update(
+                opt_cfg, grads, state, layout, masks=sel.opt_masks)
+            return new_state, {"loss": loss, "ce": aux["ce"], **om}
+
+        return mesh_step
 
     def step(base, state, batch):
         def loss_fn(tr):
@@ -290,8 +315,11 @@ def _calib_batch_fn(cfg, spec: RecoverSpec, device):
     return lambda i: synthetic.with_modality(pipe.get(i), cfg, spec.seed, i)
 
 
-def _try_resume(rdir: Path, spec: RecoverSpec, state):
-    """(start_step, state) from the newest matching recovery checkpoint."""
+def _try_resume(rdir: Path, spec: RecoverSpec, state, layout=None,
+                like=None):
+    """(start_step, state) from the newest matching recovery checkpoint;
+    on ``layout``'s mesh each rank's block of it (``like``: the whole
+    state's shapes)."""
     step = ckpt.latest_valid(rdir)
     if step is None:
         return 0, state
@@ -303,7 +331,12 @@ def _try_resume(rdir: Path, spec: RecoverSpec, state):
     if man.get("extra", {}).get("recover_spec") != spec.fingerprint():
         return 0, state
     try:
-        tree, _ = ckpt.restore_like(rdir, step, state)
+        if layout is None:
+            tree, _ = ckpt.restore_like(rdir, step, state)
+        else:
+            tree, _ = ckpt.restore_like(rdir, step, like,
+                                        device=_device_of(state.params),
+                                        shardings=layout)
     except (KeyError, ValueError, OSError):
         return 0, state
     return min(step, spec.steps), tree
@@ -325,7 +358,9 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
             live on their device.
         masks: the executed plan's mask tree (``PruneReport.masks``).
         spec: a ``RecoverSpec``; default ``RecoverSpec()``.
-        mesh: sharded recovery is not ported (ROADMAP A5, item 1); raises.
+        mesh: shard the train state (``state_pspecs``) and the batches
+            (``batch_pspecs``) over this mesh; every rank calls it with
+            the same arguments and ends with the whole result.
         ckpt_dir: the executor's checkpoint root; recovery state lives
             under ``<ckpt_dir>/recover`` keyed by ``spec.fingerprint()``.
         checkpoint_every: persist the TrainState every k steps (plus a
@@ -333,27 +368,29 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
         batches: optional explicit batch list (cycled); default draws
             the spec's calibration stream.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded recovery is not ported yet (ROADMAP A5, item 1: "
-            "sharded recovery)")
     spec = spec if spec is not None else RecoverSpec()
     sel = build_selection(params, masks, spec)
     opt_cfg = spec.opt_config()
     state = steps_lib.TrainState(sel.trainable, adamw.init(sel.trainable))
     trainable_count = sum(t.numel() for t in adamw.tree_leaves(sel.trainable))
     total_count = sum(t.numel() for t in adamw.tree_leaves(params))
+    layout = like = None
+    if mesh is not None:
+        layout = steps_lib.state_layout(api, mesh, state)
+        like = placement.like(state)
+        state = steps_lib.shard_state(state, layout)
 
     get_batch = _calib_batch_fn(api.cfg, spec, _device_of(params))
     if batches is not None:
         pool = list(batches)
         get_batch = lambda i: pool[i % len(pool)]  # noqa: E731
 
-    step_fn = _make_step(api, masks, sel, opt_cfg)
+    step_fn = (_make_step(api, masks, sel, opt_cfg) if layout is None
+               else _make_step(api, masks, sel, opt_cfg, layout))
     rdir = Path(ckpt_dir) / "recover" if ckpt_dir is not None else None
     start = 0
     if rdir is not None:
-        start, state = _try_resume(rdir, spec, state)
+        start, state = _try_resume(rdir, spec, state, layout, like)
         if verbose and start:
             print(f"  recover: resumed at step {start}")
 
@@ -363,8 +400,10 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
         if step_no in ckpt.steps(rdir):
             return
         ckpt.save(rdir, step_no, state,
-                  extra={"recover_spec": spec.fingerprint()})
-        ckpt.gc(rdir, keep=2)
+                  extra={"recover_spec": spec.fingerprint()},
+                  shardings=layout)
+        if groups_lib.is_main(mesh):
+            ckpt.gc(rdir, keep=2)
 
     ce_hist: list[float] = []
     diverged = False
@@ -393,7 +432,7 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
     if diverged and rdir is not None:
         # roll back to the newest fingerprint-matched checkpoint; the
         # poisoned in-flight state is discarded either way
-        s2, state2 = _try_resume(rdir, spec, state)
+        s2, state2 = _try_resume(rdir, spec, state, layout, like)
         if s2 > 0:
             state, restored = state2, True
             if verbose:
@@ -408,10 +447,13 @@ def recover(api: ModelApi, params, masks, spec: RecoverSpec | None = None,
             steps_run=steps_run, start_step=start, ce_history=ce_hist,
             diverged=True)
 
+    trained = state.params
+    if layout is not None:
+        trained = placement.gather(trained, layout.specs.params, mesh)
     with torch.no_grad():
-        recovered = sel.merge(params, state.params)
+        recovered = sel.merge(params, trained)
     return RecoverResult(
-        params=recovered, spec=spec, trainable=state.params,
+        params=recovered, spec=spec, trainable=trained,
         trainable_count=trainable_count, total_count=total_count,
         steps_run=steps_run, start_step=start, ce_history=ce_hist,
         diverged=diverged)

@@ -75,7 +75,9 @@ class GramBatch:
     as in ``GramStats``, ``G`` is None at the moments level and ``diag``
     holds the (N, d_in) Σx² stack instead."""
 
-    G: torch.Tensor | None   # (N, d_in, d_in) fp32, or None (moments level)
+    # (N, d_in, d_in) fp32, or None (moments level); in a Gram-sharded
+    # group on a mesh this rank's (N, d_in, d_in / n) column block
+    G: torch.Tensor | None
     count: torch.Tensor      # (N,) token counts
     mean: torch.Tensor       # (N, d_in)
     diag: torch.Tensor | None = None   # (N, d_in) Σx², set when G is None

@@ -22,8 +22,10 @@ module plans, accumulates and checkpoints exactly that state:
   and the partial statistics merge by ``core.gram.psum_gram``. A batch
   that does not split is accumulated whole on every rank (with a
   warning). The Gram leaves follow ``dist.specs.calib_pspecs``: each rank
-  keeps its column block over "model", and ``CalibStats.entry`` /
-  ``full_taps`` gather the whole G where a group is refined.
+  keeps its column block over "model". ``CalibStats.gram_block`` hands
+  a Gram-sharded group that block as it is (the refiner's columns are
+  "model"'s, ``distributed.gram_split``); ``entry`` / ``full_taps``
+  gather the whole G for the rows-sharded groups.
 * checkpoint/resume under ``ckpt_dir`` in the reference's format, keyed by
   the spec fingerprint, so a resumed job never mixes statistics from a
   different recipe. On a mesh rank 0 writes the whole state and every
@@ -47,6 +49,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import ModelApi
 from repro_torch.models import common as common_lib
 
+from . import distributed
 from . import sites as sites_lib
 
 LEVELS = ("none", "moments", "gram")
@@ -170,6 +173,18 @@ class CalibStats:
             specs = specs[k] if specs is not None else None
         return ent if self.model is None else _whole(ent, specs, self.model)
 
+    def gram_block(self, path: tuple[str, ...], mesh) -> dict:
+        """One tap entry {g, s, n} with its Gram cut to this rank's
+        column block over the Gram-sharded refiner's column axes
+        (``distributed.gram_split``): the calibration shard over "model"
+        as it is, or a slice of a Gram calibration kept whole. G is never
+        gathered."""
+        ent, specs = self.taps, self.col_specs
+        for k in path:
+            ent = ent[k]
+            specs = specs[k] if specs is not None else None
+        return gram_block(ent, specs, mesh)
+
     def full_taps(self) -> dict:
         """The whole tap tree (every column block gathered)."""
         if self.model is None:
@@ -246,6 +261,22 @@ def _whole(tree, specs, grp: groups_lib.Group):
         return tree
     parts = grp.all_gather(tree)                   # (P, ..., d, cols)
     return torch.cat(list(parts), dim=-1)
+
+
+def gram_block(ent: dict, specs, mesh) -> dict:
+    """``CalibStats.gram_block`` of one entry (``specs``: its
+    ``calib_pspecs``, None for an entry held whole on every rank)."""
+    _, col_axes = distributed.gram_split(mesh)
+    g = ent["g"]
+    if specs is not None and specs["g"][-1:] == ("model",):
+        if col_axes != ("model",):
+            raise ValueError(f"a Gram split over 'model' cannot serve the "
+                             f"column axes {col_axes}")
+        block = g                                  # the calibration shard
+    else:
+        block = distributed.column_block(
+            g, groups_lib.axis_group(mesh, col_axes)).contiguous()
+    return {"g": block, "s": ent["s"], "n": ent["n"]}
 
 
 def _shard_batch(batch, data: groups_lib.Group):

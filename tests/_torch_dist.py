@@ -60,6 +60,12 @@ PRUNE_CASES = [
     ("prune_2:4", "2:4", 8, "host", None),
     ("prune_0.5_gram", "0.5", 6, "host", 0),
 ]
+# (case, data, model) of the Gram-sharded prune: prune_model(mesh=)
+# calibrating the "split" batches on the mesh past GRAM_BUDGET, which
+# holds the 64-wide fp32 Grams (16 KiB) but not w_down's 96-wide one
+GRAM_PRUNE_CASES = [("gram_prune_2x2", 2, 2), ("gram_prune_1x4", 1, 4)]
+GRAM_BUDGET = 20000
+GRAM_PRUNE_T_MAX = 6
 # (case, n_samples, batch_size) of accumulate_stats(mesh=) on (2, 2), at
 # sequence length CALIB_SEQ: "split" divides over "data", "whole" does not
 CALIB_CASES = [("split", 8, 4), ("whole", 6, 3)]
@@ -143,6 +149,63 @@ def _prunes(meshes, inputs):
                                   taps=taps, mesh=meshes[mesh], **kw)
         out[case] = (_masks_np(rep.masks),
                      [g.engine_path for g in rep.plan.groups])
+    return out
+
+
+def _gram_prunes(inputs):
+    """``PruneExecutor.run`` on each GRAM_PRUNE_CASES mesh, calibrating on
+    it, with every ``CalibStats.entry`` path, every Gram leaf ``_whole``
+    gathers and every G ``refine_g_sharded`` receives recorded: (masks,
+    engine paths, entry paths, gathered shapes, refiner G shapes, the
+    plan's w_down reckoning, the whole calibrated taps)."""
+    from repro_torch import configs, convert, models, pruning
+    from repro_torch.core import masks as masks_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.pruning import distributed, stats
+
+    api = models.build(configs.get_tiny("llama31-8b"))
+    params = convert.from_numpy(inputs["params"])
+    batches = [convert.from_numpy(b) for b in inputs["calib"]["split"]]
+    seen = {"entry": [], "whole": [], "refine": []}
+    entry, whole, refine = (stats.CalibStats.entry, stats._whole,
+                            distributed.refine_g_sharded)
+
+    def rec_entry(self, path):
+        seen["entry"].append(tuple(path))
+        return entry(self, path)
+
+    def rec_whole(tree, specs, grp):
+        if not isinstance(tree, dict) and specs[-1:] == ("model",):
+            seen["whole"].append(tuple(tree.shape))
+        return whole(tree, specs, grp)
+
+    def rec_refine(W, G, *a, **kw):
+        seen["refine"].append(tuple(G.shape))
+        return refine(W, G, *a, **kw)
+
+    out = {}
+    for case, data, model in GRAM_PRUNE_CASES:
+        mesh = mesh_lib.make_host_mesh(data=data, model=model)
+        recipe = pruning.PruneRecipe.single(masks_lib.PerRow(0.6),
+                                            t_max=GRAM_PRUNE_T_MAX)
+        plan = pruning.plan_pruning(api, params, recipe, mesh=mesh,
+                                    gram_budget_bytes=GRAM_BUDGET)
+        ex = pruning.PruneExecutor(api, params, plan)
+        for v in seen.values():
+            v.clear()
+        stats.CalibStats.entry, stats._whole = rec_entry, rec_whole
+        distributed.refine_g_sharded = rec_refine
+        try:
+            rep = ex.run(batches)
+        finally:
+            stats.CalibStats.entry, stats._whole = entry, whole
+            distributed.refine_g_sharded = refine
+        out[case] = (_masks_np(rep.masks),
+                     {g.name: g.engine_path for g in plan.groups},
+                     list(seen["entry"]), list(seen["whole"]),
+                     list(seen["refine"]),
+                     plan.refine_costs()["layers.mlp.w_down"],
+                     convert.to_numpy(ex.stats.full_taps()))
     return out
 
 
@@ -250,7 +313,8 @@ def run(rank: int, root: str, inputs: dict) -> None:
                "refine": _refines(meshes),
                "psum": _psum(rank, meshes["host"], inputs),
                "prune": _prunes(meshes, inputs),
-               "stats": _stats(meshes, root, saves, inputs)}
+               "stats": _stats(meshes, root, saves, inputs),
+               "gram_prune": _gram_prunes(inputs)}
         out["launch"] = _launch(root, saves, writes)
         torch.save(out, Path(root) / f"rank{rank}.pt")
         dist.destroy_process_group()

@@ -5,6 +5,10 @@ and the plan read the mesh's axis sizes only).
 * ``standard_rules``, ``logical_pspec``, ``use_rules`` / ``active_rules``;
 * ``batch_pspecs`` and ``calib_pspecs``, entry by entry against the
   reference's ``PartitionSpec``;
+* ``leaf_pspec`` (with and without FSDP) shape by shape, and
+  ``param_pspecs`` / ``state_pspecs`` leaf by leaf over the full-width
+  llama31-8b and granite-moe TrainStates (granite-moe's vocabulary 49155
+  replicates);
 * ``plan_pruning(mesh=...)``: every group's engine path (batched,
   rows-sharded, gram-sharded, single-device, skip) and the calibration
   bytes per device, on tiny llama31-8b under a mixed recipe at three Gram
@@ -196,3 +200,61 @@ def test_plan_full_width_gram_sharded_site_matches():
                                   tpruning.PruneRecipe.from_json(RECIPE))
     assert {g.engine_path for g in tnone.groups} == {"batched", "skip"}
     assert tnone.calib_bytes_per_device() == tnone.total_calib_bytes()
+
+
+def _padded(spec, ndim):
+    return tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+
+
+LEAF_SHAPES = [(), (64,), (64, 64), (96, 64), (64, 96), (2, 64, 96),
+               (49155, 1536), (1536, 49155), (40, 512, 1536), (3, 5),
+               (8, 4, 4096, 14336)]
+
+
+@pytest.mark.parametrize("fsdp", [True, False])
+@pytest.mark.parametrize("sizes", MESHES + [{"data": 2, "model": 2}],
+                         ids=IDS + ["data2_model2"])
+def test_leaf_pspec_matches(sizes, fsdp):
+    mesh = _ref_mesh(sizes)
+    for shape in LEAF_SHAPES:
+        want = jspecs.leaf_pspec(("w",), shape, None, mesh, fsdp=fsdp)
+        got = tspecs.leaf_pspec(("w",), shape, None, sizes, fsdp=fsdp)
+        assert got == _padded(want, len(shape)), (shape, got, want)
+
+
+@pytest.mark.parametrize("name", ["llama31-8b", "granite-moe-3b-a800m"])
+def test_param_and_state_pspecs_match(name):
+    """Every leaf of the full-width params and TrainState (shapes only);
+    granite-moe's vocabulary 49155 divides neither axis, so its embedding
+    keeps "data" on d_model and replicates the vocabulary dim."""
+    from repro.optim import adamw as jadamw
+    from repro.train import steps as jsteps
+
+    from repro_torch.train import steps as tsteps
+
+    jcfg, tcfg = jconfigs.get(name), tconfigs.get(name)
+    jparams = jax.eval_shape(lambda: jmodels.build(jcfg).init(
+        jax.random.key(0)))
+    jstate = jax.eval_shape(lambda: jsteps.TrainState(
+        jparams, jadamw.init(jparams)))
+    tstate = tsteps.abstract_state(tmodels.build(tcfg))
+    sizes = {"data": 2, "model": 2}
+    mesh = _ref_mesh(sizes)
+    want = jax.tree_util.tree_flatten_with_path(
+        jspecs.state_pspecs(jcfg, jstate, mesh),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    shapes = dict(jax.tree_util.tree_flatten_with_path(jstate)[0])
+    got = tspecs.state_pspecs(tcfg, tstate, sizes)
+    from repro_torch.ckpt.store import _flatten
+
+    flat = dict(_flatten(got))
+    assert len(flat) == len(want)
+    for path, spec in want:
+        key = "/".join(str(getattr(k, "key", getattr(k, "name", "")))
+                       if not hasattr(k, "name") else f".{k.name}"
+                       for k in path)
+        assert flat[key] == _padded(spec, len(shapes[path].shape)), key
+    emb = flat[".params/embed"]
+    assert emb == ((None, "data") if tcfg.vocab_size == 49155
+                   else ("model", "data"))
+    assert tspecs.param_pspecs(tcfg, tstate.params, sizes) == got.params

@@ -28,8 +28,14 @@ through numpy):
   of the Grams it calibrated;
 * a mesh equal to a dropped one keeps its groups, and a set of axes gets
   its groups when first asked for, ordered by linear index;
-* every rank ends with the same results; a mesh without a process group,
-  and a mesh with a recovery, raise.
+* a Gram-sharded group (w_down past a small Gram budget, on (2, 2) and
+  (1, 4), calibrated on the mesh) refines each rank's column block of its
+  calibration shard: it is never gathered, the refiner receives (d,
+  d / model) blocks, the plan reckons the block, and the masks are
+  bitwise a one-process run of the same split and equal to the port's
+  and the reference's single device on the same Grams;
+* every rank ends with the same results; a mesh without a process group
+  raises, and a plan on a mesh plans a recipe's recovery.
 """
 import types
 
@@ -239,6 +245,54 @@ def test_prune_model_mesh_matches_single_device_and_reference(world, case):
         assert np.array_equal(masks[k], v > 0.5), k
 
 
+@pytest.mark.parametrize("case", _torch_dist.GRAM_PRUNE_CASES,
+                         ids=[c[0] for c in _torch_dist.GRAM_PRUNE_CASES])
+def test_gram_sharded_group_refines_its_column_block(world, case):
+    """Past the Gram budget w_down refines on each rank's (d, d / model)
+    calibration shard: G is never gathered for it, the plan reckons the
+    block, and the masks are bitwise a one-process run of the same split
+    and equal to the port's and the reference's single device on the
+    Grams the mesh calibrated."""
+    name, data, model = case
+    masks, paths, entries, gathered, blocks, cost, taps = \
+        _same_on_every_rank(world.world.results(), "gram_prune", name)
+    cfg = configs.get_tiny(ARCH)
+    d = cfg.d_ff
+    assert paths.pop("layers.mlp.w_down") == "gram-sharded"
+    assert set(paths.values()) == {"rows-sharded"}
+    assert ("w_down",) not in entries and entries     # the others gather
+    assert all(shape[-2:] != (d, d // model) for shape in gathered)
+    assert blocks == [(d, d // model)] * cfg.n_layers
+    assert cost["gram"] == 4 * d * (d // model) < 4 * d * d
+    # the same Grams through the port's and the reference's single device
+    tapi = models.build(cfg)
+    params = convert.from_numpy(world.inputs["params"])
+    t_taps = convert.from_numpy(taps)
+    single = _leaves(tpruning.prune_model(
+        tapi, params, None, tmasks.PerRow(0.6),
+        t_max=_torch_dist.GRAM_PRUNE_T_MAX, taps=t_taps).masks)
+    japi = jmodels.build(jconfigs.get_tiny(ARCH))
+    ref = _leaves(jpruning.prune_model(
+        japi, jax.tree.map(jnp.asarray, world.inputs["params"]), None,
+        jmasks.PerRow(0.6), t_max=_torch_dist.GRAM_PRUNE_T_MAX,
+        taps=jax.tree.map(jnp.asarray, taps), swap_method="chunked").masks)
+    assert sorted(masks) == sorted(single) == sorted(ref)
+    for k in single:
+        assert np.array_equal(masks[k], single[k] > 0.5), k
+        assert np.array_equal(masks[k], ref[k] > 0.5), k
+    # w_down bitwise a one-process run of the (data, model) split
+    from repro_torch.pruning import distributed
+
+    W = params["layers"]["mlp"]["w_down"]
+    G = t_taps["w_down"]["g"]
+    for i in range(cfg.n_layers):
+        m0 = warmstart_mask(W[i].float(), G[i], tmasks.PerRow(0.6), "wanda")
+        m, _, _ = distributed.refine_split_single(
+            W[i], G[i], m0, tmasks.PerRow(0.6), n_cols=model, n_rows=data,
+            t_max=_torch_dist.GRAM_PRUNE_T_MAX, k_swaps=8)
+        assert np.array_equal(masks["layers/mlp/w_down"][i], m.numpy() > 0.5)
+
+
 def _calib_single(params, batches):
     """The port's single-device calibration of ``params`` on ``batches``
     (numpy trees)."""
@@ -335,7 +389,7 @@ def test_launcher_mesh_writes_once_matches_single_device(world):
         assert np.array_equal(got[k] > 0.5, want[k] > 0.5), k
 
 
-def test_mesh_needs_a_process_group_and_refuses_recovery(monkeypatch):
+def test_mesh_needs_a_process_group(monkeypatch):
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="process group"):
         mesh_lib.make_host_mesh()
@@ -343,9 +397,14 @@ def test_mesh_needs_a_process_group_and_refuses_recovery(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(RuntimeError, match="torchrun"):
         mesh_lib.init_distributed("cpu")
+
+
+def test_plan_on_a_mesh_plans_recovery():
     api = models.build(configs.get_tiny(ARCH))
     meta = api.init(seed=0, device="meta")
-    rec = tpruning.PruneRecipe.single(
-        "0.6", recover=tpruning.RecoverSpec(select="norms", steps=2))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tpruning.plan_pruning(api, meta, rec, mesh={"data": 4})
+    spec = tpruning.RecoverSpec(select="norms", steps=2)
+    rec = tpruning.PruneRecipe.single("0.6", recover=spec)
+    plan = tpruning.plan_pruning(api, meta, rec, mesh={"data": 4})
+    assert plan.recover == spec
+    assert {g.engine_path for g in plan.groups} == {"rows-sharded"}
+    assert f"recovery (PERP): {spec.describe()}" in plan.describe()

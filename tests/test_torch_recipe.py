@@ -160,16 +160,15 @@ def test_plan_costs_and_paths_match_reference(apis):
 
 def test_recovery_and_mesh_raise(apis):
     """A recipe's recovery rides the plan (``PruneExecutor.recover`` runs
-    it; ``tests/test_torch_recover.py``); a mesh with a recovery still
-    raises (A5: sharded recovery)."""
+    it; ``tests/test_torch_recover.py``), with a mesh too: recovery trains
+    sharded over it (``tests/test_torch_mesh_train.py``)."""
     _, _, tapi, tmeta = apis
     spec = tpruning.RecoverSpec(select="lora", steps=7)
     rec = tpruning.PruneRecipe.single("0.6", recover=spec)
-    plan = tpruning.plan_pruning(tapi, tmeta, rec)
-    assert plan.recover == spec
-    assert "recovery (PERP): select=lora steps=7" in plan.describe()
-    with pytest.raises(NotImplementedError, match="A5"):
-        tpruning.plan_pruning(tapi, tmeta, rec, mesh={"data": 2})
+    for mesh in (None, {"data": 2}):
+        plan = tpruning.plan_pruning(tapi, tmeta, rec, mesh=mesh)
+        assert plan.recover == spec
+        assert "recovery (PERP): select=lora steps=7" in plan.describe()
 
 
 def test_cli_recipe_plan_only_and_resume(tmp_path, capsys):

@@ -182,7 +182,8 @@ def test_biases_on_rmsnorm_raises_like_reference():
         jrecover_mod.build_selection(jparams, {}, js)
     with pytest.raises(ValueError, match="matched no params"):
         trecover_mod.build_selection(_t(jparams), {}, ts)
-    with pytest.raises(NotImplementedError, match="A5"):
+    # on a mesh too, before any sharding or collective
+    with pytest.raises(ValueError, match="matched no params"):
         tpruning.recover(tmodels.build(tcfg), _t(jparams), {}, ts,
                          mesh=object())
 
